@@ -1,5 +1,5 @@
-// K2: modulated deformable im2col (DCNv2 sampling), forward. Hand-written
-// for sm_90a.
+// K2: modulated deformable im2col (DCNv2 sampling), forward and backward.
+// Hand-written for sm_90a.
 //
 // Replaces the tap sampling of graph_detr4d_tpu/ops/deform_conv.py::
 // deform_conv2d (`_sample_taps_onehot` for small grids, the shift4
@@ -29,6 +29,18 @@
 // Folding the column tile into a tensor-core GEMM (implicit GEMM, the tile
 // built in shared memory and never written out) is the next step; it
 // removes the 2 x 221 MB round trip.
+//
+// Backward (deform_col2im): given grad_cols (B*Ho*Wo, 9*Cin), one warp per
+// (output pixel, tap) re-samples the four corners across its lanes'
+// channels and gives
+//   grad_x[b, y, x, c]  += mask * w_corner * grad_col   (fp32 atomicAdd
+//                          into a zeroed NHWC buffer the wrapper casts),
+//   grad_offset[p, k]   =  mask * sum_c grad_col * d sample / d(dy, dx),
+//   grad_mask[p, k]     =  sum_c grad_col * sample,
+// the two sums reduced across the warp. The weight gradient is the plain
+// matrix product cols^T . grad_out, outside this file: autograd keeps the
+// forward's column tile for it (saved, not recomputed). What bounds it: the
+// read of grad_cols (as large as the tile) and the atomics into grad_x.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -136,6 +148,105 @@ cudaError_t launch(const void* x, const void* offset, const void* mask,
   return cudaGetLastError();
 }
 
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+constexpr int kBwdWarps = 8;  // warps per block of the backward
+
+template <typename T>
+__global__ void deform_col2im_kernel(
+    const T* __restrict__ x,          // (B, H, W, C)
+    const T* __restrict__ offset,     // (B, Ho, Wo, 9, 2) as (dy, dx)
+    const T* __restrict__ mask,       // (B, Ho, Wo, 9)
+    const T* __restrict__ grad_cols,  // (B*Ho*Wo, 9*C)
+    float* __restrict__ grad_x,       // (B, H, W, C), zeroed
+    float* __restrict__ grad_offset,  // (B, Ho, Wo, 9, 2)
+    float* __restrict__ grad_mask,    // (B, Ho, Wo, 9)
+    int H, int W, int C, int Ho, int Wo, int stride, int pad, int64_t items) {
+  const int lane = threadIdx.x & 31;
+  const int64_t e =
+      static_cast<int64_t>(blockIdx.x) * kBwdWarps + (threadIdx.x >> 5);
+  if (e >= items) return;  // warp-uniform: one (pixel, tap) per warp
+  const int64_t p = e / kTaps;
+  const int k = static_cast<int>(e - p * kTaps);
+  const int b = static_cast<int>(p / (static_cast<int64_t>(Ho) * Wo));
+  const int rem = static_cast<int>(p - static_cast<int64_t>(b) * Ho * Wo);
+  const int ho = rem / Wo, wo = rem - (rem / Wo) * Wo;
+  const float m = to_float(mask[e]);
+  const float y = static_cast<float>(ho * stride - pad + k / 3) +
+                  to_float(offset[2 * e]);
+  const float xf = static_cast<float>(wo * stride - pad + k % 3) +
+                   to_float(offset[2 * e + 1]);
+  float s_mask = 0.f, s_y = 0.f, s_x = 0.f;
+  // written so that NaN and far-away samples fall through to no gradient
+  if (y > -1.f && y < static_cast<float>(H) && xf > -1.f &&
+      xf < static_cast<float>(W)) {
+    const float y0f = floorf(y), x0f = floorf(xf);
+    const int y0 = static_cast<int>(y0f), x0 = static_cast<int>(x0f);
+    const float fy = y - y0f, fx = xf - x0f;
+    int64_t pix[4];  // element offset of the corner in x, -1 outside
+    float w[4], dwy[4], dwx[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int dy = c >> 1, dx = c & 1;
+      const int yy = y0 + dy, xx = x0 + dx;
+      const bool in = yy >= 0 && yy < H && xx >= 0 && xx < W;
+      const float wy = dy ? fy : 1.f - fy, wx = dx ? fx : 1.f - fx;
+      w[c] = wy * wx;
+      dwy[c] = wx * (dy ? 1.f : -1.f);
+      dwx[c] = wy * (dx ? 1.f : -1.f);
+      pix[c] = in ? (static_cast<int64_t>(b) * H * W +
+                     static_cast<int64_t>(yy) * W + xx) * C
+                  : -1;
+    }
+    const T* gc = grad_cols + p * kTaps * C + static_cast<int64_t>(k) * C;
+    for (int ch = lane; ch < C; ch += 32) {
+      const float g = to_float(gc[ch]);
+      float sample = 0.f, dsy = 0.f, dsx = 0.f;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        if (pix[c] < 0) continue;
+        const float v = to_float(x[pix[c] + ch]);
+        sample += w[c] * v;
+        dsy += dwy[c] * v;
+        dsx += dwx[c] * v;
+        if (m != 0.f && w[c] != 0.f) atomicAdd(grad_x + pix[c] + ch, m * w[c] * g);
+      }
+      s_mask += g * sample;
+      s_y += g * dsy;
+      s_x += g * dsx;
+    }
+  }
+  s_mask = warp_sum(s_mask);
+  s_y = warp_sum(s_y);
+  s_x = warp_sum(s_x);
+  if (lane == 0) {
+    grad_mask[e] = s_mask;
+    grad_offset[2 * e] = m * s_y;
+    grad_offset[2 * e + 1] = m * s_x;
+  }
+}
+
+template <typename T>
+cudaError_t launch_backward(const void* x, const void* offset,
+                            const void* mask, const void* grad_cols,
+                            void* grad_x, void* grad_offset, void* grad_mask,
+                            int B, int H, int W, int C, int Ho, int Wo,
+                            int stride, int pad, cudaStream_t stream) {
+  const int64_t items = static_cast<int64_t>(B) * Ho * Wo * kTaps;
+  const int64_t blocks = (items + kBwdWarps - 1) / kBwdWarps;
+  deform_col2im_kernel<T><<<static_cast<unsigned>(blocks), kBwdWarps * 32, 0,
+                            stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(offset),
+      static_cast<const T*>(mask), static_cast<const T*>(grad_cols),
+      static_cast<float*>(grad_x), static_cast<float*>(grad_offset),
+      static_cast<float*>(grad_mask), H, W, C, Ho, Wo, stride, pad, items);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -156,6 +267,33 @@ int deform_im2col(const void* x, const void* offset, const void* mask,
   } else if (dtype == 1) {
     err = launch<__nv_bfloat16>(x, offset, mask, cols, B, H, W, C, Ho, Wo,
                                 stride, pad, s);
+  } else {
+    err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
+}
+
+// Gradients of deform_im2col for x, offset and mask, given grad_cols
+// (B*Ho*Wo, 9*C) in x's dtype. grad_x is float32 NHWC and must be zeroed
+// by the caller; grad_offset and grad_mask are float32 and fully written.
+// Returns the cudaError_t of the launch (0 = success).
+int deform_col2im(const void* x, const void* offset, const void* mask,
+                  const void* grad_cols, void* grad_x, void* grad_offset,
+                  void* grad_mask, int B, int H, int W, int C, int Ho, int Wo,
+                  int stride, int pad, int dtype, void* stream) {
+  // empty work launches nothing; the caller skips it, so 0 means launched
+  if (static_cast<int64_t>(B) * Ho * Wo == 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (dtype == 0) {
+    err = launch_backward<float>(x, offset, mask, grad_cols, grad_x,
+                                 grad_offset, grad_mask, B, H, W, C, Ho, Wo,
+                                 stride, pad, s);
+  } else if (dtype == 1) {
+    err = launch_backward<__nv_bfloat16>(x, offset, mask, grad_cols, grad_x,
+                                         grad_offset, grad_mask, B, H, W, C,
+                                         Ho, Wo, stride, pad, s);
   } else {
     err = cudaErrorInvalidValue;
   }

@@ -1,4 +1,5 @@
-// K1: multi-scale deformable attention, forward. Hand-written for sm_90a.
+// K1: multi-scale deformable attention, forward and backward. Hand-written
+// for sm_90a.
 //
 // Replaces graph_detr4d_tpu/ops/msda.py::multi_scale_deformable_attention
 // (its shift4h / pair / one-hot / corner-table XLA samplers, which exist
@@ -28,6 +29,17 @@
 //   * the index list is read in the kernel, so the compacted queries are
 //     never copied into a gathered loc / attn tensor.
 // Accumulation is fp32 whatever the value type.
+//
+// Backward (msda_backward): mmcv's col2im scheme. One warp per (bn, row,
+// head); its lanes take the head's channels. For each (level, point) the
+// lanes re-sample the four corners, scatter attn * w_corner * grad_out into
+// grad_value with fp32 atomicAdd (the wrapper zeroes that fp32 buffer and
+// casts it to value's dtype), and reduce across lanes the per-channel
+// products that give grad_attn (grad_out . sample) and grad_loc
+// (attn * grad_out . d sample / d(x, y), times W or H). A corner outside
+// the image contributes nothing; grad_attn needs the sample even where
+// attn is 0. What bounds it: the same gather as the forward, plus one
+// atomic per touched value element; the scatter is the cost.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -157,6 +169,126 @@ cudaError_t launch(const void* value, const void* loc, const void* attn,
   return cudaGetLastError();
 }
 
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+constexpr int kBwdWarps = 8;  // warps per block of the backward
+
+template <typename T>
+__global__ void msda_backward_kernel(
+    const T* __restrict__ value,         // (BN, S, heads, hd)
+    const float* __restrict__ loc,       // (BN, Q, heads, L, P, 2)
+    const float* __restrict__ attn,      // (BN, Q, heads, L, P)
+    const int64_t* __restrict__ index,   // (BN, R) or nullptr
+    const T* __restrict__ grad_out,      // (BN, R, heads * hd)
+    float* __restrict__ grad_value,      // (BN, S, heads, hd), zeroed
+    float* __restrict__ grad_loc,        // (BN, Q, heads, L, P, 2), zeroed
+    float* __restrict__ grad_attn,       // (BN, Q, heads, L, P), zeroed
+    int BN, int S, int Q, int R, int heads, int hd, int L, int P, Levels lv) {
+  const int lane = threadIdx.x & 31;
+  const int64_t item =
+      static_cast<int64_t>(blockIdx.x) * kBwdWarps + (threadIdx.x >> 5);
+  if (item >= static_cast<int64_t>(BN) * R * heads) return;  // warp-uniform
+  const int h = static_cast<int>(item % heads);
+  const int64_t br = item / heads;  // bn * R + r
+  const int bn = static_cast<int>(br / R);
+  const int64_t q = index ? index[br] : (br - static_cast<int64_t>(bn) * R);
+  const int C = heads * hd;
+  const int LP = L * P;
+  const T* go = grad_out + br * C + h * hd;
+  const T* vbase = value + static_cast<int64_t>(bn) * S * C + h * hd;
+  float* gvbase = grad_value + static_cast<int64_t>(bn) * S * C + h * hd;
+  const int64_t src0 = ((static_cast<int64_t>(bn) * Q + q) * heads + h) * LP;
+
+  for (int lp = 0; lp < LP; ++lp) {
+    const int l = lp / P;
+    const int64_t src = src0 + lp;
+    const float a = attn[src];
+    const int H = lv.h[l], W = lv.w[l];
+    const float x = loc[2 * src] * W - 0.5f;
+    const float y = loc[2 * src + 1] * H - 0.5f;
+    // written so that NaN and far-away samples fall through to no gradient
+    if (!(x > -1.f && x < static_cast<float>(W) && y > -1.f &&
+          y < static_cast<float>(H)))
+      continue;
+    const float x0f = floorf(x), y0f = floorf(y);
+    const int x0 = static_cast<int>(x0f), y0 = static_cast<int>(y0f);
+    const float fx = x - x0f, fy = y - y0f;
+    int64_t rows[4];  // element offset of the corner's row, -1 outside
+    float w[4], dwx[4], dwy[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int dy = k >> 1, dx = k & 1;
+      const int yy = y0 + dy, xx = x0 + dx;
+      const bool in = yy >= 0 && yy < H && xx >= 0 && xx < W;
+      const float wy = dy ? fy : 1.f - fy, wx = dx ? fx : 1.f - fx;
+      w[k] = in ? wy * wx : 0.f;
+      dwx[k] = in ? wy * (dx ? 1.f : -1.f) : 0.f;
+      dwy[k] = in ? wx * (dy ? 1.f : -1.f) : 0.f;
+      rows[k] = in ? static_cast<int64_t>(lv.start[l] + yy * W + xx) * C : -1;
+    }
+    float s_attn = 0.f, s_x = 0.f, s_y = 0.f;
+    for (int c = lane; c < hd; c += 32) {
+      const float g = to_float(go[c]);
+      float sample = 0.f, dsx = 0.f, dsy = 0.f;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        if (rows[k] < 0) continue;
+        const float v = to_float(vbase[rows[k] + c]);
+        sample += w[k] * v;
+        dsx += dwx[k] * v;
+        dsy += dwy[k] * v;
+        if (a != 0.f && w[k] != 0.f) atomicAdd(gvbase + rows[k] + c, a * w[k] * g);
+      }
+      s_attn += g * sample;
+      s_x += g * dsx;
+      s_y += g * dsy;
+    }
+    s_attn = warp_sum(s_attn);
+    s_x = warp_sum(s_x);
+    s_y = warp_sum(s_y);
+    if (lane == 0) {
+      grad_attn[src] = s_attn;
+      grad_loc[2 * src] = a * s_x * W;
+      grad_loc[2 * src + 1] = a * s_y * H;
+    }
+  }
+}
+
+template <typename T>
+cudaError_t launch_backward(const void* value, const void* loc,
+                            const void* attn, const void* index,
+                            const void* grad_out, void* grad_value,
+                            void* grad_loc, void* grad_attn, int BN, int S,
+                            int Q, int R, int heads, int hd, int L, int P,
+                            const Levels& lv, cudaStream_t stream) {
+  const int64_t items = static_cast<int64_t>(BN) * R * heads;
+  const int64_t blocks = (items + kBwdWarps - 1) / kBwdWarps;
+  msda_backward_kernel<T><<<static_cast<unsigned>(blocks), kBwdWarps * 32, 0,
+                            stream>>>(
+      static_cast<const T*>(value), static_cast<const float*>(loc),
+      static_cast<const float*>(attn), static_cast<const int64_t*>(index),
+      static_cast<const T*>(grad_out), static_cast<float*>(grad_value),
+      static_cast<float*>(grad_loc), static_cast<float*>(grad_attn), BN, S, Q,
+      R, heads, hd, L, P, lv);
+  return cudaGetLastError();
+}
+
+bool make_levels(const int* level_hw, int L, int S, Levels* lv) {
+  if (L < 1 || L > kMaxLevels) return false;
+  int start = 0;
+  for (int l = 0; l < L; ++l) {
+    lv->h[l] = level_hw[2 * l];
+    lv->w[l] = level_hw[2 * l + 1];
+    lv->start[l] = start;
+    start += lv->h[l] * lv->w[l];
+  }
+  return start == S;
+}
+
 }  // namespace
 
 extern "C" {
@@ -175,20 +307,13 @@ int msda_forward(const void* value, const void* loc, const void* attn,
                  const void* index, void* out, int BN, int S, int Q, int R,
                  int heads, int hd, int L, int P, const int* level_hw,
                  int dtype, void* stream) {
-  if (L < 1 || L > kMaxLevels) return static_cast<int>(cudaErrorInvalidValue);
   if (heads * L * P > msda_max_hlp())
     return static_cast<int>(cudaErrorInvalidValue);
   // empty work launches nothing; the caller skips it, so 0 means launched
   if (R == 0 || BN == 0) return static_cast<int>(cudaErrorInvalidValue);
   Levels lv;
-  int start = 0;
-  for (int l = 0; l < L; ++l) {
-    lv.h[l] = level_hw[2 * l];
-    lv.w[l] = level_hw[2 * l + 1];
-    lv.start[l] = start;
-    start += lv.h[l] * lv.w[l];
-  }
-  if (start != S) return static_cast<int>(cudaErrorInvalidValue);
+  if (!make_levels(level_hw, L, S, &lv))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0) {
@@ -197,6 +322,39 @@ int msda_forward(const void* value, const void* loc, const void* attn,
   } else if (dtype == 1) {
     err = launch<__nv_bfloat16>(value, loc, attn, index, out, BN, S, Q, R,
                                 heads, hd, L, P, lv, s);
+  } else {
+    err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
+}
+
+// Gradients of msda_forward for value, loc and attn, given grad_out
+// (BN, R, heads * hd) in value's dtype. grad_value is float32 (BN, S,
+// heads, hd), grad_loc and grad_attn float32 in the shapes of loc and attn;
+// all three must be zeroed by the caller. With an index list, row r of bn
+// writes grad_loc / grad_attn at query index[bn, r]; the indices of a row
+// must be distinct. Returns the cudaError_t of the launch (0 = success).
+int msda_backward(const void* value, const void* loc, const void* attn,
+                  const void* index, const void* grad_out, void* grad_value,
+                  void* grad_loc, void* grad_attn, int BN, int S, int Q,
+                  int R, int heads, int hd, int L, int P,
+                  const int* level_hw, int dtype, void* stream) {
+  // empty work launches nothing; the caller skips it, so 0 means launched
+  if (R == 0 || BN == 0 || heads == 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Levels lv;
+  if (!make_levels(level_hw, L, S, &lv))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (dtype == 0) {
+    err = launch_backward<float>(value, loc, attn, index, grad_out,
+                                 grad_value, grad_loc, grad_attn, BN, S, Q, R,
+                                 heads, hd, L, P, lv, s);
+  } else if (dtype == 1) {
+    err = launch_backward<__nv_bfloat16>(value, loc, attn, index, grad_out,
+                                         grad_value, grad_loc, grad_attn, BN,
+                                         S, Q, R, heads, hd, L, P, lv, s);
   } else {
     err = cudaErrorInvalidValue;
   }

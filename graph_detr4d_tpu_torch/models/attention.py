@@ -9,8 +9,8 @@ projects/mmdet3d_plugin/models/utils/deform3d_cross_attn.py:33-339):
   3. multi-scale deformable attention (kernel K1, ops/msda.py) samples
      each camera's features with softmax(L*P) weights times the mask,
   4. a sigmoid per-camera gate sums over cameras,
-  5. output projection + residual + positional MLP of the inverse-sigmoid
-     reference point.
+  5. output projection + dropout + residual + positional MLP of the
+     inverse-sigmoid reference point.
 
 With `cam_capacity` < 1 each camera samples only its K = ceil(Q *
 cam_capacity) queries that have any in-view sample; the rest contribute
@@ -27,7 +27,7 @@ import torch.nn as nn
 from ..geometry.projection import denormalize_points
 from ..ops import msda as msda_ops
 from ..utils.math import inverse_sigmoid
-from .layers import Linear, ln_mlp
+from .layers import Linear, dropout, ln_mlp
 
 
 def offset_bias_init(num_heads: int, num_points: int) -> np.ndarray:
@@ -53,9 +53,11 @@ class Deform3DCrossAttn(nn.Module):
         num_cams: int = 12,
         pc_range: Tuple[float, ...] = (-51.2, -51.2, -5.0, 51.2, 51.2, 3.0),
         cam_capacity: float = 1.0,
+        dropout: float = 0.1,
     ):
         super().__init__()
         C = embed_dims
+        self.dropout = dropout
         self.num_heads, self.num_levels = num_heads, num_levels
         self.num_points, self.num_cams = num_points, num_cams
         self.pc_range = tuple(pc_range)
@@ -76,6 +78,7 @@ class Deform3DCrossAttn(nn.Module):
         reference_points: torch.Tensor,  # (B, Q, 3) in [0, 1]
         lidar2img: torch.Tensor,  # (B, N, 4, 4)
         img_shape: Tuple[int, int],  # network input (H_img, W_img)
+        generator=None,  # dropout's random source; None = eval
     ):
         """Returns (query update (B, Q, C), cam_overflow scalar tensor):
         the overflow counts in-view queries the compaction dropped (0 means
@@ -143,7 +146,8 @@ class Deform3DCrossAttn(nn.Module):
         # (deform3d_cross_attn.py:211-212).
         gate = torch.sigmoid(gate_logits.float()).reshape(B, N, Q, 1)
         out = (sampled.float() * gate).sum(dim=1)
-        out = self.output_proj(out.to(query.dtype))
+        out = dropout(self.output_proj(out.to(query.dtype)), self.dropout,
+                      generator)
 
         pe = inverse_sigmoid(reference_points.float())
         pos_feat = self.position_encoder(pe.to(query.dtype))

@@ -1,6 +1,7 @@
-"""GraphDETR4D detector: backbone -> FPN -> head (counterpart of
-graph_detr4d_tpu/models/detector.py, inference with a ResNet backbone and
-the `detr4d_pe` head).
+"""GraphDETR4D detector: grid mask -> backbone -> FPN -> head
+(counterpart of graph_detr4d_tpu/models/detector.py with a ResNet backbone
+and the `detr4d_pe` head). The grid mask and dropout apply only in
+training (detr3d.py:53-54), drawn from the generator the forward is given.
 
 All cameras fold into the batch axis for the conv stack (detr3d.py:62-66),
 then unfold to (B, N, ...) for the head. The convs run NCHW tensors whose
@@ -14,6 +15,7 @@ import torch.nn as nn
 from ..config import ModelConfig
 from ..utils.device import resolve_device
 from .fpn import FPN
+from .grid_mask import apply_grid_mask, grid_mask_params
 from .head import Detr3DHeadPE
 from .resnet import ResNet
 
@@ -67,14 +69,21 @@ class GraphDETR4D(nn.Module):
         self.pts_bbox_head = Detr3DHeadPE(cfg.head, cfg.img_size)
         self.to(dev)
 
-    def extract_feats(self, images: torch.Tensor):
+    def extract_feats(self, images: torch.Tensor, generator=None):
         """images (B, N, H, W, 3) -> L x (B, N, h, w, C) in the compute
-        dtype."""
+        dtype. generator: training's random source for the grid mask;
+        None in eval."""
         B, N, H, W, _ = images.shape
         if self.cfg.device_normalize:
             mean = torch.tensor(self.cfg.img_mean, device=images.device)
             std = torch.tensor(self.cfg.img_std, device=images.device)
             images = (images.float() - mean) / std
+        tc = self.cfg.train
+        if generator is not None and tc.use_grid_mask:
+            # after normalisation, so a masked pixel is 0 in normalized space
+            apply, d, l, st_h, st_w = grid_mask_params(
+                generator, H, tc.grid_mask_prob)
+            images = apply_grid_mask(images, d, l, st_h, st_w, apply)
         x = images.reshape(B * N, H, W, 3).to(self.dtype).permute(0, 3, 1, 2)
         feats = self.img_neck(self.img_backbone(x))
         return [
@@ -82,11 +91,20 @@ class GraphDETR4D(nn.Module):
             for f in feats
         ]
 
-    def forward_feats(self, feats, lidar2img: torch.Tensor):
+    def forward_feats(self, feats, lidar2img: torch.Tensor, generator=None):
         """Head-only forward over precomputed camera features."""
-        return self.pts_bbox_head(feats, lidar2img)
+        return self.pts_bbox_head(feats, lidar2img, generator)
 
-    def forward(self, images: torch.Tensor, lidar2img: torch.Tensor):
+    def forward(self, images: torch.Tensor, lidar2img: torch.Tensor,
+                train: bool = False, generator=None):
         """images (B, N, H, W, 3) normalized (raw pixels with
-        cfg.device_normalize); lidar2img (B, N, 4, 4)."""
-        return self.forward_feats(self.extract_feats(images), lidar2img)
+        cfg.device_normalize); lidar2img (B, N, 4, 4). train=True draws the
+        grid mask and dropout from `generator`, a torch.Generator on the
+        model's device; eval ignores it."""
+        if not train:
+            generator = None
+        elif generator is None:
+            raise ValueError("train=True needs a generator for the grid "
+                             "mask and dropout")
+        return self.forward_feats(self.extract_feats(images, generator),
+                                  lidar2img, generator)

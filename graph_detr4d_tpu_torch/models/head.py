@@ -11,7 +11,8 @@ projects/mmdet3d_plugin/models/dense_heads/detr3d_head_pe.py):
     reference point ENTERING the layer, then sigmoid and pc_range denorm
     (:587-600).
 
-Inference only. Public tensors keep the JAX layouts: features L x
+With `with_detach`, level 0 of the past frame's cameras is cut from the
+gradient (:512-516). Public tensors keep the JAX layouts: features L x
 (B, N, H, W, C), outputs (layers, B, Q, .).
 """
 
@@ -69,6 +70,7 @@ class Transformer(nn.Module):
                 ffn_dims=cfg.ffn_dims,
                 pc_range=cfg.pc_range,
                 cam_capacity=cfg.cam_capacity,
+                dropout=cfg.dropout,
             )
             for _ in range(cfg.num_decoder_layers)
         ])
@@ -121,15 +123,21 @@ class Detr3DHeadPE(nn.Module):
         p3d = inverse_sigmoid((p3d - lo) / (hi - lo))
         return p3d.reshape(B, N, H, W, D * 3)
 
-    def forward(self, mlvl_feats, lidar2img):
+    def forward(self, mlvl_feats, lidar2img, generator=None):
         """mlvl_feats: L x (B, N, H, W, C) in the compute dtype;
-        lidar2img (B, N, 4, 4). Returns {'all_cls_scores' (layers, B, Q,
+        lidar2img (B, N, 4, 4); generator: dropout's random source in
+        training, None in eval. Returns {'all_cls_scores' (layers, B, Q,
         classes), 'all_bbox_preds' (layers, B, Q, code), 'cam_overflow'}.
         """
         cfg = self.cfg
         dtype = mlvl_feats[0].dtype
         B, N = mlvl_feats[0].shape[:2]
         lidar2img = lidar2img.float()
+        nf = cfg.num_frame_cams
+        if cfg.with_detach and N > nf and mlvl_feats[0].requires_grad:
+            f0 = mlvl_feats[0]
+            mlvl_feats = [torch.cat([f0[:, :nf], f0[:, nf:].detach()], dim=1),
+                          *mlvl_feats[1:]]
 
         feats_pe, shapes = [], []
         for feat in mlvl_feats:
@@ -159,7 +167,8 @@ class Detr3DHeadPE(nn.Module):
         cls_scores, bbox_preds, overflow = [], [], 0.0
         for lid, layer in enumerate(self.transformer.decoder.layers):
             query, ov = layer(query, query_pos, value, shapes,
-                              reference_points, lidar2img, self.img_shape)
+                              reference_points, lidar2img, self.img_shape,
+                              generator)
             overflow = overflow + ov
             score = self.cls_branches[lid](query)
             tmp = self.reg_branches[lid](query).float()

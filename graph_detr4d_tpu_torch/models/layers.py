@@ -16,6 +16,18 @@ def _cast(p, dtype):
     return None if p is None else p.to(dtype)
 
 
+def dropout(x, p: float, generator, shape=None):
+    """flax `nn.Dropout` in training: keep each element with probability
+    1 - p and scale it by 1 / (1 - p); the mask is drawn from `generator`
+    at `shape` (default x's shape; smaller shapes broadcast). The identity
+    for generator None (eval) or p == 0."""
+    if generator is None or p == 0.0:
+        return x
+    keep = torch.rand(x.shape if shape is None else shape,
+                      generator=generator, device=x.device) < 1.0 - p
+    return torch.where(keep, x / (1.0 - p), 0.0)
+
+
 class Linear(nn.Linear):
     """nn.Linear computing in its input's dtype."""
 

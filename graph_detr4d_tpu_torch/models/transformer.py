@@ -2,9 +2,13 @@
 
 mmcv DetrTransformerDecoderLayer with operation order (self_attn, norm,
 cross_attn, norm, ffn, norm), post-norm (configs/detr4d/...12e.py:83-84).
-Inference only: dropout is the identity. Module names follow the
-reference's state_dict (`attentions.0.attn.in_proj_weight`, `ffns.0`,
-`norms.2`, ...).
+Dropout sits where the JAX layer has it: the self-attention weights (flax
+MultiHeadDotProductAttention's `dropout_rate`, one mask broadcast over
+batch and heads), the self-attention output (transformer.py:82), the
+cross-attention output (attention.py:283) and both FFN layers (:37, :39).
+It is drawn from the `generator` a forward is given; without one (eval)
+it is the identity. Module names follow the reference's state_dict
+(`attentions.0.attn.in_proj_weight`, `ffns.0`, `norms.2`, ...).
 """
 
 from typing import Sequence, Tuple
@@ -14,7 +18,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from .attention import Deform3DCrossAttn
-from .layers import LayerNorm, Linear
+from .layers import LayerNorm, Linear, dropout
 
 
 class MultiheadAttention(nn.Module):
@@ -22,14 +26,15 @@ class MultiheadAttention(nn.Module):
     parameters (packed in_proj, out_proj), as plain matmuls and a softmax
     in fp32."""
 
-    def __init__(self, embed_dims: int, num_heads: int):
+    def __init__(self, embed_dims: int, num_heads: int, dropout: float = 0.1):
         super().__init__()
         self.num_heads = num_heads
+        self.dropout = dropout
         self.in_proj_weight = nn.Parameter(torch.empty(3 * embed_dims, embed_dims))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * embed_dims))
         self.out_proj = Linear(embed_dims, embed_dims)
 
-    def forward(self, query, key, value):
+    def forward(self, query, key, value, generator=None):
         B, Q, C = query.shape
         h = self.num_heads
         w = self.in_proj_weight.to(query.dtype)
@@ -42,6 +47,8 @@ class MultiheadAttention(nn.Module):
         q = heads(query, 0) / (C // h) ** 0.5
         k, v = heads(key, 1), heads(value, 2)
         weights = torch.softmax((q @ k.transpose(-1, -2)).float(), dim=-1)
+        weights = dropout(weights, self.dropout, generator,
+                          shape=weights.shape[-2:])
         out = (weights.to(v.dtype) @ v).transpose(1, 2).reshape(B, Q, C)
         return self.out_proj(out)
 
@@ -50,25 +57,29 @@ class SelfAttention(nn.Module):
     """mmcv MultiheadAttention wrapper: q = k = query + pos, v = query,
     out = query + attn."""
 
-    def __init__(self, embed_dims: int, num_heads: int):
+    def __init__(self, embed_dims: int, num_heads: int, dropout: float = 0.1):
         super().__init__()
-        self.attn = MultiheadAttention(embed_dims, num_heads)
+        self.dropout = dropout
+        self.attn = MultiheadAttention(embed_dims, num_heads, dropout)
 
-    def forward(self, query, query_pos):
+    def forward(self, query, query_pos, generator=None):
         q = query + query_pos
-        return query + self.attn(q, q, query)
+        out = self.attn(q, q, query, generator)
+        return query + dropout(out, self.dropout, generator)
 
 
 class FFN(nn.Module):
-    def __init__(self, embed_dims: int, hidden: int):
+    def __init__(self, embed_dims: int, hidden: int, dropout: float = 0.1):
         super().__init__()
+        self.dropout = dropout
         self.layers = nn.ModuleList([
             nn.Sequential(Linear(embed_dims, hidden), nn.ReLU()),
             Linear(hidden, embed_dims),
         ])
 
-    def forward(self, x):
-        return x + self.layers[1](self.layers[0](x))
+    def forward(self, x, generator=None):
+        y = dropout(self.layers[0](x), self.dropout, generator)
+        return x + dropout(self.layers[1](y), self.dropout, generator)
 
 
 class DecoderLayer(nn.Module):
@@ -82,10 +93,11 @@ class DecoderLayer(nn.Module):
         ffn_dims: int,
         pc_range: Tuple[float, ...],
         cam_capacity: float = 1.0,
+        dropout: float = 0.1,
     ):
         super().__init__()
         self.attentions = nn.ModuleList([
-            SelfAttention(embed_dims, num_heads),
+            SelfAttention(embed_dims, num_heads, dropout),
             Deform3DCrossAttn(
                 embed_dims=embed_dims,
                 num_heads=num_heads,
@@ -94,9 +106,10 @@ class DecoderLayer(nn.Module):
                 num_cams=num_cams,
                 pc_range=pc_range,
                 cam_capacity=cam_capacity,
+                dropout=dropout,
             ),
         ])
-        self.ffns = nn.ModuleList([FFN(embed_dims, ffn_dims)])
+        self.ffns = nn.ModuleList([FFN(embed_dims, ffn_dims, dropout)])
         self.norms = nn.ModuleList([LayerNorm(embed_dims) for _ in range(3)])
 
     def forward(
@@ -108,13 +121,15 @@ class DecoderLayer(nn.Module):
         reference_points: torch.Tensor,
         lidar2img: torch.Tensor,
         img_shape: Tuple[int, int],
+        generator=None,
     ):
-        """Returns (query, cam_overflow) — see Deform3DCrossAttn."""
-        query = self.norms[0](self.attentions[0](query, query_pos))
+        """Returns (query, cam_overflow) — see Deform3DCrossAttn. Dropout
+        draws from `generator`; None (eval) turns it off."""
+        query = self.norms[0](self.attentions[0](query, query_pos, generator))
         query, overflow = self.attentions[1](
             query, value, spatial_shapes, query_pos, reference_points,
-            lidar2img, img_shape,
+            lidar2img, img_shape, generator,
         )
         query = self.norms[1](query)
-        query = self.norms[2](self.ffns[0](query))
+        query = self.norms[2](self.ffns[0](query, generator))
         return query, overflow

@@ -1,4 +1,4 @@
-"""K2: modulated deformable convolution (DCNv2), forward.
+"""K2: modulated deformable convolution (DCNv2), forward and backward.
 
 Counterpart of graph_detr4d_tpu/ops/deform_conv.py::deform_conv2d, with
 mmcv's ModulatedDeformConv2d semantics: per output pixel and 3x3 tap, a
@@ -6,10 +6,14 @@ learned (dy, dx) offset shifts the tap's sampling point, the input is
 sampled bilinearly with zero padding, scaled by the modulation mask, and
 contracted with the conv weight.
 
-`deform_im2col` builds the sampled column tile (B*Ho*Wo, 9*Cin): the CUDA
-kernel `csrc/deform_conv.cu` for a CUDA tensor, `deform_im2col_plain`
-(per-tap `F.grid_sample`) for a CPU tensor. `deform_conv2d` contracts the
-tile with the (9*Cin, Cout) weight in one matrix product.
+`deform_im2col` builds the sampled column tile (B*Ho*Wo, 9*Cin),
+differentiable in x, offsets and mask: for a CUDA tensor the forward
+kernel of `csrc/deform_conv.cu` inside an autograd Function whose
+backward is that file's col2im kernel (`deform_col2im`); for a CPU tensor
+`deform_im2col_plain` (per-tap `F.grid_sample`), which autograd
+differentiates. `deform_conv2d` contracts the tile with the (9*Cin, Cout)
+weight in one matrix product, whose autograd keeps the tile for the
+weight gradient.
 """
 
 import ctypes
@@ -20,9 +24,11 @@ import torch.nn.functional as F
 
 from . import build
 
-# kernel launches made by deform_im2col (plain int; chip_smoke.py resets
-# it before driving the main path and reads it after)
+# kernel launches made by deform_im2col and deform_col2im (plain ints;
+# chip_smoke.py resets them before driving the main path and reads them
+# after)
 launches = 0
+backward_launches = 0
 
 KERNEL_SIZE = 3
 TAPS = KERNEL_SIZE * KERNEL_SIZE
@@ -36,6 +42,10 @@ def _lib():
         ctypes.c_void_p
     ]
     lib.deform_im2col.restype = ctypes.c_int
+    lib.deform_col2im.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [
+        ctypes.c_void_p
+    ]
+    lib.deform_col2im.restype = ctypes.c_int
     return lib
 
 
@@ -73,7 +83,8 @@ def deform_im2col(
     stride: int = 1,
     padding: int = 1,
 ) -> torch.Tensor:
-    """Sampled, mask-scaled 3x3 columns of a modulated deformable conv.
+    """Sampled, mask-scaled 3x3 columns of a modulated deformable conv,
+    differentiable in x, offsets and mask.
 
     Args:
       x: (B, H, W, Cin) float32 or bfloat16, channels-last.
@@ -83,16 +94,40 @@ def deform_im2col(
     Returns (B*Ho*Wo, 9*Cin) in x's dtype, tap-major: column k*Cin + c is
     channel c sampled at tap k = ky*3 + kx.
     """
-    global launches
-    B, H, W, Ho, Wo = _check(x, offsets, mask, stride, padding)
+    _check(x, offsets, mask, stride, padding)
     if x.device.type == "cpu":
         return deform_im2col_plain(x, offsets, mask, stride, padding)
     if x.device.type != "cuda":
         raise ValueError(f"deform_conv: unsupported device {x.device}")
-    for name, t in (("x", x), ("offsets", offsets), ("mask", mask)):
+    return _DeformIm2col.apply(x, offsets, mask, stride, padding)
+
+
+class _DeformIm2col(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, offsets, mask, stride, padding):
+        ctx.save_for_backward(x, offsets, mask)
+        ctx.conv = (stride, padding)
+        return _launch_forward(x, offsets, mask, stride, padding)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad_cols):
+        x, offsets, mask = ctx.saved_tensors
+        grads = deform_col2im(x, offsets, mask, grad_cols, *ctx.conv)
+        return (*grads, None, None)
+
+
+def _contiguous(**tensors):
+    for name, t in tensors.items():
         if not t.is_contiguous():
             raise ValueError(f"deform_conv: {name} must be contiguous")
-    Cin = x.shape[-1]
+
+
+def _launch_forward(x, offsets, mask, stride, padding):
+    global launches
+    _contiguous(x=x, offsets=offsets, mask=mask)
+    B, H, W, Cin = x.shape
+    Ho, Wo = offsets.shape[1:3]
     cols = torch.empty(B * Ho * Wo, TAPS * Cin, dtype=x.dtype, device=x.device)
     if cols.numel() == 0:  # nothing to launch
         return cols
@@ -105,6 +140,59 @@ def deform_im2col(
         raise RuntimeError(f"deform_im2col kernel launch failed: cudaError {err}")
     launches += 1
     return cols
+
+
+def deform_col2im(
+    x: torch.Tensor,
+    offsets: torch.Tensor,
+    mask: torch.Tensor,
+    grad_cols: torch.Tensor,
+    stride: int = 1,
+    padding: int = 1,
+):
+    """Gradients of `deform_im2col` for (x, offsets, mask), given grad_cols
+    (B*Ho*Wo, 9*Cin), all in x's dtype. The backward kernel for CUDA
+    tensors, `deform_col2im_plain` for CPU tensors."""
+    global backward_launches
+    B, H, W, Ho, Wo = _check(x, offsets, mask, stride, padding)
+    Cin = x.shape[-1]
+    if tuple(grad_cols.shape) != (B * Ho * Wo, TAPS * Cin):
+        raise ValueError(
+            f"deform_conv: grad_cols {tuple(grad_cols.shape)} != "
+            f"{(B * Ho * Wo, TAPS * Cin)}")
+    if x.device.type == "cpu":
+        return deform_col2im_plain(x, offsets, mask, grad_cols, stride,
+                                   padding)
+    if x.device.type != "cuda":
+        raise ValueError(f"deform_conv: unsupported device {x.device}")
+    grad_cols = grad_cols.to(x.dtype).contiguous()
+    _contiguous(x=x, offsets=offsets, mask=mask)
+    grad_x = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    grad_off = torch.zeros(offsets.shape, dtype=torch.float32, device=x.device)
+    grad_mask = torch.zeros(mask.shape, dtype=torch.float32, device=x.device)
+    if grad_mask.numel() > 0:
+        err = _lib().deform_col2im(
+            x.data_ptr(), offsets.data_ptr(), mask.data_ptr(),
+            grad_cols.data_ptr(), grad_x.data_ptr(), grad_off.data_ptr(),
+            grad_mask.data_ptr(), B, H, W, Cin, Ho, Wo, stride, padding,
+            _DTYPES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream,
+        )
+        if err != 0:
+            raise RuntimeError(
+                f"deform_col2im kernel launch failed: cudaError {err}")
+        backward_launches += 1
+    return (grad_x.to(x.dtype), grad_off.to(x.dtype), grad_mask.to(x.dtype))
+
+
+def deform_col2im_plain(x, offsets, mask, grad_cols, stride=1, padding=1):
+    """The same function as `deform_col2im`: autograd through
+    `deform_im2col_plain`."""
+    with torch.enable_grad():
+        x, offsets, mask = (t.detach().requires_grad_()
+                            for t in (x, offsets, mask))
+        cols = deform_im2col_plain(x, offsets, mask, stride, padding)
+        return torch.autograd.grad(cols, (x, offsets, mask),
+                                   grad_cols.to(cols.dtype))
 
 
 def deform_im2col_plain(

@@ -1,4 +1,4 @@
-"""K1: multi-scale deformable attention (MSDA), forward.
+"""K1: multi-scale deformable attention (MSDA), forward and backward.
 
 Counterpart of graph_detr4d_tpu/ops/msda.py::multi_scale_deformable_attention.
 Semantics (mmcv's MultiScaleDeformableAttnFunction): sampling locations
@@ -6,10 +6,13 @@ are in [0, 1] per level, pixel coordinates follow `align_corners=False`
 (x_px = x * W - 0.5), bilinear with zero padding outside; the output is
 the attention-weighted sum over levels and points, per head.
 
-`msda_forward` launches the CUDA kernel (`csrc/msda.cu`) for a CUDA
-tensor and runs `msda_forward_plain`, per-level `F.grid_sample`, for a
-CPU tensor. Values use the mmcv layout: all levels flattened into one
-(BN, sum_l H_l*W_l, heads, hd) buffer, levels in order.
+`msda_forward` is differentiable in value, loc and attn. For a CUDA
+tensor it runs the forward kernel of `csrc/msda.cu` inside an autograd
+Function whose backward is the backward kernel (`msda_backward`); for a
+CPU tensor it runs `msda_forward_plain`, per-level `F.grid_sample`, which
+autograd differentiates (`msda_backward_plain`). Values use the mmcv
+layout: all levels flattened into one (BN, sum_l H_l*W_l, heads, hd)
+buffer, levels in order.
 """
 
 import ctypes
@@ -21,9 +24,11 @@ import torch.nn.functional as F
 
 from . import build
 
-# kernel launches made by msda_forward (plain int; chip_smoke.py resets it
-# before driving the main path and reads it after)
+# kernel launches made by msda_forward and msda_backward (plain ints;
+# chip_smoke.py resets them before driving the main path and reads them
+# after)
 launches = 0
+backward_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -37,6 +42,12 @@ def _lib():
         ctypes.c_void_p,
     ]
     lib.msda_forward.restype = ctypes.c_int
+    lib.msda_backward.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [
+        ctypes.POINTER(ctypes.c_int),
+        ctypes.c_int,
+        ctypes.c_void_p,
+    ]
+    lib.msda_backward.restype = ctypes.c_int
     lib.msda_max_hlp.argtypes = []
     lib.msda_max_hlp.restype = ctypes.c_int
     return lib
@@ -86,7 +97,8 @@ def msda_forward(
     attn: torch.Tensor,
     index: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Multi-scale deformable attention.
+    """Multi-scale deformable attention, differentiable in value, loc and
+    attn (not in index).
 
     Args:
       value: (BN, S, heads, hd) float32 or bfloat16, levels flattened in
@@ -96,21 +108,50 @@ def msda_forward(
         [0, 1].
       attn: (BN, Q, heads, L, P) float32 weights (softmax and masks already
         applied by the caller).
-      index: optional (BN, R) int64 query ids in [0, Q): output row r of bn
-        samples query index[bn, r]. None means every query, R = Q.
+      index: optional (BN, R) int64 query ids in [0, Q), distinct within a
+        row: output row r of bn samples query index[bn, r]. None means
+        every query, R = Q.
 
     Returns (BN, R, heads * hd) in value's dtype.
     """
-    global launches
     _check(value, spatial_shapes, loc, attn, index)
     if value.device.type == "cpu":
         return msda_forward_plain(value, spatial_shapes, loc, attn, index)
     if value.device.type != "cuda":
         raise ValueError(f"msda: unsupported device {value.device}")
-    for name, t in (("value", value), ("loc", loc), ("attn", attn),
-                    ("index", index)):
+    shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
+    return _MSDAFunction.apply(value, loc, attn, index, shapes)
+
+
+class _MSDAFunction(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, value, loc, attn, index, shapes):
+        ctx.save_for_backward(value, loc, attn, index)
+        ctx.shapes = shapes
+        return _launch_forward(value, shapes, loc, attn, index)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad_out):
+        value, loc, attn, index = ctx.saved_tensors
+        grads = msda_backward(value, ctx.shapes, loc, attn, grad_out, index)
+        return (*grads, None, None)
+
+
+def _contiguous(**tensors):
+    for name, t in tensors.items():
         if t is not None and not t.is_contiguous():
             raise ValueError(f"msda: {name} must be contiguous")
+
+
+def _level_hw(spatial_shapes):
+    L = len(spatial_shapes)
+    return (ctypes.c_int * (2 * L))(*[int(v) for s in spatial_shapes for v in s])
+
+
+def _launch_forward(value, spatial_shapes, loc, attn, index):
+    global launches
+    _contiguous(value=value, loc=loc, attn=attn, index=index)
     lib = _lib()
     BN, S, heads, hd = value.shape
     Q, L, P = loc.shape[1], loc.shape[3], loc.shape[4]
@@ -124,17 +165,75 @@ def msda_forward(
                       device=value.device)
     if out.numel() == 0:  # nothing to launch
         return out
-    hw = (ctypes.c_int * (2 * L))(*[int(v) for s in spatial_shapes for v in s])
     err = lib.msda_forward(
         value.data_ptr(), loc.data_ptr(), attn.data_ptr(),
         None if index is None else index.data_ptr(), out.data_ptr(),
-        BN, S, Q, R, heads, hd, L, P, hw, _DTYPES[value.dtype],
+        BN, S, Q, R, heads, hd, L, P, _level_hw(spatial_shapes),
+        _DTYPES[value.dtype],
         torch.cuda.current_stream(value.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"msda kernel launch failed: cudaError {err}")
     launches += 1
     return out
+
+
+def msda_backward(
+    value: torch.Tensor,
+    spatial_shapes: Sequence[Tuple[int, int]],
+    loc: torch.Tensor,
+    attn: torch.Tensor,
+    grad_out: torch.Tensor,
+    index: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Gradients of `msda_forward` for (value, loc, attn), given grad_out
+    (BN, R, heads * hd). grad_value comes in value's dtype, grad_loc and
+    grad_attn in float32. The backward kernel for CUDA tensors,
+    `msda_backward_plain` for CPU tensors."""
+    global backward_launches
+    _check(value, spatial_shapes, loc, attn, index)
+    R = loc.shape[1] if index is None else index.shape[1]
+    BN, S, heads, hd = value.shape
+    if tuple(grad_out.shape) != (BN, R, heads * hd):
+        raise ValueError(
+            f"msda: grad_out {tuple(grad_out.shape)} != {(BN, R, heads * hd)}")
+    if value.device.type == "cpu":
+        return msda_backward_plain(value, spatial_shapes, loc, attn, grad_out,
+                                   index)
+    if value.device.type != "cuda":
+        raise ValueError(f"msda: unsupported device {value.device}")
+    grad_out = grad_out.to(value.dtype).contiguous()
+    _contiguous(value=value, loc=loc, attn=attn, index=index)
+    grad_value = torch.zeros(value.shape, dtype=torch.float32,
+                             device=value.device)
+    grad_loc = torch.zeros_like(loc)
+    grad_attn = torch.zeros_like(attn)
+    if grad_out.numel() == 0:  # nothing to launch
+        return grad_value.to(value.dtype), grad_loc, grad_attn
+    Q, L, P = loc.shape[1], loc.shape[3], loc.shape[4]
+    err = _lib().msda_backward(
+        value.data_ptr(), loc.data_ptr(), attn.data_ptr(),
+        None if index is None else index.data_ptr(), grad_out.data_ptr(),
+        grad_value.data_ptr(), grad_loc.data_ptr(), grad_attn.data_ptr(),
+        BN, S, Q, R, heads, hd, L, P, _level_hw(spatial_shapes),
+        _DTYPES[value.dtype],
+        torch.cuda.current_stream(value.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(
+            f"msda backward kernel launch failed: cudaError {err}")
+    backward_launches += 1
+    return grad_value.to(value.dtype), grad_loc, grad_attn
+
+
+def msda_backward_plain(value, spatial_shapes, loc, attn, grad_out,
+                        index=None):
+    """The same function as `msda_backward`: autograd through
+    `msda_forward_plain`."""
+    with torch.enable_grad():
+        v, l, a = (t.detach().requires_grad_() for t in (value, loc, attn))
+        out = msda_forward_plain(v, spatial_shapes, l, a, index)
+        return torch.autograd.grad(out, (v, l, a), grad_out.to(out.dtype))
 
 
 def msda_forward_plain(

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels (forward and backward) against their plain
+PyTorch versions, on the card.
 
 Needs a CUDA device and nvcc; skips elsewhere. The module imports no JAX,
 so it also runs on a machine that has only PyTorch (the repository's
@@ -7,12 +8,19 @@ conftest imports JAX, hence --noconftest there):
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
 
+import os
+import sys
+
 import numpy as np
 import pytest
 import torch
 
-from graph_detr4d_tpu_torch.ops import deform_conv as dcn_ops
-from graph_detr4d_tpu_torch.ops import msda as msda_ops
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+from chip_smoke import dcn_kinks, msda_kinks  # noqa: E402
+from graph_detr4d_tpu_torch.ops import deform_conv as dcn_ops  # noqa: E402
+from graph_detr4d_tpu_torch.ops import focal_loss as focal_ops  # noqa: E402
+from graph_detr4d_tpu_torch.ops import hungarian as lsa_ops  # noqa: E402
+from graph_detr4d_tpu_torch.ops import msda as msda_ops  # noqa: E402
 
 
 @pytest.fixture
@@ -22,6 +30,23 @@ def cuda():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
+
+
+def _assert_grads_close(got, want, dtype, position_kinks):
+    """fp32: max abs error <= 1e-4 times the gradient's magnitude where that
+    exceeds 1 (grad_loc carries a factor W from the sampling position, whose
+    fp32 rounding the float64 plain version does not have); bf16: <= 2e-2
+    of the magnitude. The position gradient (second tensor) skips samples
+    at a kink of the bilinear derivative (chip_smoke.near_kink)."""
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        diff = (g.float() - w.float()).abs()
+        if i == 1:
+            diff = diff.masked_fill(position_kinks, 0.0)
+        err = diff.max().item()
+        scale = w.float().abs().max().item()
+        tol = 1e-4 * max(1.0, scale) if dtype == torch.float32 else 2e-2 * scale
+        assert err <= tol, (err, scale)
 
 
 def _msda_inputs(rng, BN, Q, heads, hd, shapes, P, dtype, dev):
@@ -84,6 +109,121 @@ def test_deform_im2col_kernel_matches_plain(cuda, dtype, stride):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("compact", [False, True])
+def test_msda_backward_kernel_matches_plain(cuda, dtype, compact):
+    rng = np.random.RandomState(2)
+    shapes = [(20, 50), (10, 25), (5, 13), (3, 7)]
+    value, loc, attn = _msda_inputs(rng, 3, 37, 8, 32, shapes, 4, dtype, cuda)
+    index = None
+    if compact:
+        perm = np.stack([rng.permutation(37)[:19] for _ in range(3)])
+        index = torch.from_numpy(perm.astype(np.int64)).to(cuda)
+    R = 19 if compact else 37
+    grad_out = torch.from_numpy(rng.randn(3, R, 256).astype(np.float32))
+    grad_out = grad_out.to(cuda, dtype)
+    launches = msda_ops.backward_launches
+    got = msda_ops.msda_backward(value, shapes, loc, attn, grad_out, index)
+    want = msda_ops.msda_backward_plain(value, shapes, loc, attn, grad_out,
+                                        index)
+    torch.cuda.synchronize()
+    assert msda_ops.backward_launches == launches + 1
+    _assert_grads_close(got, want, dtype, msda_kinks(loc, shapes))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("stride", [1, 2])
+def test_deform_col2im_kernel_matches_plain(cuda, dtype, stride):
+    rng = np.random.RandomState(3)
+    B, H, W, Cin = 2, 13, 21, 48
+    Ho = dcn_ops.output_size(H, stride, 1)
+    Wo = dcn_ops.output_size(W, stride, 1)
+    x, off, mask, grad_cols = (torch.from_numpy(a.astype(np.float32)).to(
+        cuda, dtype) for a in (
+            rng.randn(B, H, W, Cin), rng.randn(B, Ho, Wo, 9, 2) * 4.0,
+            rng.rand(B, Ho, Wo, 9), rng.randn(B * Ho * Wo, 9 * Cin)))
+    launches = dcn_ops.backward_launches
+    got = dcn_ops.deform_col2im(x, off, mask, grad_cols, stride)
+    want = dcn_ops.deform_col2im_plain(x, off, mask, grad_cols, stride)
+    torch.cuda.synchronize()
+    assert dcn_ops.backward_launches == launches + 1
+    _assert_grads_close(got, want, dtype, dcn_kinks(off, stride))
+
+
+@pytest.mark.cuda
+def test_autograd_runs_the_backward_kernels(cuda):
+    """loss.backward() through msda_forward and deform_im2col on CUDA
+    tensors launches each backward kernel once."""
+    rng = np.random.RandomState(4)
+    shapes = [(6, 9), (3, 5)]
+    value, loc, attn = _msda_inputs(rng, 2, 5, 2, 8, shapes, 2,
+                                    torch.float32, cuda)
+    x = torch.randn(1, 6, 7, 8, device=cuda)
+    off = torch.randn(1, 6, 7, 9, 2, device=cuda)
+    mask = torch.rand(1, 6, 7, 9, device=cuda)
+    leaves = [t.requires_grad_() for t in (value, loc, attn, x, off, mask)]
+    before = (msda_ops.backward_launches, dcn_ops.backward_launches)
+    out = msda_ops.msda_forward(value, shapes, loc, attn).sum()
+    out = out + dcn_ops.deform_im2col(x, off, mask).sum()
+    out.backward()
+    torch.cuda.synchronize()
+    assert (msda_ops.backward_launches, dcn_ops.backward_launches) == (
+        before[0] + 1, before[1] + 1)
+    assert all(t.grad is not None for t in leaves)
+
+
+@pytest.mark.cuda
+def test_focal_loss_kernel_matches_plain(cuda):
+    rng = np.random.RandomState(5)
+    layers, N, C = 6, 200, 10
+    logits = torch.from_numpy((rng.randn(layers, N, C) * 3).astype(np.float32))
+    labels = torch.from_numpy(rng.randint(0, C + 1, (layers, N)))
+    weights = torch.from_numpy(rng.rand(layers, N).astype(np.float32))
+    avg = torch.from_numpy(rng.uniform(1, 50, layers).astype(np.float32))
+    logits, labels, weights, avg = (t.to(cuda) for t in (logits, labels,
+                                                         weights, avg))
+    launches = focal_ops.launches
+    loss, grad = focal_ops.focal_loss_with_grad(logits, labels, weights, avg)
+    leaf = logits.clone().requires_grad_()
+    want = focal_ops.sigmoid_focal_loss_plain(leaf, labels, weights, avg)
+    (want_grad,) = torch.autograd.grad(want.sum(), leaf)
+    torch.cuda.synchronize()
+    assert focal_ops.launches == launches + 1
+    torch.testing.assert_close(loss, want, rtol=1e-5, atol=0)
+    assert (grad - want_grad).abs().max() <= 1e-5 * want_grad.abs().max()
+    # autograd through the wrapper scales the saved gradient
+    leaf = logits.clone().requires_grad_()
+    out = focal_ops.sigmoid_focal_loss(leaf, labels, weights, avg)
+    (out * torch.arange(1.0, layers + 1, device=cuda)).sum().backward()
+    scaled = want_grad * torch.arange(1.0, layers + 1, device=cuda)[:, None, None]
+    assert (leaf.grad - scaled).abs().max() <= 1e-5 * scaled.abs().max()
+
+
+@pytest.mark.cuda
+def test_hungarian_kernel_matches_plain(cuda):
+    """Random costs, planted ties (costs rounded to 0.1), nan / +-inf
+    entries, num_valid from 0 to R: identical assignments."""
+    rng = np.random.RandomState(6)
+    P, R, C = 8, 16, 60
+    cost = rng.rand(P, R, C).astype(np.float32)
+    cost[1] = np.round(cost[1], 1)
+    cost[2] = np.round(cost[2] * 3)
+    cost[3, 2, 5], cost[3, 4, 7], cost[3, 6, 9] = np.nan, np.inf, -np.inf
+    num_valid = np.array([16, 16, 16, 16, 0, 1, 9, 15], np.int32)
+    cost_t = torch.from_numpy(cost).to(cuda)
+    nv = torch.from_numpy(num_valid).to(cuda)
+    launches = lsa_ops.launches
+    got = lsa_ops.hungarian_assignment(cost_t, nv)
+    want = lsa_ops.hungarian_assignment_plain(cost_t, nv)
+    torch.cuda.synchronize()
+    assert lsa_ops.launches == launches + 1
+    assert got.dtype == torch.int32
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert (got[4] == -1).all() and (got[6, 9:] == -1).all()
+
+
+@pytest.mark.cuda
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     x = torch.randn(1, 8, 8, 16, device=cuda)
     off = torch.zeros(1, 8, 8, 9, 2, device=cuda)
@@ -115,6 +255,26 @@ def test_empty_work_launches_nothing(cuda):
     mask = torch.ones(0, 8, 8, 9, device=cuda)
     assert dcn_ops.deform_im2col(x, off, mask).shape == (0, 9 * 16)
     assert (msda_ops.launches, dcn_ops.launches) == (msda0, dcn0)
+
+    counts = (msda_ops.backward_launches, dcn_ops.backward_launches,
+              focal_ops.launches, lsa_ops.launches)
+    grads = msda_ops.msda_backward(value, [(2, 5)], loc, attn,
+                                   torch.empty(2, 0, 8, device=cuda), index)
+    assert [tuple(g.shape) for g in grads] == [(2, 10, 2, 4), (2, 3, 2, 1, 2, 2),
+                                              (2, 3, 2, 1, 2)]
+    assert all((g == 0).all() for g in grads)
+    grads = dcn_ops.deform_col2im(x, off, mask, torch.empty(0, 9 * 16,
+                                                            device=cuda))
+    assert grads[0].shape == (0, 8, 8, 16)
+    loss, grad = focal_ops.focal_loss_with_grad(
+        torch.empty(0, 5, 10, device=cuda),
+        torch.empty(0, 5, dtype=torch.int64, device=cuda),
+        torch.empty(0, 5, device=cuda), torch.empty(0, device=cuda))
+    assert loss.shape == (0,) and grad.shape == (0, 5, 10)
+    assert lsa_ops.hungarian_assignment(
+        torch.empty(0, 4, 9, device=cuda)).shape == (0, 4)
+    assert (msda_ops.backward_launches, dcn_ops.backward_launches,
+            focal_ops.launches, lsa_ops.launches) == counts
 
 
 @pytest.mark.cuda
@@ -150,3 +310,53 @@ def test_tiny_detector_on_the_card_matches_the_cpu(cuda):
     for key in ("all_cls_scores", "all_bbox_preds"):
         torch.testing.assert_close(got[key].cpu(), want[key], rtol=0,
                                    atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_tiny_train_step_on_the_card_matches_the_cpu(cuda):
+    """One fp32 train step at a tiny width (12 cameras, ResNet-50 + DCN, 2
+    decoder layers, dropout 0, grid mask off): kernels on the card vs the
+    plain versions on the CPU, and one launch of each kernel per call
+    site. Losses within 1e-4 relative; grad_norm within 1e-3 (at these
+    widths a ReLU input rounding across 0 moves the backbone's gradients,
+    see tests/test_torch_train.py)."""
+    import dataclasses
+
+    from graph_detr4d_tpu_torch import config as c
+    from graph_detr4d_tpu_torch.data.synthetic import synthetic_batch
+    from graph_detr4d_tpu_torch.models.detector import GraphDETR4D
+    from graph_detr4d_tpu_torch.train.step import TrainStep
+    from graph_detr4d_tpu_torch.weights import init_weights
+
+    cfg = c.ModelConfig(
+        backbone=c.BackboneConfig(depth=50, use_dcn=True),
+        neck=c.NeckConfig(out_channels=32),
+        head=c.HeadConfig(num_query=24, embed_dims=32, num_decoder_layers=2,
+                          num_heads=4, num_points=2, num_cams=12,
+                          ffn_dims=64, depth_num=8, pe_num_feats=16,
+                          dropout=0.0, cam_capacity=0.5),
+        loss=c.LossConfig(max_gt=8),
+        img_size=(64, 160), bf16=False)
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, use_grid_mask=False))
+    cpu_model = GraphDETR4D(cfg, device="cpu")
+    init_weights(cpu_model, seed=0)
+    gpu_model = GraphDETR4D(cfg, device=cuda)
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    b = {k: torch.from_numpy(v)
+         for k, v in synthetic_batch(cfg, seed=0, num_gt=5).items()}
+
+    def counts():
+        return (msda_ops.launches, msda_ops.backward_launches,
+                dcn_ops.launches, dcn_ops.backward_launches,
+                focal_ops.launches, lsa_ops.launches)
+
+    before = counts()
+    got = TrainStep(gpu_model, cfg).step({k: v.to(cuda) for k, v in b.items()})
+    torch.cuda.synchronize()
+    assert tuple(a - c for a, c in zip(counts(), before)) == (2, 2, 9, 9, 1, 1)
+    want = TrainStep(cpu_model, cfg).step(b)
+    for k in want:
+        rtol = 1e-3 if k == "grad_norm" else 1e-4
+        torch.testing.assert_close(got[k].cpu(), want[k], rtol=rtol, atol=0,
+                                   msg=k)

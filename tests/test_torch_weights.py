@@ -181,3 +181,7 @@ def test_entry_points_need_cuda_unless_cpu_is_asked_for():
         Engine(cfg, sd)
     engine = Engine(cfg, sd, device="cpu")
     assert next(engine.model.parameters()).device.type == "cpu"
+    from graph_detr4d_tpu_torch.train.trainer import Trainer
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Trainer(cfg, sd, iter([]), "unused-work-dir")
