@@ -6,7 +6,9 @@
 Runs the flagship Graph-DETR4D config
 (detr4d_res50_deform_pe_testaug_2subset_12e: 12 cameras at 640x1600,
 ResNet-50 + DCNv2, 900 queries, 6 decoder layers, bf16) with seeded random
-weights, serving and training, and prints one JSON line per phase:
+weights, serving (also with the int8 DCN table) and training, then the
+LiDAR detector ObjDGCNN and the rotated 3D IoU, and prints one JSON line
+per phase:
 
   1. build    nvcc for every kernel source, all started together;
   2. kernels  each kernel against its plain PyTorch version at the main
@@ -50,6 +52,34 @@ weights, serving and training, and prints one JSON line per phase:
               the two routes' costs picks another optimum, the same summed
               cost within 1e-5).
 
+  7. serve_int8  the flagship with backbone.dcn_gather=int8 answers the
+              same 4 requests from the same weights: time per request, peak
+              memory, launches per request exactly K3 7, K2 2, K1 6 (the
+              int8 table applies only to DCN inputs above 1536 padded
+              pixels), and, reported without a limit, the box drift against
+              the exact path's answer as tools/int8_box_bound.py defines it
+              (top-300 selection churn, max |d| of centre, size, yaw,
+              velocity and score over the boxes both select);
+  8. lidar    ObjDGCNN at the JAX module's full width (128 x 128 pillars, 64
+              pillar channels, 900 queries, width 256, 6 layers, k 16), batch
+              1, through serve.LidarEngine: 4 requests, each a seeded
+              synthetic cloud of ~300,000 points x 5 features (clusters on a
+              ground plane, ~10% outside the range, a masked padded tail);
+              time per request, peak memory, valid detections, launches per
+              request K6 1 + 1 and K1 6;
+  9. lidar_plain  the same weights, kernels vs plain versions: launches
+              (1, 1, 6) then 0, logits and boxes of layers 0-1 within 1e-4,
+              of every layer within 1e-3;
+ 10. iou      core/iou3d.bbox_overlaps_3d (K7) on the lidar answer: the 900
+              final-layer boxes against themselves and the 300 decoded boxes
+              against 128 ground-truth-like boxes, against the plain version
+              within 1e-5; 2 launches.
+Phase `kernels` also holds K3 (fp32 and bf16, both strides, the flagship's
+7 int8 DCN shapes), K6 (the lidar phase's clouds) and K7 (900 x 900 and
+300 x 128) to their plain versions, with the time of one PyTorch call
+that computes the same function where there is one (K6: scatter_reduce_
+'amax' for the grid, index_add_ for the cell sums).
+
 Then the card's name and power limit as nvidia-smi gives them, the kernel
 table as one JSON line, and last `{"ok": true, "device": {...}}`. Any
 failed phase raises: the script exits non-zero and prints no result. It
@@ -70,7 +100,9 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
+from graph_detr4d_tpu_torch.config import HeadConfig
 from graph_detr4d_tpu_torch.configs import get_config
+from graph_detr4d_tpu_torch.core import iou3d
 from graph_detr4d_tpu_torch.core.coder import decode_batch
 from graph_detr4d_tpu_torch.data.synthetic import synthetic_batch
 from graph_detr4d_tpu_torch.models.detector import GraphDETR4D
@@ -79,8 +111,12 @@ from graph_detr4d_tpu_torch.core.losses import detr3d_loss
 from graph_detr4d_tpu_torch.ops import deform_conv as dcn_ops
 from graph_detr4d_tpu_torch.ops import focal_loss as focal_ops
 from graph_detr4d_tpu_torch.ops import hungarian as lsa_ops
+from graph_detr4d_tpu_torch.geometry.boxes import denormalize_bbox
+from graph_detr4d_tpu_torch.models import dgcnn as dgcnn_mod
+from graph_detr4d_tpu_torch.models.dgcnn import ObjDGCNN
 from graph_detr4d_tpu_torch.ops import msda as msda_ops
-from graph_detr4d_tpu_torch.serve import Engine
+from graph_detr4d_tpu_torch.ops import voxelize as vox_ops
+from graph_detr4d_tpu_torch.serve import Engine, LidarEngine
 from graph_detr4d_tpu_torch.train.optim import clip_by_global_norm
 from graph_detr4d_tpu_torch.train.step import TrainStep
 from graph_detr4d_tpu_torch.train.trainer import Trainer
@@ -107,6 +143,21 @@ PEAK_FP32_FLOPS = 67e12
 DCN_SHAPES = [((80, 200, 256, 2), 1), ((40, 100, 256, 1), 5),
               ((40, 100, 512, 2), 1), ((20, 50, 512, 1), 2)]
 MSDA_LEVELS = [(80, 200), (40, 100), (20, 50), (10, 25)]
+# the 7 of them that take the int8 table under backbone.dcn_gather=int8
+INT8_SHAPES = DCN_SHAPES[:3]
+INT8_LAUNCHES = {"deform_im2col_int8": 7, "deform_im2col": 2,
+                 "msda_forward": 6}  # per request
+# the LiDAR detector: ObjDGCNN's defaults; clouds the size of a nuScenes
+# 10-sweep cloud
+LIDAR_GRID, LIDAR_POINTS, LIDAR_FEATURES = (128, 128), 300_000, 5
+LIDAR_LEVELS = [(128, 128), (64, 64), (32, 32), (16, 16)]
+LIDAR_LAUNCHES = {"pillar_features": 1, "pillar_scatter": 1,
+                  "msda_forward": 6}  # per request
+# phase lidar_plain: k-NN rows per call whose plain-route choice may differ
+# (runs measured at most 2 of 900), each a near-tie: the route's own k-th
+# and (k+1)-th squared distances within this relative gap
+KNN_MAX_DIFFERING, KNN_TIE_RTOL = 4, 1e-5
+IOU_SHAPES = [(900, 900), (300, 128)]
 
 
 def emit(record):
@@ -133,13 +184,20 @@ def launch_counts():
             "deform_im2col": dcn_ops.launches,
             "deform_col2im": dcn_ops.backward_launches,
             "focal_loss": focal_ops.launches,
-            "hungarian": lsa_ops.launches}
+            "hungarian": lsa_ops.launches,
+            "deform_im2col_int8": dcn_ops.int8_launches,
+            "pillar_features": vox_ops.launches,
+            "pillar_scatter": vox_ops.scatter_launches,
+            "iou3d": iou3d.launches}
 
 
 def reset_launch_counts():
     msda_ops.launches = msda_ops.backward_launches = 0
     dcn_ops.launches = dcn_ops.backward_launches = 0
     focal_ops.launches = lsa_ops.launches = 0
+    dcn_ops.int8_launches = 0
+    vox_ops.launches = vox_ops.scatter_launches = 0
+    iou3d.launches = 0
 
 
 def check_grads_close(name, got, want, dtype, skip=None):
@@ -478,6 +536,10 @@ def phase_kernels(dev):
 
     results["focal_loss"] = kernel_focal_loss(dev, gen)
     results["hungarian"] = kernel_hungarian(dev, gen)
+    results["deform_im2col_int8"] = kernel_int8(dev, gen)
+    results["pillar_features"], results["pillar_scatter"] = kernel_voxelize(
+        dev, gen)
+    results["iou3d"] = kernel_iou3d(dev)
     return results
 
 
@@ -568,6 +630,219 @@ def kernel_hungarian(dev, gen):
     return record
 
 
+def int8_bound_ms(x, offsets, stride):
+    """Least time for one K3 call: x, offsets and mask read once and the
+    column tile written once (x's dtype); or 2 FLOPs per in-image corner
+    and channel plus ~3 per element quantized, over the fp32 rate."""
+    B, H, W, C = x.shape
+    _, Ho, Wo = offsets.shape[:3]
+    elt = x.element_size()
+    npix = B * Ho * Wo
+    bytes_ = (x.numel() + npix * 27 + npix * 9 * C) * elt
+    ops = 2 * dcn_in_image_corners(x, offsets, stride) * C + 3 * x.numel()
+    t_bytes, t_ops = bytes_ / PEAK_BYTES_PER_S, ops / PEAK_FP32_FLOPS
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def kernel_int8(dev, gen):
+    """K3 at the 7 DCN convs of one request that take the int8 table
+    (12 images, both strides), fp32 and bf16, against the plain version;
+    bf16 times summed over the request's calls."""
+    rec = {"checks": {}, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+           "max_abs_err": 0.0}
+    by = set()
+    for (H, W, C, stride), count in INT8_SHAPES:
+        assert dcn_ops.select_variant(H, W, "int8") == "int8"
+        Ho, Wo = dcn_ops.output_size(H, stride, 1), dcn_ops.output_size(W, stride, 1)
+        x32 = torch.randn(12, H, W, C, generator=gen).to(dev)
+        off32 = (torch.randn(12, Ho, Wo, 9, 2, generator=gen) * 3.0).to(dev)
+        mask32 = torch.rand(12, Ho, Wo, 9, generator=gen).to(dev)
+        tag = f"{H}x{W}x{C}_s{stride}"
+        for dtype in (torch.float32, torch.bfloat16):
+            x, off, mask = (t.to(dtype) for t in (x32, off32, mask32))
+            got = dcn_ops.deform_im2col_int8(x, off, mask, stride)
+            want = dcn_ops.deform_im2col_int8_plain(x, off, mask, stride)
+            rec["checks"][f"{tag}_{str(dtype)[6:]}"] = check_close(
+                f"deform_im2col_int8 {tag} {dtype}", got, want, dtype)
+            if dtype == torch.float32:
+                rec["max_abs_err"] = max(rec["max_abs_err"],
+                                         rec["checks"][f"{tag}_float32"][0])
+            del got, want
+        x, off, mask = (t.to(torch.bfloat16) for t in (x32, off32, mask32))
+        rec["ms"] += count * cuda_ms(
+            lambda: dcn_ops.deform_im2col_int8(x, off, mask, stride), 20)
+        rec["plain_ms"] += count * cuda_ms(
+            lambda: dcn_ops.deform_im2col_int8_plain(x, off, mask, stride), 3)
+        b, b_by = int8_bound_ms(x, off, stride)
+        rec["bound_ms"] += count * b
+        by.add(b_by)
+        del x32, off32, mask32, x, off, mask
+        torch.cuda.empty_cache()
+    rec["bound_by"] = "bytes" if by == {"bytes"} else "operations"
+    emit({"phase": "kernels", "kernel": "deform_im2col_int8",
+          "shapes": INT8_SHAPES, **rec})
+    return rec
+
+
+def lidar_cloud(seed, n=LIDAR_POINTS):
+    """A synthetic 10-sweep LiDAR cloud: (1, n, 5) float32 (x, y, z,
+    intensity, time lag) and its (1, n) mask. ~60% ground returns on a
+    plane out to 60 m (the part beyond the 51.2 m range falls outside),
+    ~30% on 60 box-shaped objects, ~3% above or below the z range, and a
+    masked padded tail of zeros (the last 7%)."""
+    rng = np.random.RandomState(seed)
+    n_pad, n_obj, n_z = n * 7 // 100, n * 30 // 100, n * 3 // 100
+    n_ground = n - n_pad - n_obj - n_z
+    r = 60.0 * np.sqrt(rng.rand(n_ground))
+    th = rng.rand(n_ground) * 2 * np.pi
+    ground = np.stack([r * np.cos(th), r * np.sin(th),
+                       -1.8 + 0.05 * rng.randn(n_ground)], -1)
+    centre = rng.uniform(-50, 50, (60, 2))
+    size = rng.uniform(0.6, 1.4, (60, 1)) * np.array([4.5, 1.9, 1.6])
+    yaw = rng.uniform(-np.pi, np.pi, 60)
+    k = rng.randint(0, 60, n_obj)
+    local = (rng.rand(n_obj, 3) - 0.5) * size[k]
+    c, s_ = np.cos(yaw[k]), np.sin(yaw[k])
+    objects = np.stack([centre[k, 0] + c * local[:, 0] - s_ * local[:, 1],
+                        centre[k, 1] + s_ * local[:, 0] + c * local[:, 1],
+                        -1.8 + local[:, 2] + size[k, 2] / 2], -1)
+    z_out = np.stack([rng.uniform(-50, 50, n_z), rng.uniform(-50, 50, n_z),
+                      np.where(rng.rand(n_z) < 0.5, rng.uniform(3, 6, n_z),
+                               rng.uniform(-8, -5, n_z))], -1)
+    xyz = np.concatenate([ground, objects, z_out])[rng.permutation(n - n_pad)]
+    pts = np.zeros((1, n, LIDAR_FEATURES), np.float32)
+    pts[0, : n - n_pad, :3] = xyz
+    pts[0, : n - n_pad, 3] = rng.rand(n - n_pad)
+    pts[0, : n - n_pad, 4] = rng.randint(0, 10, n - n_pad) * 0.05
+    mask = np.zeros((1, n), np.float32)
+    mask[0, : n - n_pad] = 1.0
+    return pts, mask
+
+
+def kernel_voxelize(dev, gen):
+    """K6 at the lidar phase's first cloud: kernels A + B (ids and
+    augmented rows) and kernel C (max-scatter of 64-channel features,
+    negative values included) against their plain versions, and the
+    PyTorch calls that compute their cores (index_add_ of the cell xyz
+    sums; scatter_reduce_ 'amax' of the grid)."""
+    pts_np, mask_np = lidar_cloud(0)
+    pts, mask = torch.from_numpy(pts_np).to(dev), torch.from_numpy(mask_np).to(dev)
+    pc = HeadConfig().pc_range
+    H, W = LIDAR_GRID
+    ids, aug = vox_ops.pillar_features(pts, mask, pc, LIDAR_GRID)
+    want_ids, want_aug = vox_ops.pillar_features_plain(pts, mask, pc, LIDAR_GRID)
+    ids_differ = int((ids != want_ids).sum())
+    aug_err = (aug - want_aug).abs().max().item()
+    trash = float((ids == H * W).float().mean())
+    if ids_differ or not aug_err <= 1e-5:
+        raise AssertionError(f"pillar_features: {ids_differ} ids differ, "
+                             f"rows {aug_err} > 1e-5")
+    P = pts.shape[1]
+    seg = ids.long().reshape(-1)
+    xyz = pts[0, :, :3].contiguous()
+    sums = torch.zeros(H * W + 1, 3, device=dev)
+    feat_bytes = P * (LIDAR_FEATURES * 4 + 4 + 4 + (LIDAR_FEATURES + 5) * 4)
+    features = dict(
+        checks={"ids_differing": ids_differ, "rows_max_abs_err": aug_err,
+                "trash_share": trash},
+        max_abs_err=aug_err,
+        ms=cuda_ms(lambda: vox_ops.pillar_features(pts, mask, pc, LIDAR_GRID), 20),
+        plain_ms=cuda_ms(lambda: vox_ops.pillar_features_plain(
+            pts, mask, pc, LIDAR_GRID), 3),
+        library_ms=cuda_ms(lambda: sums.index_add_(0, seg, xyz), 20),
+        bound_ms=1e3 * feat_bytes / PEAK_BYTES_PER_S, bound_by="bytes")
+    emit({"phase": "kernels", "kernel": "pillar_features",
+          "shape": [1, P, LIDAR_FEATURES], "grid": LIDAR_GRID, **features})
+
+    feats = (torch.randn(1, P, 64, generator=gen) - 0.5).to(dev)
+    got = vox_ops.pillar_scatter(feats, ids, LIDAR_GRID)
+    want = vox_ops.pillar_scatter_plain(feats, ids, LIDAR_GRID)
+    if not torch.equal(got, want):
+        raise AssertionError("pillar_scatter: max differs from the plain "
+                             f"version by {(got - want).abs().max().item()}")
+    idx = seg[:, None].expand(-1, 64)
+    grid = torch.zeros(H * W + 1, 64, device=dev)
+    scatter_bytes = P * 64 * 4 + P * 4 + H * W * 64 * 4
+    scatter = dict(
+        checks={"equal": True, "negative_cells": int((got < 0).sum())},
+        max_abs_err=0.0,
+        ms=cuda_ms(lambda: vox_ops.pillar_scatter(feats, ids, LIDAR_GRID), 20),
+        plain_ms=cuda_ms(lambda: vox_ops.pillar_scatter_plain(
+            feats, ids, LIDAR_GRID), 3),
+        library_ms=cuda_ms(lambda: grid.scatter_reduce_(
+            0, idx, feats[0], "amax", include_self=False), 20),
+        bound_ms=1e3 * scatter_bytes / PEAK_BYTES_PER_S, bound_by="bytes")
+    emit({"phase": "kernels", "kernel": "pillar_scatter",
+          "shape": [1, P, 64], "grid": LIDAR_GRID, **scatter})
+    return features, scatter
+
+
+def random_boxes(rng, n, near=None):
+    """(n, 7) boxes within the 51.2 m range; with `near`, jittered copies
+    of rows of `near`, so that pairs overlap."""
+    if near is not None:
+        b = near[rng.randint(0, len(near), n)].copy()
+        b[:, :2] += rng.uniform(-1.5, 1.5, (n, 2))
+        b[:, 6] += rng.uniform(-0.6, 0.6, n)
+        return b.astype(np.float32)
+    b = np.zeros((n, 7), np.float32)
+    b[:, :2] = rng.uniform(-50, 50, (n, 2))
+    b[:, 2] = rng.uniform(-2, 1, n)
+    b[:, 3:6] = rng.uniform(0.5, 5.0, (n, 3))
+    b[:, 6] = rng.uniform(-np.pi, np.pi, n)
+    return b
+
+
+def iou_operations(b1, b2):
+    """About the float operations K7 does on these boxes: per clip step 10
+    per vertex it tests (two side tests) and 9 per vertex it emits (a
+    crossing at most), then 3 per vertex of the shoelace and 12 for the
+    z overlap and the ratio: counted from this run's polygons."""
+    c1, c2 = iou3d.box_corners_bev(b1), iou3d.box_corners_bev(b2)
+    M, N = c1.shape[0], c2.shape[0]
+    p1 = c1[:, None].expand(M, N, 4, 2).reshape(M * N, 4, 2)
+    p2 = c2[None].expand(M, N, 4, 2).reshape(M * N, 4, 2)
+    pts = torch.cat([p1, p1[:, :1].expand(-1, iou3d.V_MAX - 4, 2)], dim=1)
+    count = torch.full((M * N,), 4, dtype=torch.long, device=b1.device)
+    ops = 0
+    for i in range(4):
+        tested = int(count.sum())
+        pts, count = iou3d._clip_poly(pts, count, p2[:, i], p2[:, (i + 1) % 4])
+        ops += 10 * tested + 9 * int(count.sum())
+    return ops + 3 * int(count.sum()) + 12 * M * N
+
+
+def kernel_iou3d(dev):
+    """K7 at the iou phase's shapes, 900 x 900 and 300 x 128 boxes 50 m
+    out, against the plain version (1e-5)."""
+    rng = np.random.RandomState(0)
+    rec = {"checks": {}, "ms": 0.0, "plain_ms": 0.0, "max_abs_err": 0.0}
+    ops = 0
+    for M, N in IOU_SHAPES:
+        b1 = random_boxes(rng, M)
+        b2 = random_boxes(rng, N, near=b1)
+        b1, b2 = torch.from_numpy(b1).to(dev), torch.from_numpy(b2).to(dev)
+        for mode in ("iou", "iof"):
+            got = iou3d.bbox_overlaps_3d(b1, b2, mode)
+            want = iou3d.bbox_overlaps_3d_plain(b1, b2, mode)
+            err = (got - want).abs().max().item()
+            if not err <= 1e-5:
+                raise AssertionError(f"iou3d {M}x{N} {mode}: {err} > 1e-5")
+            rec["checks"][f"{M}x{N}_{mode}"] = [err, int((want > 0.1).sum())]
+            rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        rec["ms"] += cuda_ms(lambda: iou3d.bbox_overlaps_3d(b1, b2), 20)
+        rec["plain_ms"] += cuda_ms(lambda: iou3d.bbox_overlaps_3d_plain(b1, b2), 3)
+        ops += iou_operations(b1, b2)
+        torch.cuda.empty_cache()
+    t_ops = ops / PEAK_FP32_FLOPS
+    t_bytes = sum((M + N) * 7 * 4 + M * N * 4 for M, N in IOU_SHAPES) / PEAK_BYTES_PER_S
+    rec.update(bound_ms=1e3 * max(t_ops, t_bytes),
+               bound_by="operations" if t_ops >= t_bytes else "bytes",
+               operations=ops)
+    emit({"phase": "kernels", "kernel": "iou3d", "shapes": IOU_SHAPES, **rec})
+    return rec
+
+
 def random_state_dict(cfg):
     """Seeded random weights (weights.init_weights: zero-initialised
     projections perturbed, reg-branch output layers scaled down)."""
@@ -617,6 +892,287 @@ def phase_serve(cfg, sd):
     return engine, batch, launches
 
 
+def final_layer(engine, batch):
+    """The final decoder layer's logits and codes for one request."""
+    with torch.inference_mode():
+        out = engine.model(torch.as_tensor(batch["images"]).to(engine.device),
+                           torch.as_tensor(batch["lidar2img"]).to(engine.device))
+    return out["all_cls_scores"][-1].float(), out["all_bbox_preds"][-1].float()
+
+
+def top_selection(cls, codes, max_num):
+    """The NMS-free coder's ranking: the top `max_num` flat (query, class)
+    indices by sigmoid score (stable), their scores and decoded boxes."""
+    scores = torch.sigmoid(cls).flatten(-2)
+    top, idx = torch.sort(scores, dim=-1, descending=True, stable=True)
+    top, idx = top[..., :max_num], idx[..., :max_num]
+    C = cls.shape[-1]
+    q = (idx // C)[..., None].expand(*idx.shape, codes.shape[-1])
+    return idx, top, denormalize_bbox(torch.gather(codes, -2, q))
+
+
+def box_drift(ref, got, max_num):
+    """tools/int8_box_bound.py's box-level drift of `got` against `ref`
+    (final-layer logits and codes): top-max_num selection churn, and the
+    max |d| of centre (m), size, yaw (rad, wrapped), velocity and score
+    over the (query, class) pairs both select."""
+    ia, sa, ba = (t[0].cpu() for t in top_selection(*ref, max_num))
+    ib, sb, bb = (t[0].cpu() for t in top_selection(*got, max_num))
+    pos_b = {int(v): j for j, v in enumerate(ib)}
+    churn = len(set(ia.tolist()) - set(ib.tolist()))
+    d = dict.fromkeys(("center", "size", "yaw", "velocity", "score"), 0.0)
+    matched = 0
+    for i, v in enumerate(ia.tolist()):
+        j = pos_b.get(v)
+        if j is None:
+            continue
+        matched += 1
+        d["center"] = max(d["center"], (ba[i, :3] - bb[j, :3]).abs().max().item())
+        d["size"] = max(d["size"], (ba[i, 3:6] - bb[j, 3:6]).abs().max().item())
+        dy = abs(ba[i, 6].item() - bb[j, 6].item())
+        d["yaw"] = max(d["yaw"], min(dy, abs(dy - 2 * np.pi)))
+        d["velocity"] = max(d["velocity"], (ba[i, 7:9] - bb[j, 7:9]).abs().max().item())
+        d["score"] = max(d["score"], abs(sa[i].item() - sb[j].item()))
+    return {"selected": max_num, "churn": churn, "matched": matched,
+            "max_abs_delta": d}
+
+
+def phase_serve_int8(sd, batch, ref):
+    """The flagship with backbone.dcn_gather=int8, the same weights and
+    requests as phase serve; `ref` is the exact path's final layer."""
+    cfg = get_config(CONFIG, ["backbone.dcn_gather=int8"])
+    engine = Engine(cfg, sd)  # warms up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    times, results = [], []
+    for _ in range(REQUESTS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        r = engine.infer(batch["images"], batch["lidar2img"])
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+        results.append(r)
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    drift = box_drift(ref, final_layer(engine, batch), cfg.coder.max_num)
+    r = results[-1]
+    emit({"phase": "serve_int8", "config": CONFIG, "dcn_gather": "int8",
+          "requests": REQUESTS, "ms_per_request": times,
+          "mean_ms": sum(times) / len(times), "peak_memory_bytes": peak,
+          "cam_overflow": r["cam_overflow"],
+          "valid_detections": int(r["valid"].sum()), "launches": launches,
+          "drift_vs_shift4": drift})
+    want = dict.fromkeys(launches, 0)
+    want.update({k: v * REQUESTS for k, v in INT8_LAUNCHES.items()})
+    if launches != want:
+        raise AssertionError(f"int8 launch counts {launches} != {want}")
+    if r["bboxes"].shape != (1, cfg.coder.max_num, 9):
+        raise AssertionError(f"bboxes shape {r['bboxes'].shape}")
+    for k in ("bboxes", "scores"):
+        if not np.isfinite(r[k]).all():
+            raise AssertionError(f"int8: non-finite {k}")
+    if not all(np.array_equal(x["labels"], r["labels"]) for x in results):
+        raise AssertionError("int8: repeated requests disagree")
+    return launches
+
+
+def lidar_state_dict():
+    """Seeded random weights of the full-width ObjDGCNN."""
+    model = ObjDGCNN(device="cpu")
+    init_weights(model, seed=0)
+    return model.state_dict()
+
+
+def phase_lidar(sd):
+    """serve.LidarEngine answers REQUESTS synthetic clouds (seeds 0..)."""
+    clouds = [lidar_cloud(seed) for seed in range(REQUESTS)]
+    engine = LidarEngine(sd)  # warms up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    times, results = [], []
+    for pts, mask in clouds:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        r = engine.infer(pts, mask)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+        results.append(r)
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    pts, mask = clouds[0]
+    H, W = LIDAR_GRID
+    pc = HeadConfig().pc_range
+    ids, _ = vox_ops.pillar_features_plain(
+        torch.from_numpy(pts), torch.from_numpy(mask), pc, LIDAR_GRID)
+    emit({"phase": "lidar", "model": "ObjDGCNN", "grid": LIDAR_GRID,
+          "points": LIDAR_POINTS, "features": LIDAR_FEATURES,
+          "valid_points": int(mask.sum()),
+          "in_range_points": int((ids < H * W).sum()),
+          "occupied_pillars": int(torch.unique(ids[ids < H * W]).numel()),
+          "requests": REQUESTS, "ms_per_request": times,
+          "mean_ms": sum(times) / len(times), "peak_memory_bytes": peak,
+          "valid_detections": [int(x["valid"].sum()) for x in results],
+          "launches": launches})
+    want = dict.fromkeys(launches, 0)
+    want.update({k: v * REQUESTS for k, v in LIDAR_LAUNCHES.items()})
+    if launches != want:
+        raise AssertionError(f"lidar launch counts {launches} != {want}")
+    for r in results:
+        if r["bboxes"].shape != (1, 300, 9):
+            raise AssertionError(f"lidar bboxes shape {r['bboxes'].shape}")
+        for k in ("bboxes", "scores"):
+            if not np.isfinite(r[k]).all():
+                raise AssertionError(f"lidar: non-finite {k}")
+    return engine, clouds, launches
+
+
+@contextlib.contextmanager
+def knn_route(calls, replay=False):
+    """Record each k-NN selection of the LiDAR head (models/dgcnn.py::
+    knn_farthest, two per decoder layer) into `calls`; or, with replay,
+    hand back the recorded selections in order and yield, per call, the
+    relative gaps (d_k - d_k+1) / |d_k| between this route's own k-th and
+    (k+1)-th largest squared distance on the rows whose own selection
+    would have been another set."""
+    inner = dgcnn_mod.knn_farthest
+    recorded = iter(list(calls))
+    tie_gaps = []
+
+    def route(x, k):
+        own = inner(x, k)
+        if not replay:
+            calls.append(own)
+            return own
+        rec = next(recorded)
+        same = (own.sort(-1).values == rec.sort(-1).values).all(-1)
+        sq = (x * x).sum(-1)
+        d2 = sq[:, :, None] + sq[:, None, :] - 2.0 * torch.matmul(
+            x, x.transpose(1, 2))
+        top = torch.topk(d2[~same], k + 1, dim=-1).values
+        gap = (top[:, k - 1] - top[:, k]) / top[:, k - 1].abs()
+        tie_gaps.append(gap.tolist())
+        return rec
+
+    dgcnn_mod.knn_farthest = route
+    try:
+        yield tie_gaps
+    finally:
+        dgcnn_mod.knn_farthest = inner
+
+
+def phase_lidar_plain(sd, cloud):
+    """fp32 ObjDGCNN, kernels vs plain versions, every decoder layer
+    compared as in phase plain. The head's k-NN picks the 16 farthest of
+    900 queries, a discontinuous choice: where two distances tie within
+    the routes' rounding, the two routes pick different sets and that
+    query's features jump (from layer 2 on, in the first run). So the
+    plain route reuses the kernel route's neighbour sets; the rows whose
+    own choice would differ must be few (KNN_MAX_DIFFERING per call) and
+    real near-ties (own k-th and (k+1)-th distance within KNN_TIE_RTOL),
+    and the free-running difference is reported too."""
+    model = ObjDGCNN()
+    model.load_state_dict(sd, strict=True)
+    model.eval()
+    pts, mask = (torch.from_numpy(a).cuda() for a in cloud)
+    outs, counts, knn = {}, {}, []
+    routes = (("kernels", contextlib.nullcontext, False),
+              ("plain", plain_kernels, True),
+              ("plain_free", plain_kernels, None))
+    with torch.inference_mode():
+        for route, ctx, replay in routes:
+            reset_launch_counts()
+            knn_ctx = (contextlib.nullcontext([]) if replay is None
+                       else knn_route(knn, replay))
+            with ctx(), knn_ctx as gaps:
+                outs[route] = model(pts, mask)
+            if replay:
+                tie_gaps = gaps
+            c = launch_counts()
+            counts[route] = [c[k] for k in LIDAR_LAUNCHES]
+    errs = {}
+    for route in ("plain", "plain_free"):
+        errs[route] = {}
+        for key in ("all_cls_scores", "all_bbox_preds"):
+            a, b = outs["kernels"][key], outs[route][key]
+            if not torch.isfinite(a).all():
+                raise AssertionError(f"lidar: non-finite {key}")
+            errs[route][key] = [(a[i] - b[i]).abs().max().item()
+                                for i in range(len(a))]
+    emit({"phase": "lidar_plain", "dtype": "float32",
+          "max_abs_err_per_layer": errs["plain"],
+          "knn_rows_differing_per_call": [len(g) for g in tie_gaps],
+          "knn_tie_gaps_per_call": tie_gaps,
+          "free_running_max_abs_err_per_layer": errs["plain_free"],
+          "launches": counts})
+    want = {"kernels": list(LIDAR_LAUNCHES.values()),
+            "plain": [0] * len(LIDAR_LAUNCHES),
+            "plain_free": [0] * len(LIDAR_LAUNCHES)}
+    if counts != want:
+        raise AssertionError(f"lidar launches per route {counts} != {want}")
+    if len(tie_gaps) != 2 * model.head_cfg.num_decoder_layers or not all(
+            len(g) <= KNN_MAX_DIFFERING and all(0 <= x < KNN_TIE_RTOL for x in g)
+            for g in tie_gaps):
+        raise AssertionError(f"k-NN rows differing per call, with their "
+                             f"relative k-th distance gaps: {tie_gaps}")
+    for key, per_layer in errs["plain"].items():
+        for i, e in enumerate(per_layer):
+            tol = PLAIN_EARLY_ATOL if i < 2 else PLAIN_ATOL
+            if not e <= tol:
+                raise AssertionError(
+                    f"lidar kernel path vs plain path: {key} layer {i} "
+                    f"{e} > {tol}")
+
+
+def phase_iou(engine, cloud):
+    """core/iou3d.bbox_overlaps_3d on the lidar answer: the final layer's
+    900 boxes against themselves, the 300 decoded boxes against 128
+    ground-truth-like boxes (jittered copies of half of them, and random
+    ones). Counters from 0 just before the two calls."""
+    pts, mask = (torch.from_numpy(a).to(engine.device) for a in cloud)
+    with torch.inference_mode():
+        out = engine.model(pts, mask)
+    boxes = denormalize_bbox(out["all_bbox_preds"][-1, 0].float())[:, :7]
+    det = torch.from_numpy(engine.infer(*cloud)["bboxes"][0, :, :7]).to(
+        engine.device)
+    rng = np.random.RandomState(1)
+    gt = np.concatenate([random_boxes(rng, 64, near=det.cpu().numpy()),
+                         random_boxes(rng, 64)])
+    gt = torch.from_numpy(gt).to(engine.device)
+    boxes, det = boxes.contiguous(), det.contiguous()
+    reset_launch_counts()
+    ious = [iou3d.bbox_overlaps_3d(boxes, boxes), iou3d.bbox_overlaps_3d(det, gt)]
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    errs = [(i - iou3d.bbox_overlaps_3d_plain(a, b)).abs().max().item()
+            for i, (a, b) in zip(ious, ((boxes, boxes), (det, gt)))]
+    diag = torch.diagonal(ious[0])
+    emit({"phase": "iou", "shapes": [list(i.shape) for i in ious],
+          "max_abs_err_vs_plain": errs, "launches": launches,
+          "self_iou_min": diag.min().item(),
+          "iou_max": max(i.max().item() for i in ious),
+          "pairs_above_0.1": [int((i > 0.1).sum()) for i in ious]})
+    want = dict.fromkeys(launches, 0)
+    want["iou3d"] = 2
+    if launches != want:
+        raise AssertionError(f"iou launch counts {launches} != {want}")
+    for i, e in zip(ious, errs):
+        if not (torch.isfinite(i).all() and e <= 1e-5):
+            raise AssertionError(f"iou: non-finite or {e} > 1e-5 from plain")
+        # 1 up to the shoelace's rounding over absolute coordinates, ~1e-4
+        # for a 1 m^2 box 50 m out, either way (tests/test_torch_iou3d.py)
+        if not (i.min() >= 0 and i.max() <= 1.01):
+            raise AssertionError(f"iou outside [0, 1.01]: {i.max().item()}")
+    if not diag.min() > 0.99:  # a box against itself
+        raise AssertionError(f"self IoU {diag.min().item()}")
+    return launches
+
+
 def phase_breakdown(engine, batch):
     """Where one request's time goes: its stages between CUDA events, and
     a torch.profiler trace of one request (device busy share of the
@@ -662,6 +1218,10 @@ def phase_breakdown(engine, batch):
 
 KERNEL_ROUTES = ((msda_ops, "msda_forward", "msda_forward_plain"),
                  (dcn_ops, "deform_im2col", "deform_im2col_plain"),
+                 (dcn_ops, "deform_im2col_int8", "deform_im2col_int8_plain"),
+                 (vox_ops, "pillar_features", "pillar_features_plain"),
+                 (vox_ops, "pillar_scatter", "pillar_scatter_plain"),
+                 (iou3d, "bbox_overlaps_3d", "bbox_overlaps_3d_plain"),
                  (focal_ops, "sigmoid_focal_loss", "sigmoid_focal_loss_plain"),
                  (lsa_ops, "hungarian_assignment",
                   "hungarian_assignment_plain"))
@@ -772,6 +1332,7 @@ def phase_train(cfg, sd, work_dir):
     peak = torch.cuda.max_memory_allocated()
     after = {k: trainer.model.state_dict()[k] for k in before}
     per_step = {k: v / TRAIN_STEPS for k, v in launches.items()}
+    want_step = {**dict.fromkeys(launches, 0), **STEP_LAUNCHES}
     emit({"phase": "train", "config": CONFIG, "steps": TRAIN_STEPS,
           "batch": 1, "num_gt": NUM_GT, "grid_mask": cfg.train.use_grid_mask,
           "dropout": cfg.head.dropout, "remat": cfg.backbone.remat,
@@ -780,8 +1341,8 @@ def phase_train(cfg, sd, work_dir):
           "loss": [r["loss"] for r in records],
           "grad_norm": [r["grad_norm"] for r in records],
           "launches": launches, "launches_per_step": per_step})
-    if per_step != STEP_LAUNCHES:
-        raise AssertionError(f"launches per step {per_step} != {STEP_LAUNCHES}")
+    if per_step != want_step:
+        raise AssertionError(f"launches per step {per_step} != {want_step}")
     for r in records:
         if not all(np.isfinite(v) for v in r.values()):
             raise AssertionError(f"non-finite train metrics {r}")
@@ -887,8 +1448,8 @@ def phase_train_plain(cfg, sd):
           "rel_err": rel, "launches": counts,
           "assignment_rows_differing_per_layer": differ,
           "optimum_cost_rel_err_per_layer": cost_rel})
-    want_kernels = STEP_LAUNCHES
-    want_plain = dict.fromkeys(STEP_LAUNCHES, 0)
+    want_plain = dict.fromkeys(counts["plain"], 0)
+    want_kernels = {**want_plain, **STEP_LAUNCHES}
     if counts != {"kernels": want_kernels, "plain": want_plain}:
         raise AssertionError(f"launches per route {counts}")
     for k, e in rel.items():
@@ -915,7 +1476,10 @@ def main():
     sd = random_state_dict(cfg)
     engine, batch, serve_launches = phase_serve(cfg, sd)
     phase_breakdown(engine, batch)
+    ref = final_layer(engine, batch)
     del engine
+    torch.cuda.empty_cache()
+    int8_launches = phase_serve_int8(sd, batch, ref)
     torch.cuda.empty_cache()
     phase_plain(cfg, sd)
     torch.cuda.empty_cache()
@@ -925,6 +1489,13 @@ def main():
         del trainer
     torch.cuda.empty_cache()
     phase_train_plain(cfg, sd)
+    torch.cuda.empty_cache()
+    lidar_sd = lidar_state_dict()
+    lidar_engine, clouds, lidar_launches = phase_lidar(lidar_sd)
+    iou_launches = phase_iou(lidar_engine, clouds[0])
+    del lidar_engine
+    torch.cuda.empty_cache()
+    phase_lidar_plain(lidar_sd, clouds[0])
 
     table = []
     for name, src, replaces, launches, covers in (
@@ -946,6 +1517,19 @@ def main():
         ("hungarian", "graph_detr4d_tpu_torch/csrc/hungarian.cu",
          "graph_detr4d_tpu/ops/hungarian.py:95", train_launches,
          "one train step's call (6 layers x 128 x 900)"),
+        ("deform_im2col_int8", "graph_detr4d_tpu_torch/csrc/deform_conv.cu",
+         "graph_detr4d_tpu/ops/deform_conv.py:259", int8_launches,
+         "one int8 request's 7 calls, bf16"),
+        ("pillar_features", "graph_detr4d_tpu_torch/csrc/voxelize.cu",
+         "graph_detr4d_tpu/ops/voxelize.py:26", lidar_launches,
+         "one lidar request's call (pillar_indices + pillar_center_offsets,"
+         " voxelize.py:26,77), 300,000 points"),
+        ("pillar_scatter", "graph_detr4d_tpu_torch/csrc/voxelize.cu",
+         "graph_detr4d_tpu/ops/voxelize.py:52", lidar_launches,
+         "one lidar request's call, 300,000 points x 64 channels"),
+        ("iou3d", "graph_detr4d_tpu_torch/csrc/iou3d.cu",
+         "graph_detr4d_tpu/core/iou3d.py:159", iou_launches,
+         "the iou phase's 2 calls, 900 x 900 and 300 x 128"),
     ):
         k = kernels[name]
         if "max_abs_err" in k:
@@ -959,7 +1543,7 @@ def main():
             "train_launches": train_launches[name],
             "max_abs_err": err, "ms": k["ms"], "plain_ms": k["plain_ms"],
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
-            "library_ms": None, "ms_covers": covers,
+            "library_ms": k.get("library_ms"), "ms_covers": covers,
         })
     print(smi, flush=True)
     emit({"kernels": table})

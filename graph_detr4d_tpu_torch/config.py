@@ -11,7 +11,7 @@ equal field for field), so a config built for one package describes the
 same model in the other. The port accepts the TPU layout knobs
 (`cam_chunk`, `batch_chunk`, `stem_s2d`, `msda_impl`, `msda_late_proj`,
 `dcn_gather` other than 'int8') and does not act on them: on the GPU each
-op has one kernel.
+op has one kernel. `dcn_gather='int8'` selects the int8 DCN table (K3).
 """
 
 from dataclasses import dataclass, field

@@ -22,7 +22,7 @@ from .resnet import ResNet
 
 def check_supported(cfg: ModelConfig):
     """Raise for the config features this slice of the port does not run."""
-    h, bb = cfg.head, cfg.backbone
+    h = cfg.head
     unsupported = {
         "head_type": cfg.head_type != "detr4d_pe",
         "backbone_type": cfg.backbone_type != "resnet",
@@ -36,8 +36,6 @@ def check_supported(cfg: ModelConfig):
         "head.scale_pred": h.scale_pred,
         "neck.cp": cfg.neck.cp,
         "neck.num_outs": cfg.neck.num_outs == 0,
-        # K3, the int8 DCN table, is not ported yet
-        "backbone.dcn_gather": bb.dcn_gather == "int8",
     }
     bad = [k for k, v in unsupported.items() if v]
     if bad:
@@ -58,6 +56,7 @@ class GraphDETR4D(nn.Module):
             out_indices=cfg.backbone.out_indices,
             stage_with_dcn=cfg.backbone.stage_with_dcn,
             use_dcn=cfg.backbone.use_dcn,
+            dcn_gather=cfg.backbone.dcn_gather,
         )
         self.img_neck = FPN(
             in_channels=cfg.neck.in_channels,

@@ -68,16 +68,19 @@ class LayerNorm(nn.LayerNorm):
 
 
 class FrozenBatchNorm(nn.Module):
-    """BatchNorm with fixed statistics: a per-channel affine (NCHW).
+    """BatchNorm with fixed statistics: a per-channel affine (NCHW, or
+    channels last with `channels_last`).
 
     The reference trains every backbone BN in eval mode with
     requires_grad=False (configs/...12e.py:37-38). The statistics are
     buffers under mmcv's names, so the reference's state_dict loads.
     """
 
-    def __init__(self, num_features: int, eps: float = 1e-5):
+    def __init__(self, num_features: int, eps: float = 1e-5,
+                 channels_last: bool = False):
         super().__init__()
         self.eps = eps
+        self.channels_last = channels_last  # channels on the last axis
         self.register_buffer("weight", torch.ones(num_features))
         self.register_buffer("bias", torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
@@ -91,7 +94,7 @@ class FrozenBatchNorm(nn.Module):
     def forward(self, x):
         scale = self.weight / torch.sqrt(self.running_var + self.eps)
         bias = self.bias - self.running_mean * scale
-        shape = (1, -1, 1, 1)
+        shape = (-1,) if self.channels_last else (1, -1, 1, 1)
         return x * scale.to(x.dtype).view(shape) + bias.to(x.dtype).view(shape)
 
 

@@ -4,6 +4,8 @@
 (projects/mmdet3d_plugin/models/utils/positional_encoding.py:15-100):
 cumulative-sum embeddings over (camera, y, x) with normalize=True,
 offset=-0.5, temperature 10000; output (B, N, H, W, 3*num_feats).
+`sine_positional_encoding_2d` is mmdet's 2-axis SinePositionalEncoding of
+the LiDAR head (dgcnn3d_head.py:140-141), interleaved sin / cos.
 """
 
 import math
@@ -50,3 +52,34 @@ def lid_depth_bins(depth_num: int, depth_start: float, depth_max: float,
     index = torch.arange(depth_num, dtype=torch.float32, device=device)
     bin_size = (depth_max - depth_start) / (depth_num * (1 + depth_num))
     return depth_start + bin_size * index * (index + 1)
+
+
+def sine_positional_encoding_2d(
+    h: int,
+    w: int,
+    num_feats: int = 128,
+    temperature: float = 10000.0,
+    offset: float = -0.5,
+    eps: float = 1e-6,
+    scale: float = 2 * math.pi,
+    device=None,
+) -> torch.Tensor:
+    """Sine PE over an unmasked (h, w) grid with normalize=True: (h, w,
+    2 * num_feats) float32 as [y-embed, x-embed], each interleaved
+    [sin(p0), cos(p1), sin(p2), cos(p3), ...] (mmdet's 2D layout, unlike
+    the block layout of the 3D PE above)."""
+    y_embed = (torch.arange(1, h + 1, dtype=torch.float32, device=device)
+               + offset) / (h + eps) * scale
+    x_embed = (torch.arange(1, w + 1, dtype=torch.float32, device=device)
+               + offset) / (w + eps) * scale
+    dim_t = torch.arange(num_feats, dtype=torch.float32, device=device)
+    dim_t = temperature ** (2 * (dim_t // 2) / num_feats)
+
+    def encode(e):
+        p = e[..., None] / dim_t
+        return torch.stack([p[..., 0::2].sin(), p[..., 1::2].cos()],
+                           dim=-1).reshape(*e.shape, num_feats)
+
+    pos_y = encode(y_embed)[:, None, :].expand(h, w, num_feats)
+    pos_x = encode(x_embed)[None, :, :].expand(h, w, num_feats)
+    return torch.cat([pos_y, pos_x], dim=-1)

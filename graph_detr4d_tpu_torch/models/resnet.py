@@ -29,11 +29,16 @@ class DeformConv(nn.Module):
     offset/mask conv, then the deformable conv of ops/deform_conv.py.
 
     conv_offset gives 27 channels per pixel: 9 (dy, dx) pairs, then 9 mask
-    logits (resnet.py:54-55 of the JAX package)."""
+    logits (resnet.py:54-55 of the JAX package). `gather` is
+    BackboneConfig.dcn_gather: with 'int8' the conv samples an int8 table
+    (K3) where its input grid is large enough, as the JAX op decides
+    (ops/deform_conv.select_variant)."""
 
-    def __init__(self, in_channels: int, out_channels: int, stride: int = 1):
+    def __init__(self, in_channels: int, out_channels: int, stride: int = 1,
+                 gather: str = "shift4"):
         super().__init__()
         self.stride = stride
+        self.gather = gather
         self.weight = nn.Parameter(torch.empty(out_channels, in_channels, 3, 3))
         self.conv_offset = Conv2d(
             in_channels, 3 * TAPS, 3, stride=stride, padding=1
@@ -46,7 +51,7 @@ class DeformConv(nn.Module):
         mask = torch.sigmoid(om[..., 2 * TAPS:]).contiguous()
         y = deform_conv2d(
             x.permute(0, 2, 3, 1).contiguous(), offsets, mask, self.weight,
-            stride=self.stride, padding=1,
+            stride=self.stride, padding=1, variant=self.gather,
         )
         return y.permute(0, 3, 1, 2)  # NCHW view of NHWC memory
 
@@ -64,7 +69,7 @@ class BasicBlock(nn.Module):
     expansion = 1
 
     def __init__(self, in_ch: int, width: int, stride: int = 1,
-                 use_dcn: bool = False):
+                 use_dcn: bool = False, dcn_gather: str = "shift4"):
         super().__init__()
         self.conv1 = Conv2d(in_ch, width, 3, stride=stride, padding=1,
                             bias=False)
@@ -89,13 +94,13 @@ class Bottleneck(nn.Module):
     expansion = 4
 
     def __init__(self, in_ch: int, width: int, stride: int = 1,
-                 use_dcn: bool = False):
+                 use_dcn: bool = False, dcn_gather: str = "shift4"):
         super().__init__()
         out_ch = width * 4
         self.conv1 = Conv2d(in_ch, width, 1, bias=False)
         self.bn1 = FrozenBatchNorm(width)
         self.conv2 = (
-            DeformConv(width, width, stride)
+            DeformConv(width, width, stride, dcn_gather)
             if use_dcn
             else Conv2d(width, width, 3, stride=stride, padding=1, bias=False)
         )
@@ -122,6 +127,7 @@ class ResNet(nn.Module):
         out_indices: Sequence[int] = (0, 1, 2, 3),
         stage_with_dcn: Sequence[bool] = (False, False, True, True),
         use_dcn: bool = True,
+        dcn_gather: str = "shift4",
     ):
         super().__init__()
         block_type, stage_blocks = ARCH_SETTINGS[depth]
@@ -136,7 +142,8 @@ class ResNet(nn.Module):
             blocks = []
             for b in range(num_blocks):
                 stride = 2 if (b == 0 and stage > 0) else 1
-                blocks.append(block_cls(in_ch, width, stride, use_dcn=dcn))
+                blocks.append(block_cls(in_ch, width, stride, use_dcn=dcn,
+                                        dcn_gather=dcn_gather))
                 in_ch = width * block_cls.expansion
             self.add_module(f"layer{stage + 1}", nn.Sequential(*blocks))
             width *= 2

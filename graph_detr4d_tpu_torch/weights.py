@@ -10,6 +10,12 @@ load it with `strict=True`, as they load a published mmdet3d checkpoint.
 The part mappers (`backbone_state_dict`, `cross_attn_state_dict`, ...)
 map one flax subtree to names relative to the matching port module.
 
+`obj_dgcnn_state_dict_from_jax(variables)` does the same for the LiDAR
+detector `models/dgcnn.py::ObjDGCNN`, under names that mirror the JAX tree
+(`pts_bbox_head.layer0_self_attn.conv1.weight`, ...). No upstream
+checkpoint loads into it, nor into the JAX ObjDGCNN: their LayerNorms in
+place of BatchNorm (pillar and SECOND layers) change the parameters.
+
 `init_weights(model, seed)` draws the port's random weights from a
 seeded `torch.Generator`: the JAX package's initialisers, with the
 zero-initialised projections perturbed so a random model exercises the
@@ -24,6 +30,7 @@ import torch
 import torch.nn as nn
 
 from .models.attention import Deform3DCrossAttn, offset_bias_init
+from .models.dgcnn import BEVDeformableCrossAttn, DGCNN3DHead, grid_offset_bias
 from .models.head import Detr3DHeadPE
 from .models.layers import FrozenBatchNorm, LayerNorm
 from .models.resnet import DeformConv
@@ -195,6 +202,110 @@ def state_dict_from_jax(variables) -> "OrderedDict[str, torch.Tensor]":
     return to_torch(sd)
 
 
+def dgcnn_attn_state_dict(params, stats):
+    """flax DGCNNAttn subtree (params and batch_stats) -> port names."""
+    w = _Writer(params, stats)
+    for conv in ("conv1", "conv2"):
+        w.lin([conv], conv)
+        w.bn([conv + "_bn"], conv + "_bn")
+    return w.sd
+
+
+def bev_cross_attn_state_dict(params):
+    """flax BEVDeformableCrossAttn subtree -> port names."""
+    w = _Writer(params)
+    for name in ("sampling_offsets", "attention_weights", "value_proj",
+                 "output_proj"):
+        w.lin([name], name)
+    return w.sd
+
+
+def dgcnn_head_state_dict(params, stats):
+    """flax DGCNN3DHead subtree -> port DGCNN3DHead names. The FFN Dense
+    layers are flax's Dense_{2l} and Dense_{2l+1} (creation order)."""
+    w = _Writer(params, stats)
+    w.sd["query_embedding.weight"] = _arr(params, ["query_embedding"])
+    w.lin(["reference_points"], "reference_points")
+    lid = 0
+    while f"layer{lid}_self_attn" in params:
+        pre = f"layer{lid}_"
+        w.sd.update(_prefixed(pre + "self_attn.", dgcnn_attn_state_dict(
+            params[pre + "self_attn"], stats[pre + "self_attn"])))
+        w.sd.update(_prefixed(pre + "cross_attn.", bev_cross_attn_state_dict(
+            params[pre + "cross_attn"])))
+        for ni in (1, 2, 3):
+            w.ln([f"{pre}norm{ni}"], f"{pre}norm{ni}")
+        w.lin([f"Dense_{2 * lid}"], f"{pre}ffn.0")
+        w.lin([f"Dense_{2 * lid + 1}"], f"{pre}ffn.2")
+        c, r = [f"cls_branch{lid}"], [f"reg_branch{lid}"]
+        for src, idx in (("fc0", 0), ("ln0", 1), ("fc1", 3), ("ln1", 4),
+                         ("out", 6)):
+            (w.ln if src.startswith("ln") else w.lin)(
+                c + [src], f"cls_branch{lid}.{idx}")
+        for src, idx in (("fc0", 0), ("fc1", 2), ("out", 4)):
+            w.lin(r + [src], f"reg_branch{lid}.{idx}")
+        lid += 1
+    return w.sd
+
+
+def pillar_encoder_state_dict(params):
+    """flax PillarEncoder subtree -> port names."""
+    w = _Writer(params)
+    w.lin(["pfn"], "pfn")
+    w.ln(["pfn_norm"], "pfn_norm")
+    return w.sd
+
+
+def second_backbone_state_dict(params):
+    """flax SECONDBackbone subtree -> port names. flax names its LayerNorms
+    LayerNorm_i in creation order: per stage the down conv's, then one
+    per block."""
+    w = _Writer(params)
+    i, s = 0, 0
+    while f"stage{s}_down" in params:
+        w.conv([f"stage{s}_down"], f"stage{s}_down", bias=True)
+        w.ln([f"LayerNorm_{i}"], f"stage{s}_down_norm")
+        i += 1
+        b = 0
+        while f"stage{s}_conv{b}" in params:
+            w.conv([f"stage{s}_conv{b}"], f"stage{s}_conv{b}", bias=True)
+            w.ln([f"LayerNorm_{i}"], f"stage{s}_norm{b}")
+            i, b = i + 1, b + 1
+        s += 1
+    return w.sd
+
+
+def second_fpn_state_dict(params, num_inputs: int):
+    """flax SECONDFPN subtree -> port names. flax names its convs Conv_i in
+    creation order: the `num_inputs` laterals, their output convs, then
+    the extra stride-2 convs."""
+    w = _Writer(params)
+    n = num_inputs
+    j = 0
+    while f"Conv_{j}" in params:
+        kind, idx = (("lateral_convs", j) if j < n else
+                     ("fpn_convs", j - n) if j < 2 * n else
+                     ("extra_convs", j - 2 * n))
+        w.conv([f"Conv_{j}"], f"{kind}.{idx}", bias=True)
+        j += 1
+    return w.sd
+
+
+def obj_dgcnn_state_dict_from_jax(variables) -> "OrderedDict[str, torch.Tensor]":
+    """flax ObjDGCNN variables -> the port's ObjDGCNN state_dict."""
+    params, stats = variables["params"], variables["batch_stats"]
+    backbone = params["pts_backbone"]
+    stages = sum(1 for k in backbone if k.endswith("_down"))
+    sd = _prefixed("pillar_encoder.",
+                   pillar_encoder_state_dict(params["pillar_encoder"]))
+    sd.update(_prefixed("pts_backbone.", second_backbone_state_dict(backbone)))
+    sd.update(_prefixed("pts_neck.", second_fpn_state_dict(
+        params["pts_neck"], stages)))
+    sd.update(_prefixed("pts_bbox_head.", dgcnn_head_state_dict(
+        params["pts_bbox_head"], stats["pts_bbox_head"])))
+    return to_torch(sd)
+
+
 def to_torch(sd) -> "OrderedDict[str, torch.Tensor]":
     return OrderedDict(
         (k, torch.from_numpy(np.array(v, dtype=np.float32)))
@@ -237,7 +348,7 @@ def init_weights(model: nn.Module, seed: int = 0):
     that random weights exercise the path as trained weights would:
 
     - the projections the JAX package zero-initialises (DCN
-      `conv_offset`, the sampling-offset kernel, `attention_weights`,
+      `conv_offset`, the sampling-offset kernels, `attention_weights`,
       `cam_attention_weights`) and the identity FrozenBN statistics get
       seeded noise, so offsets, masks, attention and gates vary;
     - the reg branches' output layers are scaled by REG_OUT_SCALE, so box
@@ -282,6 +393,19 @@ def init_weights(model: nn.Module, seed: int = 0):
                 branch[-1].bias.fill_(CLS_PRIOR_BIAS)
             for branch in m.reg_branches:
                 branch[-1].weight.mul_(REG_OUT_SCALE)
+        elif isinstance(m, BEVDeformableCrossAttn):
+            for lin in (m.value_proj, m.output_proj):
+                _xavier_uniform(lin.weight, g)
+            for lin in (m.sampling_offsets, m.attention_weights):
+                _normal(lin.weight, 1.0 / math.sqrt(lin.in_features), g)
+                lin.bias.zero_()
+            m.sampling_offsets.bias.copy_(grid_offset_bias(
+                m.num_heads, m.num_levels, m.num_points))
+        elif isinstance(m, DGCNN3DHead):
+            _normal(m.query_embedding.weight, 1.0, g)
+            for lid in range(m.cfg.num_decoder_layers):
+                getattr(m, f"cls_branch{lid}")[-1].bias.fill_(CLS_PRIOR_BIAS)
+                getattr(m, f"reg_branch{lid}")[-1].weight.mul_(REG_OUT_SCALE)
         elif isinstance(m, FrozenBatchNorm):
             n = m.weight.numel()
             m.weight.copy_(torch.rand(n, generator=g) + 0.5)

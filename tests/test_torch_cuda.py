@@ -21,6 +21,8 @@ from graph_detr4d_tpu_torch.ops import deform_conv as dcn_ops  # noqa: E402
 from graph_detr4d_tpu_torch.ops import focal_loss as focal_ops  # noqa: E402
 from graph_detr4d_tpu_torch.ops import hungarian as lsa_ops  # noqa: E402
 from graph_detr4d_tpu_torch.ops import msda as msda_ops  # noqa: E402
+from graph_detr4d_tpu_torch.ops import voxelize as vox_ops  # noqa: E402
+from graph_detr4d_tpu_torch.core import iou3d  # noqa: E402
 
 
 @pytest.fixture
@@ -360,3 +362,212 @@ def test_tiny_train_step_on_the_card_matches_the_cpu(cuda):
         rtol = 1e-3 if k == "grad_norm" else 1e-4
         torch.testing.assert_close(got[k].cpu(), want[k], rtol=rtol, atol=0,
                                    msg=k)
+
+
+def _int8_case(rng, B, H, W, Cin, stride, ties=False):
+    x = rng.randn(B, H, W, Cin).astype(np.float32)
+    if ties:  # x * (127 / s) lands on half-integers: rounding ties
+        x = ((rng.randint(-126, 126, size=x.shape) + 0.5) / 128).astype(
+            np.float32)
+        x[:, 0, 0, :] = 127.0 / 128
+    Ho = dcn_ops.output_size(H, stride, 1)
+    Wo = dcn_ops.output_size(W, stride, 1)
+    off = (rng.randn(B, Ho, Wo, 9, 2) * 4.0).astype(np.float32)
+    mask = rng.rand(B, Ho, Wo, 9).astype(np.float32)
+    return [torch.from_numpy(a) for a in (x, off, mask)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("ties", [False, True])
+def test_int8_im2col_kernel_matches_plain(cuda, dtype, stride, ties):
+    """K3 at a grid the int8 variant applies to (40 x 48), 48 channels:
+    the kernel's table, scales and gather against the plain version's."""
+    rng = np.random.RandomState(7)
+    x, off, mask = (t.to(cuda, dtype) for t in _int8_case(
+        rng, 2, 40, 48, 48, stride, ties))
+    n0 = dcn_ops.int8_launches
+    got = dcn_ops.deform_im2col_int8(x, off, mask, stride)
+    want = dcn_ops.deform_im2col_int8_plain(x, off, mask, stride)
+    torch.cuda.synchronize()
+    assert dcn_ops.int8_launches == n0 + 1
+    assert got.shape == want.shape
+    err = (got.float() - want.float()).abs().max().item()
+    if dtype == torch.float32:
+        assert err <= 1e-4, err
+    else:
+        assert err <= 2e-2 * want.float().abs().max().item(), err
+    if dtype == torch.float32:  # the quantized function, not the exact one
+        exact = dcn_ops.deform_im2col_plain(x, off, mask, stride)
+        assert (exact - want).abs().max().item() > 100 * max(err, 1e-6)
+
+
+@pytest.mark.cuda
+def test_int8_conv_backward_is_the_fp_kernels(cuda):
+    """deform_conv2d(variant='int8') on the card: forward through K3, the
+    straight-through backward through K2's col2im (x, offsets, mask) and
+    K2's forward tile (weight), equal to the CPU's plain route."""
+    rng = np.random.RandomState(8)
+    x, off, mask = _int8_case(rng, 2, 40, 48, 16, 1)
+    w = torch.from_numpy(rng.randn(8, 16, 3, 3).astype(np.float32) * 0.1)
+    g = torch.from_numpy(rng.randn(2, 40, 48, 8).astype(np.float32))
+    grads = {}
+    counts = (dcn_ops.int8_launches, dcn_ops.launches,
+              dcn_ops.backward_launches)
+    for dev in ("cpu", cuda):
+        leaves = [t.to(dev).detach().requires_grad_() for t in (x, off, mask, w)]
+        out = dcn_ops.deform_conv2d(*leaves, variant="int8")
+        (out * g.to(dev)).sum().backward()
+        grads[str(dev)] = [out.detach().cpu()] + [t.grad.cpu() for t in leaves]
+    torch.cuda.synchronize()
+    assert (dcn_ops.int8_launches - counts[0], dcn_ops.launches - counts[1],
+            dcn_ops.backward_launches - counts[2]) == (1, 1, 1)
+    for got, want in zip(grads["cuda"], grads["cpu"]):
+        scale = max(1.0, want.abs().max().item())
+        assert (got - want).abs().max().item() <= 1e-4 * scale
+
+
+def _cloud(rng, B, P, F=5):
+    pts = rng.uniform(-58.0, 58.0, (B, P, F)).astype(np.float32)
+    pts[..., 2] = rng.uniform(-6.0, 4.0, (B, P))
+    pts[:, :200, :2] = rng.uniform(10.0, 10.7, (B, 200, 2))  # a crowded pillar
+    pts[:, :200, 2] = 0.0
+    # cell borders (0.8 m cells from -51.2), and just below x0
+    k = rng.randint(0, 128, (B, 100)).astype(np.float32)
+    pts[:, 200:300, 0] = np.float32(-51.2) + k * np.float32(0.8)
+    pts[:, 300, 0] = -51.3
+    mask = (rng.rand(B, P) > 0.1).astype(np.float32)
+    mask[:, :301] = 1.0
+    return torch.from_numpy(pts), torch.from_numpy(mask)
+
+
+PC = (-51.2, -51.2, -5.0, 51.2, 51.2, 3.0)
+
+
+@pytest.mark.cuda
+def test_pillar_features_kernel_matches_plain(cuda):
+    """K6 kernels A and B: ids exactly, the augmented rows within 1e-5 (the
+    cluster means sum in float64 in both, in another order; at 58 m a
+    float32 step is 3.8e-6). Sample 1 is all masked: every point goes to
+    the trash cell."""
+    rng = np.random.RandomState(9)
+    pts, mask = _cloud(rng, 3, 5000)
+    mask[1] = 0.0
+    pts, mask = pts.to(cuda), mask.to(cuda)
+    n0 = vox_ops.launches
+    ids, aug = vox_ops.pillar_features(pts, mask, PC, (128, 128))
+    want_ids, want_aug = vox_ops.pillar_features_plain(pts, mask, PC, (128, 128))
+    torch.cuda.synchronize()
+    assert vox_ops.launches == n0 + 1
+    assert torch.equal(ids, want_ids)
+    assert (ids[1] == 128 * 128).all()
+    assert (ids[0, 300] == 128 * 128).item()
+    assert (aug - want_aug).abs().max().item() <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shift", [-1.0, -4.0])
+def test_pillar_scatter_kernel_matches_plain(cuda, shift):
+    """K6 kernel C on mixed-sign and on all-negative features, crowded and
+    empty cells and the trash cell: the max exactly."""
+    rng = np.random.RandomState(10)
+    pts, mask = _cloud(rng, 2, 5000)
+    ids, _ = vox_ops.pillar_features_plain(pts, mask, PC, (128, 128))
+    feats = rng.randn(2, 5000, 64) + shift
+    if shift < -2:
+        feats = np.minimum(feats, -0.01)
+    feats = torch.from_numpy(feats.astype(np.float32))
+    feats, ids = feats.to(cuda), ids.to(cuda)
+    n0 = vox_ops.scatter_launches
+    got = vox_ops.pillar_scatter(feats, ids, (128, 128))
+    want = vox_ops.pillar_scatter_plain(feats, ids, (128, 128))
+    torch.cuda.synchronize()
+    assert vox_ops.scatter_launches == n0 + 1
+    assert torch.equal(got, want)
+    assert (got < 0).any()
+    occupied = torch.bincount(ids[0][ids[0] < 128 * 128].long(),
+                              minlength=128 * 128) > 0
+    assert (~occupied).any()
+    cells = got[0].reshape(-1, 64)
+    assert (cells[~occupied] == 0).all()
+    if shift < -2:
+        assert (cells[occupied] < 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["iou", "iof", "bev"])
+def test_iou3d_kernel_matches_plain(cuda, mode):
+    """K7 on random pairs 50 m out and planted identical, touching,
+    contained, 45-degree and zero-height pairs: within 1e-5 (the kernel
+    repeats the plain version's float operations on the same corners)."""
+    rng = np.random.RandomState(11)
+    b1 = np.zeros((300, 7), np.float32)
+    b1[:, :2] = rng.uniform(-50, 50, (300, 2))
+    b1[:, 2] = rng.uniform(-2, 1, 300)
+    b1[:, 3:6] = rng.uniform(0.5, 5.0, (300, 3))
+    b1[:, 6] = rng.uniform(-np.pi, np.pi, 300)
+    b2 = b1[rng.permutation(300)[:128]].copy()
+    b2[:, :2] += rng.uniform(-1.5, 1.5, (128, 2))
+    b2[:, 6] += rng.uniform(-0.6, 0.6, 128)
+    b2[:5] = b1[:5]  # identical
+    b2[5] = b1[5] + [b1[5, 3], 0, 0, 0, 0, 0, 0]  # shifted by a width
+    b2[6, 6] = b1[6, 6] + np.pi / 4
+    b2[7, 3:6] = b1[7, 3:6] * 0.3  # contained
+    b2[7, :3], b2[7, 6] = b1[7, :3], b1[7, 6]
+    b2[8, 5] = 0.0  # zero height
+    b1t, b2t = torch.from_numpy(b1).to(cuda), torch.from_numpy(b2).to(cuda)
+    n0 = iou3d.launches
+    got = iou3d.bbox_overlaps_3d(b1t, b2t, mode)
+    want = iou3d.bbox_overlaps_3d_plain(b1t, b2t, mode)
+    torch.cuda.synchronize()
+    assert iou3d.launches == n0 + 1
+    assert got.shape == (300, 128)
+    assert (got - want).abs().max().item() <= 1e-5
+    assert (want > 0.1).sum().item() > 100
+
+
+@pytest.mark.cuda
+def test_lidar_kernels_skip_empty_work(cuda):
+    counts = (vox_ops.launches, vox_ops.scatter_launches, iou3d.launches,
+              dcn_ops.int8_launches)
+    ids, aug = vox_ops.pillar_features(
+        torch.zeros(1, 0, 5, device=cuda), torch.zeros(1, 0, device=cuda),
+        PC, (8, 8))
+    assert ids.shape == (1, 0) and aug.shape == (1, 0, 10)
+    assert iou3d.bbox_overlaps_3d(torch.zeros(0, 7, device=cuda),
+                                  torch.zeros(4, 7, device=cuda)).shape == (0, 4)
+    x = torch.randn(0, 40, 48, 16, device=cuda)
+    assert dcn_ops.deform_im2col_int8(
+        x, torch.zeros(0, 40, 48, 9, 2, device=cuda),
+        torch.ones(0, 40, 48, 9, device=cuda)).shape == (0, 144)
+    assert (vox_ops.launches, vox_ops.scatter_launches, iou3d.launches,
+            dcn_ops.int8_launches) == counts
+
+
+@pytest.mark.cuda
+def test_tiny_obj_dgcnn_on_the_card_matches_the_cpu(cuda):
+    """ObjDGCNN at a tiny width (30 x 22 grid, 2 decoder layers, fp32):
+    kernels on the card vs the plain versions on the CPU, and one launch
+    of each K6 site and one K1 launch per layer."""
+    from graph_detr4d_tpu_torch.config import HeadConfig
+    from graph_detr4d_tpu_torch.models.dgcnn import ObjDGCNN
+    from graph_detr4d_tpu_torch.weights import init_weights
+
+    cfg = HeadConfig(num_query=24, embed_dims=32, num_decoder_layers=2,
+                     num_heads=4, num_points=2, ffn_dims=64)
+    cpu_model = ObjDGCNN(cfg, (30, 22), 8, 4, device="cpu")
+    init_weights(cpu_model, seed=0)
+    gpu_model = ObjDGCNN(cfg, (30, 22), 8, 4, device=cuda)
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    pts, mask = _cloud(np.random.RandomState(12), 2, 3000)
+    counts = (vox_ops.launches, vox_ops.scatter_launches, msda_ops.launches)
+    with torch.no_grad():
+        got = gpu_model.eval()(pts.to(cuda), mask.to(cuda))
+        want = cpu_model.eval()(pts, mask)
+    torch.cuda.synchronize()
+    assert (vox_ops.launches - counts[0], vox_ops.scatter_launches - counts[1],
+            msda_ops.launches - counts[2]) == (1, 1, 2)
+    for key in ("all_cls_scores", "all_bbox_preds"):
+        torch.testing.assert_close(got[key].cpu(), want[key], rtol=0,
+                                   atol=1e-3)

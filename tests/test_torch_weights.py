@@ -82,6 +82,71 @@ def test_state_dict_from_jax_equals_export_and_loads_strict(name):
         torch.testing.assert_close(sd[k], got[k])
 
 
+def test_obj_dgcnn_bridge_loads_strict_at_full_width():
+    """The LiDAR bridge at the JAX ObjDGCNN's defaults (128 x 128 grid, 64
+    pillar channels, 900 queries, width 256, 6 layers): every key loads
+    strict, and the auto-named flax modules land where their creation
+    order puts them."""
+    from graph_detr4d_tpu.models.dgcnn import ObjDGCNN as JaxObjDGCNN
+    from graph_detr4d_tpu_torch.models.dgcnn import ObjDGCNN
+    from graph_detr4d_tpu_torch.weights import obj_dgcnn_state_dict_from_jax
+
+    shapes = jax.eval_shape(
+        JaxObjDGCNN(head_cfg=jax_config.HeadConfig()).init,
+        jax.random.PRNGKey(0), jnp.zeros((1, 64, 5)), jnp.zeros((1, 64)))
+    rng = np.random.RandomState(0)
+    v = jax.tree_util.tree_map(
+        lambda s: rng.randn(*s.shape).astype(np.float32), shapes)
+    sd = obj_dgcnn_state_dict_from_jax(v)
+    model = ObjDGCNN(device="cpu")
+    assert set(sd) == set(model.state_dict())
+    model.load_state_dict(sd, strict=True)
+    p, st = v["params"], v["batch_stats"]
+    for key, want in (
+        ("pts_bbox_head.layer5_ffn.2.weight",
+         p["pts_bbox_head"]["Dense_11"]["kernel"].T),
+        ("pts_bbox_head.layer2_self_attn.conv2_bn.running_var",
+         st["pts_bbox_head"]["layer2_self_attn"]["conv2_bn"]["var"]),
+        ("pts_backbone.stage2_norm4.weight",
+         p["pts_backbone"]["LayerNorm_15"]["scale"]),
+        ("pts_backbone.stage1_down_norm.bias",
+         p["pts_backbone"]["LayerNorm_4"]["bias"]),
+        ("pts_neck.fpn_convs.0.weight",
+         np.transpose(p["pts_neck"]["Conv_3"]["kernel"], (3, 2, 0, 1))),
+        ("pts_neck.extra_convs.0.bias", p["pts_neck"]["Conv_6"]["bias"]),
+        ("pillar_encoder.pfn.weight", p["pillar_encoder"]["pfn"]["kernel"].T),
+    ):
+        np.testing.assert_array_equal(model.state_dict()[key].numpy(), want,
+                                      err_msg=key)
+
+
+def test_init_weights_covers_the_lidar_modules():
+    """Seeded, and the zero-initialised projections of the LiDAR head get
+    noise: sampling offsets and attention weights vary, the offset bias
+    is the circular grid, the reg outputs are scaled down."""
+    from graph_detr4d_tpu.models.dgcnn import _grid_offset_bias
+    from graph_detr4d_tpu_torch.config import HeadConfig
+    from graph_detr4d_tpu_torch.models.dgcnn import ObjDGCNN
+    from graph_detr4d_tpu_torch.weights import REG_OUT_SCALE, init_weights
+
+    cfg = HeadConfig(num_query=16, embed_dims=32, num_decoder_layers=2,
+                     num_heads=4, num_points=2, ffn_dims=64)
+    a, b = (ObjDGCNN(cfg, (16, 16), 8, 4, device="cpu") for _ in range(2))
+    init_weights(a, seed=3)
+    init_weights(b, seed=3)
+    for (k, x), y in zip(a.state_dict().items(), b.state_dict().values()):
+        torch.testing.assert_close(x, y, msg=k)
+    attn = a.pts_bbox_head.layer1_cross_attn
+    assert attn.sampling_offsets.weight.abs().min() > 0
+    assert attn.attention_weights.weight.std() > 0.05
+    np.testing.assert_allclose(attn.sampling_offsets.bias.detach().numpy(),
+                               _grid_offset_bias(4, 4, 2), atol=1e-6)
+    bn = a.pts_bbox_head.layer0_self_attn.conv1_bn
+    assert not torch.equal(bn.running_var, torch.ones_like(bn.running_var))
+    out = a.pts_bbox_head.reg_branch1[-1].weight
+    assert out.std() < 2 * REG_OUT_SCALE / np.sqrt(out.shape[1])
+
+
 def test_mmcv_checkpoint_with_bn_counters_loads_strict():
     """A published mmdet3d checkpoint also carries BatchNorm's
     num_batches_tracked; the frozen BN drops it on load."""
@@ -154,6 +219,9 @@ def test_import_builds_nothing_and_needs_no_nvcc_or_triton(tmp_path):
         "import graph_detr4d_tpu_torch, graph_detr4d_tpu_torch.serve\n"
         "import graph_detr4d_tpu_torch.weights, chip_smoke\n"
         "from graph_detr4d_tpu_torch.ops import build, msda, deform_conv\n"
+        "from graph_detr4d_tpu_torch.ops import voxelize\n"
+        "from graph_detr4d_tpu_torch.core import iou3d\n"
+        "import graph_detr4d_tpu_torch.models.dgcnn\n"
         "bad = [m for m in ('triton', 'jax', 'flax') if m in sys.modules]\n"
         "assert not bad, bad\n"
         "assert msda.launches == 0 and deform_conv.launches == 0\n"
@@ -185,3 +253,23 @@ def test_entry_points_need_cuda_unless_cpu_is_asked_for():
 
     with pytest.raises(RuntimeError, match="CUDA"):
         Trainer(cfg, sd, iter([]), "unused-work-dir")
+    from graph_detr4d_tpu_torch.core.coder import decode_batch
+    from graph_detr4d_tpu_torch.models.dgcnn import ObjDGCNN
+    from graph_detr4d_tpu_torch.serve import LidarEngine
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ObjDGCNN()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        LidarEngine({})
+    # LidarEngine serves the full-width model; its CPU route at a small
+    # width is the model and decode it runs
+    small = ObjDGCNN(port_config.HeadConfig(
+        num_query=16, embed_dims=32, num_decoder_layers=1, num_heads=4,
+        num_points=2, ffn_dims=64), (16, 16), 8, 4, device="cpu").eval()
+    with torch.inference_mode():
+        out = small(torch.zeros(1, 32, 5), torch.ones(1, 32))
+    c = port_config.CoderConfig()
+    det = decode_batch(out, max_num=c.max_num,
+                       post_center_range=c.post_center_range,
+                       score_threshold=c.score_threshold)
+    assert det.bboxes.shape == (1, 160, 9)
