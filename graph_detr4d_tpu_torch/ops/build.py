@@ -23,8 +23,8 @@ from typing import Dict, Sequence
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES = ("msda", "deform_conv", "focal_loss", "hungarian", "voxelize",
-           "iou3d")
+SOURCES = ("msda", "deform_conv", "deform_conv_int8", "focal_loss",
+           "hungarian", "voxelize", "iou3d")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

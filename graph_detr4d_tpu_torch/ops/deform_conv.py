@@ -6,24 +6,27 @@ learned (dy, dx) offset shifts the tap's sampling point, the input is
 sampled bilinearly with zero padding, scaled by the modulation mask, and
 contracted with the conv weight.
 
-`deform_im2col` builds the sampled column tile (B*Ho*Wo, 9*Cin),
-differentiable in x, offsets and mask: for a CUDA tensor the forward
-kernel of `csrc/deform_conv.cu` inside an autograd Function whose
-backward is that file's col2im kernel (`deform_col2im`); for a CPU tensor
-`deform_im2col_plain` (per-tap `F.grid_sample`), which autograd
-differentiates. `deform_conv2d` contracts the tile with the (9*Cin, Cout)
-weight in one matrix product, whose autograd keeps the tile for the
-weight gradient.
+`deform_conv` is the differentiable conv on the tap-major (9*Cin, Cout)
+weight. For a CUDA tensor it runs the two fused kernels of
+`csrc/deform_conv.cu` inside an autograd Function that saves only x,
+offsets, mask and the weight: `deform_conv_forward` (one kernel launch per
+call: sampling and contraction, the column tile never written) and
+`deform_conv_backward` (the x / offsets / mask gradients in one kernel;
+the weight gradient in up to three more: a corner table, the gradient by
+pixel slices, and the slices' sum when there is more than one). For a CPU
+tensor it is `deform_conv2d_plain` (per-tap
+`F.grid_sample`, then a matrix product), which autograd differentiates;
+`deform_conv2d_backward_plain` is that gradient.
 
 K3, the int8 variant (`variant="int8"`, counterpart of
 graph_detr4d_tpu/ops/deform_conv.py::_deform_conv_int8): the input is
 quantized to an int8 table at per-(image, channel) amax scales and the
 taps are gathered from it and dequantized (`deform_im2col_int8`, the
-`csrc/deform_conv.cu` kernels for a CUDA tensor, `deform_im2col_int8_plain`
-for a CPU one). Its gradient is straight-through, the exact gradient of
-the fp conv (K2's col2im for x, offsets and mask, and the fp column tile,
-recomputed, for the weight), as the JAX op's `_int8_bwd`. Like the JAX op,
-it applies only where the input's padded grid has more than
+`csrc/deform_conv_int8.cu` kernels for a CUDA tensor,
+`deform_im2col_int8_plain` for a CPU one), then contracted by a matrix
+product. Its gradient is straight-through, the exact gradient of the fp
+conv (`deform_conv_backward`), as the JAX op's `_int8_bwd`. Like the JAX
+op, it applies only where the input's padded grid has more than
 ONEHOT_MAX_PIXELS pixels; smaller grids stay exact (`select_variant`).
 """
 
@@ -35,10 +38,11 @@ import torch.nn.functional as F
 
 from . import build
 
-# kernel launches made by deform_im2col, deform_col2im and
-# deform_im2col_int8 (plain ints; chip_smoke.py resets them before driving
-# the main path and reads them after)
-launches = 0
+# calls that launched kernels: deform_conv_forward (1 launch each),
+# deform_conv_backward (2-4 each, 1 without the weight gradient) and
+# deform_im2col_int8 (3 each); plain ints, chip_smoke.py resets them before
+# driving the main path and reads them after
+forward_launches = 0
 backward_launches = 0
 int8_launches = 0
 
@@ -52,15 +56,25 @@ ONEHOT_MAX_PIXELS = 1536
 
 @functools.cache
 def _lib():
-    lib = build.load("deform_conv")
-    lib.deform_im2col.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [
-        ctypes.c_void_p
-    ]
-    lib.deform_im2col.restype = ctypes.c_int
-    lib.deform_col2im.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [
-        ctypes.c_void_p
-    ]
-    lib.deform_col2im.restype = ctypes.c_int
+    return _bind(build.load("deform_conv"))
+
+
+def _bind(lib):
+    """Set the C signatures of csrc/deform_conv.cu's entry points."""
+    lib.deform_conv_forward.argtypes = [ctypes.c_void_p] * 5 + [
+        ctypes.c_int] * 10 + [ctypes.c_void_p]
+    lib.deform_conv_forward.restype = ctypes.c_int
+    lib.deform_conv_backward_workspace.argtypes = [ctypes.c_int] * 6
+    lib.deform_conv_backward_workspace.restype = ctypes.c_longlong
+    lib.deform_conv_backward.argtypes = [ctypes.c_void_p] * 10 + [
+        ctypes.c_longlong] + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+    lib.deform_conv_backward.restype = ctypes.c_int
+    return lib
+
+
+@functools.cache
+def _lib_int8():
+    lib = build.load("deform_conv_int8")
     lib.deform_im2col_int8.argtypes = [ctypes.c_void_p] * 7 + [
         ctypes.c_int] * 9 + [ctypes.c_void_p]
     lib.deform_im2col_int8.restype = ctypes.c_int
@@ -94,45 +108,17 @@ def _check(x, offsets, mask, stride, padding):
     return B, H, W, Ho, Wo
 
 
-def deform_im2col(
-    x: torch.Tensor,
-    offsets: torch.Tensor,
-    mask: torch.Tensor,
-    stride: int = 1,
-    padding: int = 1,
-) -> torch.Tensor:
-    """Sampled, mask-scaled 3x3 columns of a modulated deformable conv,
-    differentiable in x, offsets and mask.
-
-    Args:
-      x: (B, H, W, Cin) float32 or bfloat16, channels-last.
-      offsets: (B, Ho, Wo, 9, 2) per-tap (dy, dx), x's dtype.
-      mask: (B, Ho, Wo, 9) modulation (already sigmoid-ed), x's dtype.
-
-    Returns (B*Ho*Wo, 9*Cin) in x's dtype, tap-major: column k*Cin + c is
-    channel c sampled at tap k = ky*3 + kx.
-    """
-    _check(x, offsets, mask, stride, padding)
-    if x.device.type == "cpu":
-        return deform_im2col_plain(x, offsets, mask, stride, padding)
-    if x.device.type != "cuda":
-        raise ValueError(f"deform_conv: unsupported device {x.device}")
-    return _DeformIm2col.apply(x, offsets, mask, stride, padding)
-
-
-class _DeformIm2col(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, offsets, mask, stride, padding):
-        ctx.save_for_backward(x, offsets, mask)
-        ctx.conv = (stride, padding)
-        return _launch_forward(x, offsets, mask, stride, padding)
-
-    @staticmethod
-    @torch.autograd.function.once_differentiable
-    def backward(ctx, grad_cols):
-        x, offsets, mask = ctx.saved_tensors
-        grads = deform_col2im(x, offsets, mask, grad_cols, *ctx.conv)
-        return (*grads, None, None)
+def _check_weight(x, w):
+    """w: the tap-major (9*Cin, Cout) weight, in x's dtype, on x's device.
+    Returns Cout."""
+    if w.dim() != 2 or w.shape[0] != TAPS * x.shape[-1]:
+        raise ValueError(f"deform_conv: weight {tuple(w.shape)} is not "
+                         f"(9 * {x.shape[-1]}, Cout)")
+    if w.dtype != x.dtype:
+        raise TypeError(f"deform_conv: weight dtype {w.dtype} != {x.dtype}")
+    if w.device != x.device:
+        raise ValueError("deform_conv: all tensors must be on one device")
+    return w.shape[1]
 
 
 def _contiguous(**tensors):
@@ -141,76 +127,165 @@ def _contiguous(**tensors):
             raise ValueError(f"deform_conv: {name} must be contiguous")
 
 
-def _launch_forward(x, offsets, mask, stride, padding):
-    global launches
-    _contiguous(x=x, offsets=offsets, mask=mask)
-    B, H, W, Cin = x.shape
-    Ho, Wo = offsets.shape[1:3]
-    cols = torch.empty(B * Ho * Wo, TAPS * Cin, dtype=x.dtype, device=x.device)
-    if cols.numel() == 0:  # nothing to launch
-        return cols
-    err = _lib().deform_im2col(
-        x.data_ptr(), offsets.data_ptr(), mask.data_ptr(), cols.data_ptr(),
-        B, H, W, Cin, Ho, Wo, stride, padding, _DTYPES[x.dtype],
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"deform_im2col kernel launch failed: cudaError {err}")
-    launches += 1
-    return cols
+def _on_cuda(x):
+    if x.device.type != "cuda":
+        raise ValueError(f"deform_conv: unsupported device {x.device}")
 
 
-def deform_col2im(
+def deform_conv(
     x: torch.Tensor,
     offsets: torch.Tensor,
     mask: torch.Tensor,
-    grad_cols: torch.Tensor,
+    w: torch.Tensor,
     stride: int = 1,
     padding: int = 1,
+) -> torch.Tensor:
+    """The exact modulated deformable 3x3 conv on the tap-major weight,
+    differentiable in x, offsets, mask and w.
+
+    Args:
+      x: (B, H, W, Cin) float32 or bfloat16, channels-last.
+      offsets: (B, Ho, Wo, 9, 2) per-tap (dy, dx), x's dtype.
+      mask: (B, Ho, Wo, 9) modulation (already sigmoid-ed), x's dtype.
+      w: (9*Cin, Cout) in x's dtype; row k*Cin + c is input channel c at
+        tap k = ky*3 + kx.
+
+    Returns (B, Ho, Wo, Cout) in x's dtype.
+    """
+    if x.device.type == "cpu":
+        return deform_conv2d_plain(x, offsets, mask, w, stride, padding)
+    _on_cuda(x)
+    return _DeformConv.apply(x, offsets, mask, w, stride, padding)
+
+
+class _DeformConv(torch.autograd.Function):
+    """The fused kernels; saves x, offsets, mask and w, no column tile."""
+
+    @staticmethod
+    def forward(ctx, x, offsets, mask, w, stride, padding):
+        ctx.save_for_backward(x, offsets, mask, w)
+        ctx.conv = (stride, padding)
+        return deform_conv_forward(x, offsets, mask, w, stride, padding)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad_out):
+        x, offsets, mask, w = ctx.saved_tensors
+        grads = deform_conv_backward(x, offsets, mask, w, grad_out, *ctx.conv,
+                                     weight_grad=ctx.needs_input_grad[3])
+        return (*grads, None, None)
+
+
+def deform_conv_forward(
+    x: torch.Tensor,
+    offsets: torch.Tensor,
+    mask: torch.Tensor,
+    w: torch.Tensor,
+    stride: int = 1,
+    padding: int = 1,
+) -> torch.Tensor:
+    """`deform_conv` without autograd: the fused forward kernel for CUDA
+    tensors, `deform_conv2d_plain` for CPU tensors."""
+    global forward_launches
+    B, H, W, Ho, Wo = _check(x, offsets, mask, stride, padding)
+    Cin, Cout = x.shape[-1], _check_weight(x, w)
+    if x.device.type == "cpu":
+        return deform_conv2d_plain(x, offsets, mask, w, stride, padding)
+    _on_cuda(x)
+    _contiguous(x=x, offsets=offsets, mask=mask, weight=w)
+    if Cin == 0:  # an empty sum
+        return torch.zeros(B, Ho, Wo, Cout, dtype=x.dtype, device=x.device)
+    out = torch.empty(B, Ho, Wo, Cout, dtype=x.dtype, device=x.device)
+    if out.numel() == 0:  # nothing to launch
+        return out
+    wt = w.t().contiguous()  # the kernel reads the weight K-major
+    err = _lib().deform_conv_forward(
+        x.data_ptr(), offsets.data_ptr(), mask.data_ptr(), wt.data_ptr(),
+        out.data_ptr(), B, H, W, Cin, Ho, Wo, Cout, stride, padding,
+        _DTYPES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(
+            f"deform_conv_forward kernel launch failed: cudaError {err}")
+    forward_launches += 1
+    return out
+
+
+def deform_conv_backward(
+    x: torch.Tensor,
+    offsets: torch.Tensor,
+    mask: torch.Tensor,
+    w: torch.Tensor,
+    grad_out: torch.Tensor,
+    stride: int = 1,
+    padding: int = 1,
+    weight_grad: bool = True,
 ):
-    """Gradients of `deform_im2col` for (x, offsets, mask), given grad_cols
-    (B*Ho*Wo, 9*Cin), all in x's dtype. The backward kernel for CUDA
-    tensors, `deform_col2im_plain` for CPU tensors."""
+    """Gradients of `deform_conv` for (x, offsets, mask, w) given grad_out
+    (B, Ho, Wo, Cout), each in its input's dtype (None for w without
+    weight_grad). The fused backward kernels for CUDA tensors (fp32 sums,
+    cast at the end), `deform_conv2d_backward_plain` for CPU tensors. The
+    data-gradient kernel keeps its pixels' grad_out rows in shared memory,
+    so Cout is bounded by the card's shared memory (on an H100: 1,408 in
+    bf16, 640 in fp32); beyond it the launch is refused and this raises."""
     global backward_launches
     B, H, W, Ho, Wo = _check(x, offsets, mask, stride, padding)
-    Cin = x.shape[-1]
-    if tuple(grad_cols.shape) != (B * Ho * Wo, TAPS * Cin):
-        raise ValueError(
-            f"deform_conv: grad_cols {tuple(grad_cols.shape)} != "
-            f"{(B * Ho * Wo, TAPS * Cin)}")
+    Cin, Cout = x.shape[-1], _check_weight(x, w)
+    if tuple(grad_out.shape) != (B, Ho, Wo, Cout):
+        raise ValueError(f"deform_conv: grad_out {tuple(grad_out.shape)} != "
+                         f"{(B, Ho, Wo, Cout)}")
     if x.device.type == "cpu":
-        return deform_col2im_plain(x, offsets, mask, grad_cols, stride,
-                                   padding)
-    if x.device.type != "cuda":
-        raise ValueError(f"deform_conv: unsupported device {x.device}")
-    grad_cols = grad_cols.to(x.dtype).contiguous()
-    _contiguous(x=x, offsets=offsets, mask=mask)
-    grad_x = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
-    grad_off = torch.zeros(offsets.shape, dtype=torch.float32, device=x.device)
-    grad_mask = torch.zeros(mask.shape, dtype=torch.float32, device=x.device)
-    if grad_mask.numel() > 0:
-        err = _lib().deform_col2im(
-            x.data_ptr(), offsets.data_ptr(), mask.data_ptr(),
-            grad_cols.data_ptr(), grad_x.data_ptr(), grad_off.data_ptr(),
-            grad_mask.data_ptr(), B, H, W, Cin, Ho, Wo, stride, padding,
-            _DTYPES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream,
+        grads = deform_conv2d_backward_plain(x, offsets, mask, w, grad_out,
+                                             stride, padding)
+        return (*grads[:3], grads[3] if weight_grad else None)
+    _on_cuda(x)
+    grad_out = grad_out.to(x.dtype).contiguous()
+    _contiguous(x=x, offsets=offsets, mask=mask, weight=w)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    if B * Ho * Wo == 0 or Cin == 0 or Cout == 0:  # nothing to launch
+        grads = [torch.zeros(t.shape, **f32) for t in (x, offsets, mask, w)]
+    else:
+        grads = [torch.empty(t.shape, **f32) for t in (x, offsets, mask, w)]
+        lib = _lib()
+        dtype = _DTYPES[x.dtype]
+        ws_bytes = lib.deform_conv_backward_workspace(
+            B, Ho, Wo, Cin, Cout, dtype) if weight_grad else 0
+        workspace = torch.empty(max(ws_bytes, 1), dtype=torch.uint8,
+                                device=x.device)
+        err = lib.deform_conv_backward(
+            x.data_ptr(), offsets.data_ptr(), mask.data_ptr(), w.data_ptr(),
+            grad_out.data_ptr(), *(g.data_ptr() for g in grads[:3]),
+            grads[3].data_ptr() if weight_grad else None,
+            workspace.data_ptr(), ws_bytes, B, H, W, Cin, Ho, Wo, Cout,
+            stride, padding, dtype,
+            torch.cuda.current_stream(x.device).cuda_stream,
         )
         if err != 0:
             raise RuntimeError(
-                f"deform_col2im kernel launch failed: cudaError {err}")
+                f"deform_conv_backward kernel launch failed: cudaError {err}"
+                f" (Cout {Cout} beyond the resident grad_out tile?)")
         backward_launches += 1
-    return (grad_x.to(x.dtype), grad_off.to(x.dtype), grad_mask.to(x.dtype))
+    return (grads[0].to(x.dtype), grads[1].to(x.dtype), grads[2].to(x.dtype),
+            grads[3].to(w.dtype) if weight_grad else None)
 
 
-def deform_col2im_plain(x, offsets, mask, grad_cols, stride=1, padding=1):
-    """The same function as `deform_col2im`: autograd through
-    `deform_im2col_plain`."""
+def deform_conv2d_plain(x, offsets, mask, w, stride=1, padding=1):
+    """The same function as `deform_conv_forward` in plain PyTorch:
+    `deform_im2col_plain(...) @ w`, reshaped to (B, Ho, Wo, Cout)."""
+    B, _, _, Ho, Wo = _check(x, offsets, mask, stride, padding)
+    Cout = _check_weight(x, w)
+    cols = deform_im2col_plain(x, offsets, mask, stride, padding)
+    return torch.matmul(cols, w).view(B, Ho, Wo, Cout)
+
+
+def deform_conv2d_backward_plain(x, offsets, mask, w, grad_out, stride=1,
+                                 padding=1):
+    """The same function as `deform_conv_backward`: autograd through
+    `deform_conv2d_plain`. Returns the gradients for (x, offsets, mask, w)."""
     with torch.enable_grad():
-        x, offsets, mask = (t.detach().requires_grad_()
-                            for t in (x, offsets, mask))
-        cols = deform_im2col_plain(x, offsets, mask, stride, padding)
-        return torch.autograd.grad(cols, (x, offsets, mask),
-                                   grad_cols.to(cols.dtype))
+        leaves = [t.detach().requires_grad_() for t in (x, offsets, mask, w)]
+        out = deform_conv2d_plain(*leaves, stride, padding)
+        return torch.autograd.grad(out, leaves, grad_out.to(out.dtype))
 
 
 def deform_im2col_plain(
@@ -220,12 +295,21 @@ def deform_im2col_plain(
     stride: int = 1,
     padding: int = 1,
 ) -> torch.Tensor:
-    """The same function as `deform_im2col` in plain PyTorch: per tap,
-    `F.grid_sample` (align_corners=False over pixel centres, zero padding)
-    at base + tap + offset, as the JAX package's torch oracle
-    (tests/test_golden_torch.py:201-243). Computes in float64, so that
-    grid_sample's normalise / unnormalise round trip moves no sample, and
-    returns x's dtype."""
+    """Sampled, mask-scaled 3x3 columns of a modulated deformable conv, in
+    plain PyTorch: per tap, `F.grid_sample` (align_corners=False over pixel
+    centres, zero padding) at base + tap + offset, as the JAX package's
+    torch oracle (tests/test_golden_torch.py:201-243). Computes in float64,
+    so that grid_sample's normalise / unnormalise round trip moves no
+    sample, and returns x's dtype.
+
+    Args:
+      x: (B, H, W, Cin) float32 or bfloat16, channels-last.
+      offsets: (B, Ho, Wo, 9, 2) per-tap (dy, dx), x's dtype.
+      mask: (B, Ho, Wo, 9) modulation (already sigmoid-ed), x's dtype.
+
+    Returns (B*Ho*Wo, 9*Cin) in x's dtype, tap-major: column k*Cin + c is
+    channel c sampled at tap k = ky*3 + kx.
+    """
     B, H, W, Ho, Wo = _check(x, offsets, mask, stride, padding)
     Cin = x.shape[-1]
     xt = x.permute(0, 3, 1, 2).double()
@@ -285,18 +369,17 @@ def deform_im2col_int8(
     stride: int = 1,
     padding: int = 1,
 ) -> torch.Tensor:
-    """`deform_im2col` of x quantized to an int8 table at per-(image,
-    channel) amax scales (K3), not differentiable (deform_conv2d with
-    variant 'int8' carries the straight-through gradient). Same arguments
-    and result layout as `deform_im2col`."""
+    """`deform_im2col_plain`'s column tile of x quantized to an int8 table
+    at per-(image, channel) amax scales (K3), not differentiable
+    (deform_conv2d with variant 'int8' carries the straight-through
+    gradient). Same arguments and result layout as `deform_im2col_plain`."""
     global int8_launches
     B, H, W, Ho, Wo = _check(x, offsets, mask, stride, padding)
     Cin = x.shape[-1]
     if x.device.type == "cpu":
         with torch.no_grad():
             return deform_im2col_int8_plain(x, offsets, mask, stride, padding)
-    if x.device.type != "cuda":
-        raise ValueError(f"deform_conv: unsupported device {x.device}")
+    _on_cuda(x)
     _contiguous(x=x, offsets=offsets, mask=mask)
     cols = torch.empty(B * Ho * Wo, TAPS * Cin, dtype=x.dtype, device=x.device)
     if cols.numel() == 0 or H * W == 0:  # nothing to launch
@@ -304,7 +387,7 @@ def deform_im2col_int8(
     amax = torch.empty(B, Cin, dtype=torch.int32, device=x.device)
     table = torch.empty(x.shape, dtype=torch.int8, device=x.device)
     scale = torch.empty(B, Cin, dtype=torch.float32, device=x.device)
-    err = _lib().deform_im2col_int8(
+    err = _lib_int8().deform_im2col_int8(
         x.data_ptr(), offsets.data_ptr(), mask.data_ptr(), amax.data_ptr(),
         table.data_ptr(), scale.data_ptr(), cols.data_ptr(),
         B, H, W, Cin, Ho, Wo, stride, padding, _DTYPES[x.dtype],
@@ -325,20 +408,17 @@ class _DeformConvInt8(torch.autograd.Function):
     def forward(ctx, x, offsets, mask, w, stride, padding):
         ctx.save_for_backward(x, offsets, mask, w)
         ctx.conv = (stride, padding)
+        B, _, _, Ho, Wo = _check(x, offsets, mask, stride, padding)
         cols = deform_im2col_int8(x, offsets, mask, stride, padding)
-        return torch.matmul(cols, w)
+        return torch.matmul(cols, w).view(B, Ho, Wo, w.shape[1])
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, grad_out):
         x, offsets, mask, w = ctx.saved_tensors
-        grad_out = grad_out.to(x.dtype)
-        grads = deform_col2im(x, offsets, mask, grad_out @ w.t(), *ctx.conv)
-        grad_w = None
-        if ctx.needs_input_grad[3]:
-            cols = deform_im2col(x, offsets, mask, *ctx.conv)  # fp tile
-            grad_w = cols.t() @ grad_out
-        return (*grads, grad_w, None, None)
+        grads = deform_conv_backward(x, offsets, mask, w, grad_out, *ctx.conv,
+                                     weight_grad=ctx.needs_input_grad[3])
+        return (*grads, None, None)
 
 
 def deform_conv2d(
@@ -362,12 +442,9 @@ def deform_conv2d(
 
     Returns (B, Ho, Wo, Cout) in x's dtype.
     """
-    B, H, W = x.shape[:3]
+    H, W = x.shape[1:3]
     Cout, Cin = weight.shape[:2]
     w = weight.to(x.dtype).permute(2, 3, 1, 0).reshape(TAPS * Cin, Cout)
-    Ho, Wo = offsets.shape[1:3]
     if select_variant(H, W, variant) == "int8":
-        out = _DeformConvInt8.apply(x, offsets, mask, w, stride, padding)
-    else:
-        out = torch.matmul(deform_im2col(x, offsets, mask, stride, padding), w)
-    return out.view(B, Ho, Wo, Cout)
+        return _DeformConvInt8.apply(x, offsets, mask, w, stride, padding)
+    return deform_conv(x, offsets, mask, w, stride, padding)

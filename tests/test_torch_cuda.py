@@ -85,29 +85,52 @@ def test_msda_kernel_matches_plain(cuda, dtype, compact):
         assert err <= 2e-2 * want.float().abs().max().item(), err
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("stride", [1, 2])
-def test_deform_im2col_kernel_matches_plain(cuda, dtype, stride):
-    rng = np.random.RandomState(1)
-    B, H, W, Cin = 2, 13, 21, 48
+# (B, H, W, Cin, Cout) of the K2 cases: the kernels' 16-byte paths; a
+# ragged size (no tile divides the pixel count, Cin and Cout off the
+# stage and tile widths); Cin and Cout not multiples of 8 (scalar gather
+# and stores); Cout over two 256-wide tiles and Cin over two stages
+DCN_CASES = {
+    "main": (2, 13, 21, 48, 64),
+    "ragged": (1, 11, 13, 24, 40),
+    "odd_channels": (1, 9, 10, 5, 7),
+    "two_n_tiles": (1, 8, 9, 72, 300),
+}
+
+
+def _dcn_case(rng, case, stride, dtype, dev):
+    """x, offsets (4 px: many taps outside the image), mask, the tap-major
+    weight at the init scale 1 / sqrt(9 Cin) and grad_out."""
+    B, H, W, Cin, Cout = DCN_CASES[case]
     Ho = dcn_ops.output_size(H, stride, 1)
     Wo = dcn_ops.output_size(W, stride, 1)
-    x = torch.from_numpy(rng.randn(B, H, W, Cin).astype(np.float32))
-    off = torch.from_numpy(
-        (rng.randn(B, Ho, Wo, 9, 2) * 4.0).astype(np.float32)
-    )
-    mask = torch.from_numpy(rng.rand(B, Ho, Wo, 9).astype(np.float32))
-    x, off, mask = (t.to(cuda, dtype) for t in (x, off, mask))
-    got = dcn_ops.deform_im2col(x, off, mask, stride)
-    want = dcn_ops.deform_im2col_plain(x, off, mask, stride)
-    torch.cuda.synchronize()
-    assert got.shape == want.shape == (B * Ho * Wo, 9 * Cin)
+    arrays = (rng.randn(B, H, W, Cin), rng.randn(B, Ho, Wo, 9, 2) * 4.0,
+              rng.rand(B, Ho, Wo, 9), rng.randn(9 * Cin, Cout) / np.sqrt(9 * Cin),
+              rng.randn(B, Ho, Wo, Cout))
+    return [torch.from_numpy(a.astype(np.float32)).to(dev, dtype) for a in arrays]
+
+
+def _assert_close(got, want, dtype):
+    assert got.shape == want.shape and got.dtype == want.dtype
     err = (got.float() - want.float()).abs().max().item()
     if dtype == torch.float32:
         assert err <= 1e-4, err
     else:
         assert err <= 2e-2 * want.float().abs().max().item(), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("case", sorted(DCN_CASES))
+def test_deform_conv_forward_kernel_matches_plain(cuda, dtype, stride, case):
+    x, off, mask, w, _ = _dcn_case(np.random.RandomState(1), case, stride,
+                                   dtype, cuda)
+    n0 = dcn_ops.forward_launches
+    got = dcn_ops.deform_conv_forward(x, off, mask, w, stride)
+    want = dcn_ops.deform_conv2d_plain(x, off, mask, w, stride)
+    torch.cuda.synchronize()
+    assert dcn_ops.forward_launches == n0 + 1
+    _assert_close(got, want, dtype)
 
 
 @pytest.mark.cuda
@@ -136,42 +159,68 @@ def test_msda_backward_kernel_matches_plain(cuda, dtype, compact):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("stride", [1, 2])
-def test_deform_col2im_kernel_matches_plain(cuda, dtype, stride):
-    rng = np.random.RandomState(3)
-    B, H, W, Cin = 2, 13, 21, 48
-    Ho = dcn_ops.output_size(H, stride, 1)
-    Wo = dcn_ops.output_size(W, stride, 1)
-    x, off, mask, grad_cols = (torch.from_numpy(a.astype(np.float32)).to(
-        cuda, dtype) for a in (
-            rng.randn(B, H, W, Cin), rng.randn(B, Ho, Wo, 9, 2) * 4.0,
-            rng.rand(B, Ho, Wo, 9), rng.randn(B * Ho * Wo, 9 * Cin)))
+@pytest.mark.parametrize("case", sorted(DCN_CASES))
+def test_deform_conv_backward_kernel_matches_plain(cuda, dtype, stride, case):
+    x, off, mask, w, g = _dcn_case(np.random.RandomState(3), case, stride,
+                                   dtype, cuda)
     launches = dcn_ops.backward_launches
-    got = dcn_ops.deform_col2im(x, off, mask, grad_cols, stride)
-    want = dcn_ops.deform_col2im_plain(x, off, mask, grad_cols, stride)
+    got = dcn_ops.deform_conv_backward(x, off, mask, w, g, stride)
+    want = dcn_ops.deform_conv2d_backward_plain(x, off, mask, w, g, stride)
     torch.cuda.synchronize()
     assert dcn_ops.backward_launches == launches + 1
     _assert_grads_close(got, want, dtype, dcn_kinks(off, stride))
+    got = dcn_ops.deform_conv_backward(x, off, mask, w, g, stride,
+                                       weight_grad=False)
+    assert got[3] is None
+    _assert_grads_close(got[:3], want[:3], dtype, dcn_kinks(off, stride))
 
 
 @pytest.mark.cuda
-def test_autograd_runs_the_backward_kernels(cuda):
-    """loss.backward() through msda_forward and deform_im2col on CUDA
-    tensors launches each backward kernel once."""
-    rng = np.random.RandomState(4)
-    shapes = [(6, 9), (3, 5)]
-    value, loc, attn = _msda_inputs(rng, 2, 5, 2, 8, shapes, 2,
-                                    torch.float32, cuda)
-    x = torch.randn(1, 6, 7, 8, device=cuda)
-    off = torch.randn(1, 6, 7, 9, 2, device=cuda)
-    mask = torch.rand(1, 6, 7, 9, device=cuda)
-    leaves = [t.requires_grad_() for t in (value, loc, attn, x, off, mask)]
-    before = (msda_ops.backward_launches, dcn_ops.backward_launches)
-    out = msda_ops.msda_forward(value, shapes, loc, attn).sum()
-    out = out + dcn_ops.deform_im2col(x, off, mask).sum()
-    out.backward()
+def test_deform_conv_kernels_take_unaligned_inputs(cuda):
+    """Tensors that start off a 16-byte boundary (contiguous views at an
+    element offset) take the kernels' scalar paths."""
+    rng = np.random.RandomState(13)
+    ts = _dcn_case(rng, "main", 1, torch.bfloat16, cuda)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        out = buf[1:].view(t.shape)
+        out.copy_(t)
+        return out
+
+    x, off, mask, w, g = (shifted(t) for t in ts)
+    assert x.data_ptr() % 16 and w.data_ptr() % 16 and g.data_ptr() % 16
+    _assert_close(dcn_ops.deform_conv_forward(x, off, mask, w),
+                  dcn_ops.deform_conv2d_plain(x, off, mask, w), torch.bfloat16)
+    _assert_grads_close(dcn_ops.deform_conv_backward(x, off, mask, w, g),
+                        dcn_ops.deform_conv2d_backward_plain(x, off, mask, w, g),
+                        torch.bfloat16, dcn_kinks(off, 1))
+
+
+@pytest.mark.cuda
+def test_deform_conv_saves_no_column_tile(cuda):
+    """The exact path's autograd Function saves x, offsets, mask and the
+    weight: no (B*Ho*Wo, 9*Cin) tensor, nothing that large."""
+    x, off, mask, _, g = _dcn_case(np.random.RandomState(14), "main", 1,
+                                   torch.bfloat16, cuda)
+    B, H, W, Cin = x.shape
+    weight = torch.randn(64, Cin, 3, 3, device=cuda) / np.sqrt(9 * Cin)
+    leaves = [t.requires_grad_() for t in (x, off, mask, weight)]
+    saved = []
+
+    def pack(t):
+        saved.append(tuple(t.shape))
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        out = dcn_ops.deform_conv2d(*leaves)
+    M = B * H * W
+    assert (M, 9 * Cin) not in saved
+    assert all(np.prod(s) < M * 9 * Cin for s in saved), saved
+    n0 = dcn_ops.backward_launches
+    (out * g).sum().backward()
     torch.cuda.synchronize()
-    assert (msda_ops.backward_launches, dcn_ops.backward_launches) == (
-        before[0] + 1, before[1] + 1)
+    assert dcn_ops.backward_launches == n0 + 1
     assert all(t.grad is not None for t in leaves)
 
 
@@ -230,10 +279,19 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     x = torch.randn(1, 8, 8, 16, device=cuda)
     off = torch.zeros(1, 8, 8, 9, 2, device=cuda)
     mask = torch.ones(1, 8, 8, 9, device=cuda)
+    w = torch.randn(144, 8, device=cuda)
     with pytest.raises(TypeError):
-        dcn_ops.deform_im2col(x.half(), off.half(), mask.half())
+        dcn_ops.deform_conv_forward(x.half(), off.half(), mask.half(), w.half())
     with pytest.raises(ValueError):
-        dcn_ops.deform_im2col(x.transpose(1, 2), off, mask)
+        dcn_ops.deform_conv_forward(x.transpose(1, 2), off, mask, w)
+    with pytest.raises(ValueError):
+        dcn_ops.deform_conv_forward(x, off, mask, w.t().contiguous().t())
+    # the backward's resident grad_out tile: 64 pixels x 4096 fp32 channels
+    # do not fit in shared memory, and the launch is refused
+    wide = torch.randn(144, 4096, device=cuda)
+    with pytest.raises(RuntimeError):
+        dcn_ops.deform_conv_backward(x, off, mask, wide,
+                                     torch.randn(1, 8, 8, 4096, device=cuda))
     value = torch.randn(1, 10, 2, 4, device=cuda)
     loc = torch.rand(1, 3, 2, 1, 2, 2, device=cuda)
     attn = torch.rand(1, 3, 2, 1, 2, device=cuda)
@@ -245,7 +303,7 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
 
 @pytest.mark.cuda
 def test_empty_work_launches_nothing(cuda):
-    msda0, dcn0 = msda_ops.launches, dcn_ops.launches
+    msda0, dcn0 = msda_ops.launches, dcn_ops.forward_launches
     value = torch.randn(2, 10, 2, 4, device=cuda)
     loc = torch.rand(2, 3, 2, 1, 2, 2, device=cuda)
     attn = torch.rand(2, 3, 2, 1, 2, device=cuda)
@@ -255,8 +313,14 @@ def test_empty_work_launches_nothing(cuda):
     x = torch.randn(0, 8, 8, 16, device=cuda)
     off = torch.zeros(0, 8, 8, 9, 2, device=cuda)
     mask = torch.ones(0, 8, 8, 9, device=cuda)
-    assert dcn_ops.deform_im2col(x, off, mask).shape == (0, 9 * 16)
-    assert (msda_ops.launches, dcn_ops.launches) == (msda0, dcn0)
+    w = torch.randn(144, 8, device=cuda)
+    assert dcn_ops.deform_conv_forward(x, off, mask, w).shape == (0, 8, 8, 8)
+    x1, off1, mask1 = (torch.ones(1, *t.shape[1:], device=cuda)
+                       for t in (x, off, mask))
+    empty_cin = dcn_ops.deform_conv_forward(
+        x1[..., :0], off1, mask1, w[:0])  # Cin = 0: an empty sum
+    assert empty_cin.shape == (1, 8, 8, 8) and (empty_cin == 0).all()
+    assert (msda_ops.launches, dcn_ops.forward_launches) == (msda0, dcn0)
 
     counts = (msda_ops.backward_launches, dcn_ops.backward_launches,
               focal_ops.launches, lsa_ops.launches)
@@ -265,9 +329,11 @@ def test_empty_work_launches_nothing(cuda):
     assert [tuple(g.shape) for g in grads] == [(2, 10, 2, 4), (2, 3, 2, 1, 2, 2),
                                               (2, 3, 2, 1, 2)]
     assert all((g == 0).all() for g in grads)
-    grads = dcn_ops.deform_col2im(x, off, mask, torch.empty(0, 9 * 16,
-                                                            device=cuda))
-    assert grads[0].shape == (0, 8, 8, 16)
+    grads = dcn_ops.deform_conv_backward(x, off, mask, w,
+                                         torch.empty(0, 8, 8, 8, device=cuda))
+    assert [tuple(g.shape) for g in grads] == [(0, 8, 8, 16), (0, 8, 8, 9, 2),
+                                              (0, 8, 8, 9), (144, 8)]
+    assert all((g == 0).all() for g in grads)
     loss, grad = focal_ops.focal_loss_with_grad(
         torch.empty(0, 5, 10, device=cuda),
         torch.empty(0, 5, dtype=torch.int64, device=cuda),
@@ -303,12 +369,12 @@ def test_tiny_detector_on_the_card_matches_the_cpu(cuda):
     gpu_model.load_state_dict(cpu_model.state_dict())
     b = synthetic_batch(cfg, seed=0)
     imgs, l2i = torch.from_numpy(b["images"]), torch.from_numpy(b["lidar2img"])
-    msda0, dcn0 = msda_ops.launches, dcn_ops.launches
+    msda0, dcn0 = msda_ops.launches, dcn_ops.forward_launches
     with torch.no_grad():
         got = gpu_model.eval()(imgs.to(cuda), l2i.to(cuda))
         want = cpu_model.eval()(imgs, l2i)
     torch.cuda.synchronize()
-    assert (msda_ops.launches - msda0, dcn_ops.launches - dcn0) == (2, 9)
+    assert (msda_ops.launches - msda0, dcn_ops.forward_launches - dcn0) == (2, 9)
     for key in ("all_cls_scores", "all_bbox_preds"):
         torch.testing.assert_close(got[key].cpu(), want[key], rtol=0,
                                    atol=1e-3)
@@ -350,7 +416,7 @@ def test_tiny_train_step_on_the_card_matches_the_cpu(cuda):
 
     def counts():
         return (msda_ops.launches, msda_ops.backward_launches,
-                dcn_ops.launches, dcn_ops.backward_launches,
+                dcn_ops.forward_launches, dcn_ops.backward_launches,
                 focal_ops.launches, lsa_ops.launches)
 
     before = counts()
@@ -406,14 +472,15 @@ def test_int8_im2col_kernel_matches_plain(cuda, dtype, stride, ties):
 @pytest.mark.cuda
 def test_int8_conv_backward_is_the_fp_kernels(cuda):
     """deform_conv2d(variant='int8') on the card: forward through K3, the
-    straight-through backward through K2's col2im (x, offsets, mask) and
-    K2's forward tile (weight), equal to the CPU's plain route."""
+    straight-through backward through K2's fused backward kernels (x,
+    offsets, mask and weight; no K2 forward launch), equal to the CPU's
+    plain route."""
     rng = np.random.RandomState(8)
     x, off, mask = _int8_case(rng, 2, 40, 48, 16, 1)
     w = torch.from_numpy(rng.randn(8, 16, 3, 3).astype(np.float32) * 0.1)
     g = torch.from_numpy(rng.randn(2, 40, 48, 8).astype(np.float32))
     grads = {}
-    counts = (dcn_ops.int8_launches, dcn_ops.launches,
+    counts = (dcn_ops.int8_launches, dcn_ops.forward_launches,
               dcn_ops.backward_launches)
     for dev in ("cpu", cuda):
         leaves = [t.to(dev).detach().requires_grad_() for t in (x, off, mask, w)]
@@ -421,8 +488,9 @@ def test_int8_conv_backward_is_the_fp_kernels(cuda):
         (out * g.to(dev)).sum().backward()
         grads[str(dev)] = [out.detach().cpu()] + [t.grad.cpu() for t in leaves]
     torch.cuda.synchronize()
-    assert (dcn_ops.int8_launches - counts[0], dcn_ops.launches - counts[1],
-            dcn_ops.backward_launches - counts[2]) == (1, 1, 1)
+    assert (dcn_ops.int8_launches - counts[0],
+            dcn_ops.forward_launches - counts[1],
+            dcn_ops.backward_launches - counts[2]) == (1, 0, 1)
     for got, want in zip(grads["cuda"], grads["cpu"]):
         scale = max(1.0, want.abs().max().item())
         assert (got - want).abs().max().item() <= 1e-4 * scale

@@ -110,16 +110,24 @@ def test_deform_conv_matches_jax(branch, stride):
 
 def test_deform_im2col_layout_is_tap_major():
     """Column k*Cin + c of the tile is channel c sampled at tap k: with
-    zero offsets and a unit mask the tile is plain im2col."""
+    zero offsets and a unit mask the tile is plain im2col, and
+    deform_conv2d with a weight that picks (tap k, channel c) returns that
+    column (the (Cout, Cin, 3, 3) weight maps to tap-major rows)."""
     rng = np.random.RandomState(3)
     x = torch.from_numpy(rng.randn(1, 5, 6, 3).astype(np.float32))
     off = torch.zeros(1, 5, 6, 9, 2)
-    cols = dcn_ops.deform_im2col(x, off, torch.ones(1, 5, 6, 9))
+    mask = torch.ones(1, 5, 6, 9)
+    cols = dcn_ops.deform_im2col_plain(x, off, mask)
     xp = torch.nn.functional.pad(x, (0, 0, 1, 1, 1, 1))
+    weight = torch.zeros(27, 3, 3, 3)  # output channel k*3 + c picks (k, c)
     for k in range(9):
         ky, kx = divmod(k, 3)
         want = xp[0, ky:ky + 5, kx:kx + 6].reshape(30, 3)
         torch.testing.assert_close(cols[:, 3 * k:3 * k + 3], want)
+        for c in range(3):
+            weight[3 * k + c, c, ky, kx] = 1.0
+    out = dcn_ops.deform_conv2d(x, off, mask, weight)
+    torch.testing.assert_close(out.reshape(30, 27), cols)
 
 
 def test_wrappers_validate_inputs():
@@ -134,9 +142,16 @@ def test_wrappers_validate_inputs():
         msda_ops.msda_forward(value, [(2, 5)], loc, attn,
                               torch.zeros(1, 2, dtype=torch.int32))
     x = torch.zeros(1, 8, 8, 4)
+    weight = torch.zeros(5, 4, 3, 3)
     with pytest.raises(ValueError):
-        dcn_ops.deform_im2col(x, torch.zeros(1, 8, 8, 9, 2),
-                              torch.zeros(1, 8, 8, 9), stride=2)
+        dcn_ops.deform_im2col_plain(x, torch.zeros(1, 8, 8, 9, 2),
+                                    torch.zeros(1, 8, 8, 9), stride=2)
+    with pytest.raises(ValueError):
+        dcn_ops.deform_conv2d(x, torch.zeros(1, 8, 8, 9, 2),
+                              torch.zeros(1, 8, 8, 9), weight, stride=2)
     with pytest.raises(TypeError):
-        dcn_ops.deform_im2col(x, torch.zeros(1, 8, 8, 9, 2).double(),
-                              torch.zeros(1, 8, 8, 9))
+        dcn_ops.deform_conv2d(x, torch.zeros(1, 8, 8, 9, 2).double(),
+                              torch.zeros(1, 8, 8, 9), weight)
+    with pytest.raises(ValueError):  # a weight of another Cin
+        dcn_ops.deform_conv2d(x, torch.zeros(1, 8, 8, 9, 2),
+                              torch.zeros(1, 8, 8, 9), weight[:, :3])

@@ -224,7 +224,8 @@ def test_import_builds_nothing_and_needs_no_nvcc_or_triton(tmp_path):
         "import graph_detr4d_tpu_torch.models.dgcnn\n"
         "bad = [m for m in ('triton', 'jax', 'flax') if m in sys.modules]\n"
         "assert not bad, bad\n"
-        "assert msda.launches == 0 and deform_conv.launches == 0\n"
+        "assert msda.launches == 0 and deform_conv.forward_launches == 0\n"
+        "assert deform_conv.backward_launches == 0\n"
     )
     env = {k: v for k, v in os.environ.items()
            if k not in ("CUDA_HOME", "CUDA_PATH")}
