@@ -64,7 +64,10 @@ per phase:
               against the exact path's answer as tools/int8_box_bound.py
               defines it
               (top-300 selection churn, max |d| of centre, size, yaw,
-              velocity and score over the boxes both select);
+              velocity and score over the boxes both select), beside the
+              drift of the same int8 convs through their plain version
+              (quantize, column tile, cuBLAS matmul) after the timed
+              requests, and the fused route's drift from that one;
   8. lidar    ObjDGCNN at the JAX module's full width (128 x 128 pillars, 64
               pillar channels, 900 queries, width 256, 6 layers, k 16), batch
               1, through serve.LidarEngine: 4 requests, each a seeded
@@ -79,11 +82,16 @@ per phase:
               final-layer boxes against themselves and the 300 decoded boxes
               against 128 ground-truth-like boxes, against the plain version
               within 1e-5; 2 launches.
-Phase `kernels` also holds K3 (fp32 and bf16, both strides, the flagship's
-7 int8 DCN shapes), K6 (the lidar phase's clouds) and K7 (900 x 900 and
-300 x 128) to their plain versions, with the time of one PyTorch call
-that computes the same function where there is one (K6: scatter_reduce_
-'amax' for the grid, index_add_ for the cell sums).
+Phase `kernels` also holds K3 (the fused int8-table conv, fp32 within
+1e-4 and bf16 within one bf16 step of the output's magnitude, both
+strides, the flagship's 7 int8 DCN shapes, with `gemm_ref_ms` as K2's),
+K6 (the lidar phase's clouds) and K7 (900 x 900 and 300 x 128) to their
+plain versions, with the time of one PyTorch call that computes the same
+function where there is one (K6: scatter_reduce_ 'amax' for the grid,
+index_add_ for the cell sums). K1's backward is checked and timed twice:
+on uniform samples (the table's row) and on samples clustered around 50
+reference points per camera at 3 pixels' spread, as a trained model's
+queries look at the same objects.
 
 Then the card's name and power limit as nvidia-smi gives them, the kernel
 table as one JSON line, and last `{"ok": true, "device": {...}}`. Any
@@ -153,7 +161,7 @@ DCN_SHAPES = [((80, 200, 256, 2), 1), ((40, 100, 256, 1), 5),
 MSDA_LEVELS = [(80, 200), (40, 100), (20, 50), (10, 25)]
 # the 7 of them that take the int8 table under backbone.dcn_gather=int8
 INT8_SHAPES = DCN_SHAPES[:3]
-INT8_LAUNCHES = {"deform_im2col_int8": 7, "deform_conv_forward": 2,
+INT8_LAUNCHES = {"deform_conv_int8_forward": 7, "deform_conv_forward": 2,
                  "msda_forward": 6}  # per request
 # the LiDAR detector: ObjDGCNN's defaults; clouds the size of a nuScenes
 # 10-sweep cloud
@@ -193,7 +201,7 @@ def launch_counts():
             "deform_conv_backward": dcn_ops.backward_launches,
             "focal_loss": focal_ops.launches,
             "hungarian": lsa_ops.launches,
-            "deform_im2col_int8": dcn_ops.int8_launches,
+            "deform_conv_int8_forward": dcn_ops.int8_launches,
             "pillar_features": vox_ops.launches,
             "pillar_scatter": vox_ops.scatter_launches,
             "iou3d": iou3d.launches}
@@ -245,16 +253,37 @@ def device_events(prof):
             and not getattr(e, "is_user_annotation", False)]
 
 
-def check_close(name, got, want, dtype):
+def bf16_step(magnitude):
+    """One bf16 step (unit in the last place) at this magnitude."""
+    return 2.0 ** (np.floor(np.log2(magnitude)) - 7)
+
+
+def device_breakdown(fn):
+    """Device time of each kernel (and memset) of one call of fn, from a
+    torch.profiler trace of that call after a warm-up call:
+    [[name, ms, count], ...], longest first."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [[e.key[:60], dev_us(e) / 1e3, e.count]
+            for e in sorted(device_events(prof), key=dev_us, reverse=True)]
+
+
+def check_close(name, got, want, dtype, bf16_tol=None):
+    """fp32 within 1e-4; bf16 within bf16_tol(magnitude), by default 2e-2
+    of the output's magnitude. Returns (max abs error, magnitude)."""
     err = (got.float() - want.float()).abs().max().item()
     scale = want.float().abs().max().item()
     if not np.isfinite(err):
         raise AssertionError(f"{name}: non-finite output")
     if dtype == torch.float32 and err > 1e-4:
         raise AssertionError(f"{name}: fp32 max abs error {err} > 1e-4")
-    if dtype == torch.bfloat16 and err > 2e-2 * scale:
+    tol = (bf16_tol or (lambda m: 2e-2 * m))(scale)
+    if dtype == torch.bfloat16 and err > tol:
         raise AssertionError(
-            f"{name}: bf16 max abs error {err} > 2e-2 * {scale}")
+            f"{name}: bf16 max abs error {err} > {tol} (magnitude {scale})")
     return err, scale
 
 
@@ -369,6 +398,61 @@ def msda_backward_bound_ms(value, loc, attn, index):
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+def clustered_loc(gen, dev, BN, Q, heads, L, P, points=50, spread_px=3.0):
+    """K1 sampling locations as a trained model's queries place them: each
+    query of a camera looks around one of `points` reference points of
+    that camera (uniform in [0.05, 0.95]^2), its samples at a normal
+    spread of `spread_px` pixels of each level."""
+    ref = torch.rand(BN, points, 2, generator=gen) * 0.9 + 0.05
+    pick = torch.randint(0, points, (BN, Q), generator=gen)
+    centre = ref[torch.arange(BN)[:, None], pick]  # (BN, Q, 2) as (x, y)
+    size = torch.tensor([[w, h] for h, w in MSDA_LEVELS], dtype=torch.float32)
+    noise = torch.randn(BN, Q, heads, L, P, 2, generator=gen) * spread_px
+    loc = centre[:, :, None, None, None, :] + noise / size[:, None, :]
+    return loc.contiguous().to(dev)
+
+
+def msda_backward_record(label, value32, loc, attn, index, gen, dev,
+                         plain=True):
+    """K1's backward on these samples: checked against the plain version
+    (fp32 and bf16, with and without the index list) and timed in bf16
+    with the index list, per train step (the plain version too, with
+    `plain`)."""
+    BN, Q, heads, L, P = attn.shape
+    hd = value32.shape[-1]
+    R = index.shape[1]
+    kinks = msda_kinks(loc, MSDA_LEVELS)
+    checks = {"samples_near_kink": int(kinks.sum())}
+    for dtype in (torch.float32, torch.bfloat16):
+        value = value32.to(dtype)
+        for name, idx in (("index", index), ("all", None)):
+            g = (torch.randn(BN, R if idx is not None else Q, heads * hd,
+                             generator=gen)).to(dev, dtype)
+            got = msda_ops.msda_backward(value, MSDA_LEVELS, loc, attn, g, idx)
+            want = msda_ops.msda_backward_plain(value, MSDA_LEVELS, loc, attn,
+                                                g, idx)
+            checks[f"{name}_{str(dtype)[6:]}"] = check_grads_close(
+                f"msda_backward {label} {name} {dtype}", got, want, dtype,
+                skip={1: kinks})
+            del got, want
+    value = value32.to(torch.bfloat16)
+    g = torch.randn(BN, R, heads * hd, generator=gen).to(dev, torch.bfloat16)
+    ms = cuda_ms(lambda: msda_ops.msda_backward(value, MSDA_LEVELS, loc, attn,
+                                                g, index), 20)
+    bound, bound_by = msda_backward_bound_ms(value, loc, attn, index)
+    rows, _ = touched_value_rows(value, loc, attn, index, False)
+    breakdown = device_breakdown(lambda: msda_ops.msda_backward(
+        value, MSDA_LEVELS, loc, attn, g, index))
+    record = dict(checks=checks, ms=ms * MSDA_CALLS, per_call_ms=ms,
+                  bound_ms=bound * MSDA_CALLS, bound_by=bound_by,
+                  touched_value_rows=rows, device_ms_per_call=breakdown)
+    if plain:
+        record["plain_ms"] = MSDA_CALLS * cuda_ms(
+            lambda: msda_ops.msda_backward_plain(value, MSDA_LEVELS, loc,
+                                                 attn, g, index), 3)
+    return record
+
+
 def dcn_in_image_corners(x, offsets, stride):
     B, H, W, C = x.shape
     _, Ho, Wo = offsets.shape[:3]
@@ -388,10 +472,12 @@ def dcn_peak_flops(x):
 
 
 def dcn_bound_ms(x, offsets, w):
-    """Least time for one fused K2 forward call: x, offsets, mask and the
-    (9 Cin, Cout) weight read once and the (B, Ho, Wo, Cout) output
-    written once (x's dtype), over HBM bandwidth; or the contraction's
-    2 M 9Cin Cout FLOPs over the tensor-core rate of x's dtype."""
+    """Least time for one fused K2 or K3 forward call: x, offsets, mask
+    and the (9 Cin, Cout) weight read once and the (B, Ho, Wo, Cout)
+    output written once (x's dtype), over HBM bandwidth; or the
+    contraction's 2 M 9Cin Cout FLOPs over the tensor-core rate of x's
+    dtype. K3's int8 table is an intermediate of its design, not of the
+    function, and counts no bytes."""
     B, H, W, C = x.shape
     npix = B * offsets.shape[1] * offsets.shape[2]
     cout = w.shape[1]
@@ -430,9 +516,10 @@ def phase_build():
     return smi
 
 
-def phase_kernels(dev):
-    gen = torch.Generator(device="cpu").manual_seed(0)
-
+def kernel_msda(dev, gen):
+    """K1 forward and backward at the main path's call, against their plain
+    versions; the backward also on clustered samples. Returns the two
+    records."""
     def randn(*shape):
         return torch.randn(*shape, generator=gen).to(dev)
 
@@ -470,33 +557,32 @@ def phase_kernels(dev):
     emit({"phase": "kernels", "kernel": "msda_forward",
           "shape": [BN, Q, R, heads, hd, L, P], **results["msda_forward"]})
 
-    # K1 backward: the same inputs, grad_out of the output's shape
-    kinks = msda_kinks(loc, MSDA_LEVELS)
-    checks = {"samples_near_kink": int(kinks.sum())}
-    for dtype in (torch.float32, torch.bfloat16):
-        value = value32.to(dtype)
-        for name, idx in (("index", index), ("all", None)):
-            g = randn(BN, R if idx is not None else Q, heads * hd).to(dtype)
-            got = msda_ops.msda_backward(value, MSDA_LEVELS, loc, attn, g, idx)
-            want = msda_ops.msda_backward_plain(value, MSDA_LEVELS, loc, attn,
-                                                g, idx)
-            checks[f"{name}_{str(dtype)[6:]}"] = check_grads_close(
-                f"msda_backward {name} {dtype}", got, want, dtype,
-                skip={1: kinks})
-            del got, want
-    value = value32.to(torch.bfloat16)
-    g = randn(BN, R, heads * hd).to(torch.bfloat16)
-    ms = cuda_ms(lambda: msda_ops.msda_backward(value, MSDA_LEVELS, loc, attn,
-                                                g, index), 20)
-    plain_ms = cuda_ms(lambda: msda_ops.msda_backward_plain(
-        value, MSDA_LEVELS, loc, attn, g, index), 3)
-    bound, bound_by = msda_backward_bound_ms(value, loc, attn, index)
-    results["msda_backward"] = dict(
-        checks=checks, ms=ms * MSDA_CALLS, plain_ms=plain_ms * MSDA_CALLS,
-        bound_ms=bound * MSDA_CALLS, bound_by=bound_by, per_call_ms=ms)
+    # K1 backward: the same inputs, grad_out of the output's shape; then
+    # samples clustered around 50 points a camera, with their own generator
+    # so that the later kernels' inputs stay those of earlier runs
+    results["msda_backward"] = msda_backward_record(
+        "uniform", value32, loc, attn, index, gen, dev)
+    cgen = torch.Generator(device="cpu").manual_seed(1)
+    results["msda_backward"]["clustered"] = msda_backward_record(
+        "clustered", value32, clustered_loc(cgen, dev, BN, Q, heads, L, P),
+        attn, index, cgen, dev, plain=False)
     emit({"phase": "kernels", "kernel": "msda_backward",
           "shape": [BN, Q, R, heads, hd, L, P], **results["msda_backward"]})
-    del value32, value, g
+    del value32, value
+    return results["msda_forward"], results["msda_backward"]
+
+
+def phase_kernels(dev):
+    gen = torch.Generator(device="cpu").manual_seed(0)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen).to(dev)
+
+    def rand(*shape):
+        return torch.rand(*shape, generator=gen).to(dev)
+
+    results = {}
+    results["msda_forward"], results["msda_backward"] = kernel_msda(dev, gen)
 
     # K2 forward and backward (the fused conv) at the 4 DCN shapes of one
     # request, both strides, Cout = Cin (ResNet-50's bottleneck widths),
@@ -569,7 +655,7 @@ def phase_kernels(dev):
 
     results["focal_loss"] = kernel_focal_loss(dev, gen)
     results["hungarian"] = kernel_hungarian(dev, gen)
-    results["deform_im2col_int8"] = kernel_int8(dev, gen)
+    results["deform_conv_int8_forward"] = kernel_int8(dev, gen)
     results["pillar_features"], results["pillar_scatter"] = kernel_voxelize(
         dev, gen)
     results["iou3d"] = kernel_iou3d(dev)
@@ -663,26 +749,15 @@ def kernel_hungarian(dev, gen):
     return record
 
 
-def int8_bound_ms(x, offsets, stride):
-    """Least time for one K3 call: x, offsets and mask read once and the
-    column tile written once (x's dtype); or 2 FLOPs per in-image corner
-    and channel plus ~3 per element quantized, over the fp32 rate."""
-    B, H, W, C = x.shape
-    _, Ho, Wo = offsets.shape[:3]
-    elt = x.element_size()
-    npix = B * Ho * Wo
-    bytes_ = (x.numel() + npix * 27 + npix * 9 * C) * elt
-    ops = 2 * dcn_in_image_corners(x, offsets, stride) * C + 3 * x.numel()
-    t_bytes, t_ops = bytes_ / PEAK_BYTES_PER_S, ops / PEAK_FP32_FLOPS
-    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
-
-
 def kernel_int8(dev, gen):
-    """K3 at the 7 DCN convs of one request that take the int8 table
-    (12 images, both strides), fp32 and bf16, against the plain version;
-    bf16 times summed over the request's calls."""
+    """K3, the fused int8-table conv, at the 7 DCN convs of one request
+    that take the int8 table (12 images, both strides, Cout = Cin, weights
+    at the init scale), fp32 and bf16, against deform_conv2d_int8_plain;
+    bf16 times summed over the request's calls, and cuBLAS's bare
+    contraction at the same shapes (`gemm_ref_ms`, which the old route
+    paid after its column tile)."""
     rec = {"checks": {}, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-           "max_abs_err": 0.0}
+           "gemm_ref_ms": 0.0, "max_abs_err": 0.0}
     by = set()
     for (H, W, C, stride), count in INT8_SHAPES:
         assert dcn_ops.select_variant(H, W, "int8") == "int8"
@@ -690,29 +765,37 @@ def kernel_int8(dev, gen):
         x32 = torch.randn(12, H, W, C, generator=gen).to(dev)
         off32 = (torch.randn(12, Ho, Wo, 9, 2, generator=gen) * 3.0).to(dev)
         mask32 = torch.rand(12, Ho, Wo, 9, generator=gen).to(dev)
+        w32 = (torch.randn(9 * C, C, generator=gen) / np.sqrt(9 * C)).to(dev)
         tag = f"{H}x{W}x{C}_s{stride}"
         for dtype in (torch.float32, torch.bfloat16):
-            x, off, mask = (t.to(dtype) for t in (x32, off32, mask32))
-            got = dcn_ops.deform_im2col_int8(x, off, mask, stride)
-            want = dcn_ops.deform_im2col_int8_plain(x, off, mask, stride)
+            x, off, mask, w = (t.to(dtype) for t in (x32, off32, mask32, w32))
+            got = dcn_ops.deform_conv_int8_forward(x, off, mask, w, stride)
+            want = dcn_ops.deform_conv2d_int8_plain(x, off, mask, w, stride)
             rec["checks"][f"{tag}_{str(dtype)[6:]}"] = check_close(
-                f"deform_im2col_int8 {tag} {dtype}", got, want, dtype)
+                f"deform_conv_int8_forward {tag} {dtype}", got, want, dtype,
+                bf16_tol=bf16_step)
             if dtype == torch.float32:
                 rec["max_abs_err"] = max(rec["max_abs_err"],
                                          rec["checks"][f"{tag}_float32"][0])
             del got, want
-        x, off, mask = (t.to(torch.bfloat16) for t in (x32, off32, mask32))
+        x, off, mask, w = (t.to(torch.bfloat16)
+                           for t in (x32, off32, mask32, w32))
         rec["ms"] += count * cuda_ms(
-            lambda: dcn_ops.deform_im2col_int8(x, off, mask, stride), 20)
+            lambda: dcn_ops.deform_conv_int8_forward(x, off, mask, w, stride), 20)
+        rec.setdefault("device_ms_per_call", {})[tag] = device_breakdown(
+            lambda: dcn_ops.deform_conv_int8_forward(x, off, mask, w, stride))
         rec["plain_ms"] += count * cuda_ms(
-            lambda: dcn_ops.deform_im2col_int8_plain(x, off, mask, stride), 3)
-        b, b_by = int8_bound_ms(x, off, stride)
+            lambda: dcn_ops.deform_conv2d_int8_plain(x, off, mask, w, stride), 3)
+        a = torch.randn(12 * Ho * Wo, 9 * C, device=dev, dtype=torch.bfloat16)
+        rec["gemm_ref_ms"] += count * cuda_ms(lambda: torch.matmul(a, w), 20)
+        del a
+        b, b_by = dcn_bound_ms(x, off, w)
         rec["bound_ms"] += count * b
         by.add(b_by)
-        del x32, off32, mask32, x, off, mask
+        del x32, off32, mask32, w32, x, off, mask, w
         torch.cuda.empty_cache()
     rec["bound_by"] = "bytes" if by == {"bytes"} else "operations"
-    emit({"phase": "kernels", "kernel": "deform_im2col_int8",
+    emit({"phase": "kernels", "kernel": "deform_conv_int8_forward",
           "shapes": INT8_SHAPES, **rec})
     return rec
 
@@ -990,14 +1073,21 @@ def phase_serve_int8(sd, batch, ref):
         results.append(r)
     launches = launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    drift = box_drift(ref, final_layer(engine, batch), cfg.coder.max_num)
+    fused = final_layer(engine, batch)
+    # a second witness, outside the timed requests: the same int8 convs
+    # through their plain version (quantize, column tile, cuBLAS matmul)
+    with plain_kernels(INT8_ROUTE):
+        plain = final_layer(engine, batch)
+    max_num = cfg.coder.max_num
     r = results[-1]
     emit({"phase": "serve_int8", "config": CONFIG, "dcn_gather": "int8",
           "requests": REQUESTS, "ms_per_request": times,
           "mean_ms": sum(times) / len(times), "peak_memory_bytes": peak,
           "cam_overflow": r["cam_overflow"],
           "valid_detections": int(r["valid"].sum()), "launches": launches,
-          "drift_vs_shift4": drift})
+          "drift_vs_shift4": box_drift(ref, fused, max_num),
+          "plain_int8_drift_vs_shift4": box_drift(ref, plain, max_num),
+          "drift_vs_plain_int8": box_drift(plain, fused, max_num)})
     want = dict.fromkeys(launches, 0)
     want.update({k: v * REQUESTS for k, v in INT8_LAUNCHES.items()})
     if launches != want:
@@ -1251,26 +1341,28 @@ def phase_breakdown(engine, batch):
 
 KERNEL_ROUTES = ((msda_ops, "msda_forward", "msda_forward_plain"),
                  (dcn_ops, "deform_conv", "deform_conv2d_plain"),
-                 (dcn_ops, "deform_im2col_int8", "deform_im2col_int8_plain"),
+                 (dcn_ops, "deform_conv_int8_forward", "deform_conv2d_int8_plain"),
                  (vox_ops, "pillar_features", "pillar_features_plain"),
                  (vox_ops, "pillar_scatter", "pillar_scatter_plain"),
                  (iou3d, "bbox_overlaps_3d", "bbox_overlaps_3d_plain"),
                  (focal_ops, "sigmoid_focal_loss", "sigmoid_focal_loss_plain"),
                  (lsa_ops, "hungarian_assignment",
                   "hungarian_assignment_plain"))
+INT8_ROUTE = KERNEL_ROUTES[2:3]
 
 
 @contextlib.contextmanager
-def plain_kernels():
-    """Route the model's and the loss's kernel calls to the plain versions
-    (autograd differentiates those, so no backward kernel runs either)."""
-    saved = [getattr(m, k) for m, k, _ in KERNEL_ROUTES]
-    for m, k, plain in KERNEL_ROUTES:
+def plain_kernels(routes=KERNEL_ROUTES):
+    """Route the model's and the loss's kernel calls (those of `routes`)
+    to the plain versions (autograd differentiates those, so no backward
+    kernel runs either)."""
+    saved = [getattr(m, k) for m, k, _ in routes]
+    for m, k, plain in routes:
         setattr(m, k, getattr(m, plain))
     try:
         yield
     finally:
-        for (m, k, _), fn in zip(KERNEL_ROUTES, saved):
+        for (m, k, _), fn in zip(routes, saved):
             setattr(m, k, fn)
 
 
@@ -1426,11 +1518,16 @@ def phase_train_breakdown(trainer, batch):
     events = device_events(prof)
     busy_ms = sum(dev_us(e) for e in events) / 1e3
     top = sorted(events, key=dev_us, reverse=True)[:15]
+    # the port's K1 and K2 kernels in the step, whatever their rank
+    ours = [e for e in events
+            if any(k in e.key for k in ("msda_", "deform_conv_", "scan_kernel"))]
     emit({"phase": "train_breakdown", "stages_ms": stages,
           "profiled_step_ms": span_ms, "device_busy_ms": busy_ms,
           "device_idle_share": 1.0 - busy_ms / span_ms,
           "top_device_ms": [[e.key[:60], dev_us(e) / 1e3, e.count]
-                            for e in top]})
+                            for e in top],
+          "k1_k2_device_ms": [[e.key[:60], dev_us(e) / 1e3, e.count]
+                              for e in sorted(ours, key=dev_us, reverse=True)]})
     if busy_ms > span_ms:
         raise AssertionError(
             f"device busy {busy_ms} ms exceeds the step's {span_ms} ms")
@@ -1551,9 +1648,11 @@ def main():
         ("hungarian", "graph_detr4d_tpu_torch/csrc/hungarian.cu",
          "graph_detr4d_tpu/ops/hungarian.py:95", train_launches,
          "one train step's call (6 layers x 128 x 900)"),
-        ("deform_im2col_int8", "graph_detr4d_tpu_torch/csrc/deform_conv_int8.cu",
+        ("deform_conv_int8_forward",
+         "graph_detr4d_tpu_torch/csrc/deform_conv_int8.cu",
          "graph_detr4d_tpu/ops/deform_conv.py:259", int8_launches,
-         "one int8 request's 7 calls, bf16"),
+         "one int8 request's 7 calls, bf16 (amax, quantize, sampling and "
+         "contraction)"),
         ("pillar_features", "graph_detr4d_tpu_torch/csrc/voxelize.cu",
          "graph_detr4d_tpu/ops/voxelize.py:26", lidar_launches,
          "one lidar request's call (pillar_indices + pillar_center_offsets,"
@@ -1581,6 +1680,9 @@ def main():
         }
         if "gemm_ref_ms" in k:  # not the same function: no library_ms
             row["gemm_ref_ms"] = k["gemm_ref_ms"]
+        if "clustered" in k:
+            row["clustered_ms"] = k["clustered"]["ms"]
+            row["clustered_bound_ms"] = k["clustered"]["bound_ms"]
         table.append(row)
     print(smi, flush=True)
     emit({"kernels": table})

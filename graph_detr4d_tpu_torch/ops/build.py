@@ -3,7 +3,8 @@
 Each `csrc/<name>.cu` has a plain C interface. It is compiled by `nvcc`
 into `graph_detr4d_tpu_torch/_build/lib<name>-<hash>.so` (git-ignored) the
 first time a wrapper needs it, and loaded with `ctypes`. The hash covers
-the source and the flags, so an edited source is rebuilt. Nothing here
+the source, every shared header `csrc/*.cuh` (a source may include one)
+and the flags, so an edited source or header is rebuilt. Nothing here
 runs at import: the CPU tests import every module on a host without nvcc.
 
     python -c "from graph_detr4d_tpu_torch.ops import build; print(build.build())"
@@ -48,11 +49,13 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """Where `csrc/<name>.cu` is built: named by a hash of the source, the
+    headers of `csrc` and the nvcc flags."""
+    h = hashlib.sha256()
+    for path in [CSRC_DIR / f"{name}.cu", *sorted(CSRC_DIR.glob("*.cuh"))]:
+        h.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: Sequence[str] = SOURCES) -> Dict[str, float]:

@@ -20,12 +20,13 @@ tensor it is `deform_conv2d_plain` (per-tap
 
 K3, the int8 variant (`variant="int8"`, counterpart of
 graph_detr4d_tpu/ops/deform_conv.py::_deform_conv_int8): the input is
-quantized to an int8 table at per-(image, channel) amax scales and the
-taps are gathered from it and dequantized (`deform_im2col_int8`, the
-`csrc/deform_conv_int8.cu` kernels for a CUDA tensor,
-`deform_im2col_int8_plain` for a CPU one), then contracted by a matrix
-product. Its gradient is straight-through, the exact gradient of the fp
-conv (`deform_conv_backward`), as the JAX op's `_int8_bwd`. Like the JAX
+quantized to an int8 table at per-(image, channel) amax scales, and the
+taps are gathered from it, dequantized and contracted with the weight
+(`deform_conv_int8_forward`: for a CUDA tensor the `csrc/deform_conv_int8.cu`
+kernels, amax, quantize and K2's fused forward over the table, no column
+tile written; for a CPU one `deform_conv2d_int8_plain`). Its gradient is
+straight-through, the exact gradient of the fp conv
+(`deform_conv_backward`), as the JAX op's `_int8_bwd`. Like the JAX
 op, it applies only where the input's padded grid has more than
 ONEHOT_MAX_PIXELS pixels; smaller grids stay exact (`select_variant`).
 """
@@ -40,8 +41,8 @@ from . import build
 
 # calls that launched kernels: deform_conv_forward (1 launch each),
 # deform_conv_backward (2-4 each, 1 without the weight gradient) and
-# deform_im2col_int8 (3 each); plain ints, chip_smoke.py resets them before
-# driving the main path and reads them after
+# deform_conv_int8_forward (3 each); plain ints, chip_smoke.py resets them
+# before driving the main path and reads them after
 forward_launches = 0
 backward_launches = 0
 int8_launches = 0
@@ -52,6 +53,8 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # at or below this padded-grid pixel count the JAX op samples exactly,
 # whatever the variant (graph_detr4d_tpu/ops/deform_conv.py:27, 111)
 ONEHOT_MAX_PIXELS = 1536
+# K3's kernel reads the int8 table 16 channels at a time
+INT8_CHANNEL_MULTIPLE = 16
 
 
 @functools.cache
@@ -75,9 +78,9 @@ def _bind(lib):
 @functools.cache
 def _lib_int8():
     lib = build.load("deform_conv_int8")
-    lib.deform_im2col_int8.argtypes = [ctypes.c_void_p] * 7 + [
-        ctypes.c_int] * 9 + [ctypes.c_void_p]
-    lib.deform_im2col_int8.restype = ctypes.c_int
+    lib.deform_conv_int8_forward.argtypes = [ctypes.c_void_p] * 8 + [
+        ctypes.c_int] * 10 + [ctypes.c_void_p]
+    lib.deform_conv_int8_forward.restype = ctypes.c_int
     return lib
 
 
@@ -354,63 +357,77 @@ def quantize_int8_plain(x: torch.Tensor):
 
 
 def deform_im2col_int8_plain(x, offsets, mask, stride=1, padding=1):
-    """The same function as `deform_im2col_int8` in plain PyTorch: the
-    dequantized table (q * scale in x's dtype) sampled by
-    `deform_im2col_plain`."""
+    """The int8 variant's column tile in plain PyTorch: the dequantized
+    table (q * scale in x's dtype) sampled by `deform_im2col_plain`."""
     q, scale = quantize_int8_plain(x)
     table = q.to(x.dtype) * scale[:, None, None, :]
     return deform_im2col_plain(table, offsets, mask, stride, padding)
 
 
-def deform_im2col_int8(
+def deform_conv2d_int8_plain(x, offsets, mask, w, stride=1, padding=1):
+    """The same function as `deform_conv_int8_forward` in plain PyTorch:
+    quantize, the plain column tile, `torch.matmul` with the tap-major
+    (9*Cin, Cout) weight. Returns (B, Ho, Wo, Cout) in x's dtype."""
+    B, _, _, Ho, Wo = _check(x, offsets, mask, stride, padding)
+    Cout = _check_weight(x, w)
+    cols = deform_im2col_int8_plain(x, offsets, mask, stride, padding)
+    return torch.matmul(cols, w).view(B, Ho, Wo, Cout)
+
+
+def deform_conv_int8_forward(
     x: torch.Tensor,
     offsets: torch.Tensor,
     mask: torch.Tensor,
+    w: torch.Tensor,
     stride: int = 1,
     padding: int = 1,
 ) -> torch.Tensor:
-    """`deform_im2col_plain`'s column tile of x quantized to an int8 table
-    at per-(image, channel) amax scales (K3), not differentiable
-    (deform_conv2d with variant 'int8' carries the straight-through
-    gradient). Same arguments and result layout as `deform_im2col_plain`."""
+    """K3 without autograd: the conv of x quantized to an int8 table at
+    per-(image, channel) amax scales, on the tap-major (9*Cin, Cout)
+    weight. Same arguments and result as `deform_conv_forward`. For CUDA
+    tensors the fused kernels of `csrc/deform_conv_int8.cu` (amax,
+    quantize, then one implicit GEMM over the table; Cin must be a
+    multiple of 16), for CPU tensors `deform_conv2d_int8_plain`."""
     global int8_launches
     B, H, W, Ho, Wo = _check(x, offsets, mask, stride, padding)
-    Cin = x.shape[-1]
+    Cin, Cout = x.shape[-1], _check_weight(x, w)
     if x.device.type == "cpu":
-        with torch.no_grad():
-            return deform_im2col_int8_plain(x, offsets, mask, stride, padding)
+        return deform_conv2d_int8_plain(x, offsets, mask, w, stride, padding)
     _on_cuda(x)
-    _contiguous(x=x, offsets=offsets, mask=mask)
-    cols = torch.empty(B * Ho * Wo, TAPS * Cin, dtype=x.dtype, device=x.device)
-    if cols.numel() == 0 or H * W == 0:  # nothing to launch
-        return cols.zero_()
+    _contiguous(x=x, offsets=offsets, mask=mask, weight=w)
+    if Cin % INT8_CHANNEL_MULTIPLE:
+        raise ValueError(f"deform_conv_int8: Cin {Cin} is not a multiple of "
+                         f"{INT8_CHANNEL_MULTIPLE} (the kernel's 16-byte "
+                         "table loads)")
+    out = torch.empty(B, Ho, Wo, Cout, dtype=x.dtype, device=x.device)
+    if out.numel() == 0 or Cin == 0 or H * W == 0:  # nothing to launch
+        return out.zero_()
+    wt = w.t().contiguous()  # the kernel reads the weight K-major
     amax = torch.empty(B, Cin, dtype=torch.int32, device=x.device)
     table = torch.empty(x.shape, dtype=torch.int8, device=x.device)
     scale = torch.empty(B, Cin, dtype=torch.float32, device=x.device)
-    err = _lib_int8().deform_im2col_int8(
-        x.data_ptr(), offsets.data_ptr(), mask.data_ptr(), amax.data_ptr(),
-        table.data_ptr(), scale.data_ptr(), cols.data_ptr(),
-        B, H, W, Cin, Ho, Wo, stride, padding, _DTYPES[x.dtype],
+    err = _lib_int8().deform_conv_int8_forward(
+        x.data_ptr(), offsets.data_ptr(), mask.data_ptr(), wt.data_ptr(),
+        amax.data_ptr(), table.data_ptr(), scale.data_ptr(), out.data_ptr(),
+        B, H, W, Cin, Ho, Wo, Cout, stride, padding, _DTYPES[x.dtype],
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(
-            f"deform_im2col_int8 kernel launch failed: cudaError {err}")
+            f"deform_conv_int8_forward kernel launch failed: cudaError {err}")
     int8_launches += 1
-    return cols
+    return out
 
 
 class _DeformConvInt8(torch.autograd.Function):
-    """cols_int8 @ w forward; the fp conv's exact gradient backward (the
+    """K3 forward; the fp conv's exact gradient backward (the
     straight-through estimator of the JAX op's `_int8_bwd`)."""
 
     @staticmethod
     def forward(ctx, x, offsets, mask, w, stride, padding):
         ctx.save_for_backward(x, offsets, mask, w)
         ctx.conv = (stride, padding)
-        B, _, _, Ho, Wo = _check(x, offsets, mask, stride, padding)
-        cols = deform_im2col_int8(x, offsets, mask, stride, padding)
-        return torch.matmul(cols, w).view(B, Ho, Wo, w.shape[1])
+        return deform_conv_int8_forward(x, offsets, mask, w, stride, padding)
 
     @staticmethod
     @torch.autograd.function.once_differentiable

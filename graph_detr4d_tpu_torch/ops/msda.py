@@ -10,7 +10,8 @@ the attention-weighted sum over levels and points, per head.
 tensor it runs the forward kernel of `csrc/msda.cu` inside an autograd
 Function whose backward is the backward kernel (`msda_backward`); for a
 CPU tensor it runs `msda_forward_plain`, per-level `F.grid_sample`, which
-autograd differentiates (`msda_backward_plain`). Values use the mmcv
+autograd differentiates (`msda_backward_plain`). The backward kernels write
+grad_value by tiles of the value maps, once, in value's dtype. Values use the mmcv
 layout: all levels flattened into one (BN, sum_l H_l*W_l, heads, hd)
 buffer, levels in order.
 """
@@ -42,7 +43,11 @@ def _lib():
         ctypes.c_void_p,
     ]
     lib.msda_forward.restype = ctypes.c_int
-    lib.msda_backward.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [
+    lib.msda_backward_workspace.argtypes = [ctypes.c_int] * 7 + [
+        ctypes.POINTER(ctypes.c_int)]
+    lib.msda_backward_workspace.restype = ctypes.c_longlong
+    lib.msda_backward.argtypes = [ctypes.c_void_p] * 9 + [
+        ctypes.c_longlong] + [ctypes.c_int] * 8 + [
         ctypes.POINTER(ctypes.c_int),
         ctypes.c_int,
         ctypes.c_void_p,
@@ -188,8 +193,10 @@ def msda_backward(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Gradients of `msda_forward` for (value, loc, attn), given grad_out
     (BN, R, heads * hd). grad_value comes in value's dtype, grad_loc and
-    grad_attn in float32. The backward kernel for CUDA tensors,
-    `msda_backward_plain` for CPU tensors."""
+    grad_attn in float32. The backward kernels for CUDA tensors (grad_value
+    written once in value's dtype, no fp32 copy of it; a workspace of a
+    few MB for the binned samples), `msda_backward_plain` for CPU
+    tensors."""
     global backward_launches
     _check(value, spatial_shapes, loc, attn, index)
     R = loc.shape[1] if index is None else index.shape[1]
@@ -204,26 +211,34 @@ def msda_backward(
         raise ValueError(f"msda: unsupported device {value.device}")
     grad_out = grad_out.to(value.dtype).contiguous()
     _contiguous(value=value, loc=loc, attn=attn, index=index)
-    grad_value = torch.zeros(value.shape, dtype=torch.float32,
-                             device=value.device)
+    # zero for the queries the index list leaves out and for samples outside
+    # every level
     grad_loc = torch.zeros_like(loc)
     grad_attn = torch.zeros_like(attn)
     if grad_out.numel() == 0:  # nothing to launch
-        return grad_value.to(value.dtype), grad_loc, grad_attn
+        return torch.zeros_like(value), grad_loc, grad_attn
     Q, L, P = loc.shape[1], loc.shape[3], loc.shape[4]
-    err = _lib().msda_backward(
+    lib = _lib()
+    level_hw = _level_hw(spatial_shapes)
+    ws_bytes = lib.msda_backward_workspace(BN, S, R, heads, hd, L, P, level_hw)
+    if ws_bytes <= 0:
+        raise ValueError(f"msda backward: head width {hd} or the sample "
+                         "count is beyond the kernel's tiles")
+    workspace = torch.empty(ws_bytes, dtype=torch.uint8, device=value.device)
+    grad_value = torch.empty_like(value)  # every element written
+    err = lib.msda_backward(
         value.data_ptr(), loc.data_ptr(), attn.data_ptr(),
         None if index is None else index.data_ptr(), grad_out.data_ptr(),
         grad_value.data_ptr(), grad_loc.data_ptr(), grad_attn.data_ptr(),
-        BN, S, Q, R, heads, hd, L, P, _level_hw(spatial_shapes),
-        _DTYPES[value.dtype],
+        workspace.data_ptr(), ws_bytes,
+        BN, S, Q, R, heads, hd, L, P, level_hw, _DTYPES[value.dtype],
         torch.cuda.current_stream(value.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(
             f"msda backward kernel launch failed: cudaError {err}")
     backward_launches += 1
-    return grad_value.to(value.dtype), grad_loc, grad_attn
+    return grad_value, grad_loc, grad_attn
 
 
 def msda_backward_plain(value, spatial_shapes, loc, attn, grad_out,

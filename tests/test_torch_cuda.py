@@ -16,7 +16,7 @@ import pytest
 import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-from chip_smoke import dcn_kinks, msda_kinks  # noqa: E402
+from chip_smoke import bf16_step, dcn_kinks, msda_kinks  # noqa: E402
 from graph_detr4d_tpu_torch.ops import deform_conv as dcn_ops  # noqa: E402
 from graph_detr4d_tpu_torch.ops import focal_loss as focal_ops  # noqa: E402
 from graph_detr4d_tpu_torch.ops import hungarian as lsa_ops  # noqa: E402
@@ -83,6 +83,96 @@ def test_msda_kernel_matches_plain(cuda, dtype, compact):
         assert err <= 1e-4, err
     else:
         assert err <= 2e-2 * want.float().abs().max().item(), err
+
+
+def _msda_backward_case(rng, shapes, loc, BN, Q, heads, hd, P, dtype, dev,
+                        compact):
+    """value, attn, index (half the queries, or None) and grad_out around
+    the given sampling locations."""
+    value, _, attn = _msda_inputs(rng, BN, Q, heads, hd, shapes, P, dtype, dev)
+    index = None
+    if compact:
+        perm = np.stack([rng.permutation(Q)[:Q // 2] for _ in range(BN)])
+        index = torch.from_numpy(perm.astype(np.int64)).to(dev)
+    R = Q // 2 if compact else Q
+    grad_out = torch.from_numpy(rng.randn(BN, R, heads * hd).astype(np.float32))
+    return value, loc.to(dev), attn, index, grad_out.to(dev, dtype)
+
+
+def _check_msda_backward(value, shapes, loc, attn, grad_out, index, dtype):
+    launches = msda_ops.backward_launches
+    got = msda_ops.msda_backward(value, shapes, loc, attn, grad_out, index)
+    want = msda_ops.msda_backward_plain(value, shapes, loc, attn, grad_out,
+                                        index)
+    torch.cuda.synchronize()
+    assert msda_ops.backward_launches == launches + 1
+    _assert_grads_close(got, want, dtype, msda_kinks(loc, shapes))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("compact", [False, True])
+def test_msda_backward_kernel_clustered_samples(cuda, dtype, compact):
+    """A trained model's samples cluster: every query of a camera looks
+    around one reference point, 2 pixels' spread at each level, so most
+    samples land in one grad_value tile (the 40 x 50 level's 10-row tiles:
+    the point sits at row 14.5) and pile up on the same pixels."""
+    rng = np.random.RandomState(17)
+    shapes = [(40, 50), (20, 25), (10, 13), (5, 7)]
+    BN, Q, heads, hd, P = 2, 60, 8, 32, 4
+    sizes = np.array([[w, h] for h, w in shapes], np.float64)  # (x, y)
+    centre = np.array([0.45, 0.375])
+    loc = centre + rng.randn(BN, Q, heads, len(shapes), P, 2) * 2.0 / sizes[
+        None, None, None, :, None, :]
+    loc = torch.from_numpy(loc.astype(np.float32))
+    value, loc, attn, index, grad_out = _msda_backward_case(
+        rng, shapes, loc, BN, Q, heads, hd, P, dtype, cuda, compact)
+    _check_msda_backward(value, shapes, loc, attn, grad_out, index, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_msda_backward_kernel_tile_borders(cuda, dtype):
+    """Samples on the borders of the grad_value tiles (hd 32: 512-pixel
+    tiles; the 34 x 30 level is cut into 17-row tiles, the 3 x 700 level
+    into rows and at column 512, so a sample there adds to 4 tiles) and on
+    a 1-pixel-wide level."""
+    rng = np.random.RandomState(19)
+    shapes = [(34, 30), (3, 700), (9, 1)]
+    BN, Q, heads, hd, P = 2, 40, 8, 32, 4
+    loc = rng.uniform(-0.1, 1.1, (BN, Q, heads, len(shapes), P, 2))
+    u = rng.rand(BN, Q, heads, P)
+    border = rng.rand(BN, Q, heads, P) < 0.7
+    loc[..., 0, :, 1] = np.where(border, (16 + u + 0.5) / 34, loc[..., 0, :, 1])
+    loc[..., 1, :, 0] = np.where(border, (511 + u + 0.5) / 700,
+                                 loc[..., 1, :, 0])
+    loc[..., 1, :, 1] = np.where(border, (1 + u + 0.5) / 3, loc[..., 1, :, 1])
+    loc[..., 2, :, 0] = np.where(border, u, loc[..., 2, :, 0])
+    loc = torch.from_numpy(loc.astype(np.float32))
+    for compact in (False, True):
+        value, loc_d, attn, index, grad_out = _msda_backward_case(
+            rng, shapes, loc, BN, Q, heads, hd, P, dtype, cuda, compact)
+        _check_msda_backward(value, shapes, loc_d, attn, grad_out, index,
+                             dtype)
+
+
+@pytest.mark.cuda
+def test_msda_backward_peak_is_below_the_old_fp32_buffer(cuda):
+    """bf16: what the backward allocates (grad_value in value's dtype,
+    grad_loc, grad_attn and the bins' workspace) stays below the fp32 copy
+    of value that the col2im scheme zeroed and cast."""
+    rng = np.random.RandomState(20)
+    shapes = [(64, 64), (32, 32)]
+    value, loc, attn = _msda_inputs(rng, 3, 40, 8, 32, shapes, 4,
+                                    torch.bfloat16, cuda)
+    grad_out = torch.randn(3, 40, 256, device=cuda).to(torch.bfloat16)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    grads = msda_ops.msda_backward(value, shapes, loc, attn, grad_out)
+    torch.cuda.synchronize()
+    assert grads[0].dtype == torch.bfloat16
+    assert torch.cuda.max_memory_allocated() - base < value.numel() * 4
 
 
 # (B, H, W, Cin, Cout) of the K2 cases: the kernels' 16-byte paths; a
@@ -286,6 +376,10 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         dcn_ops.deform_conv_forward(x.transpose(1, 2), off, mask, w)
     with pytest.raises(ValueError):
         dcn_ops.deform_conv_forward(x, off, mask, w.t().contiguous().t())
+    # K3 reads the int8 table 16 channels at a time
+    with pytest.raises(ValueError, match="multiple of 16"):
+        dcn_ops.deform_conv_int8_forward(x[..., :8].contiguous(), off, mask,
+                                         w[:72].contiguous())
     # the backward's resident grad_out tile: 64 pixels x 4096 fp32 channels
     # do not fit in shared memory, and the launch is refused
     wide = torch.randn(144, 4096, device=cuda)
@@ -430,7 +524,10 @@ def test_tiny_train_step_on_the_card_matches_the_cpu(cuda):
                                    msg=k)
 
 
-def _int8_case(rng, B, H, W, Cin, stride, ties=False):
+def _int8_case(rng, B, H, W, Cin, stride, ties=False, Cout=None):
+    """x (rounding ties of the table where ties), offsets (4 px: many taps
+    outside the image), mask and, with Cout, the tap-major weight at the
+    init scale 1 / sqrt(9 Cin)."""
     x = rng.randn(B, H, W, Cin).astype(np.float32)
     if ties:  # x * (127 / s) lands on half-integers: rounding ties
         x = ((rng.randint(-126, 126, size=x.shape) + 0.5) / 128).astype(
@@ -440,33 +537,108 @@ def _int8_case(rng, B, H, W, Cin, stride, ties=False):
     Wo = dcn_ops.output_size(W, stride, 1)
     off = (rng.randn(B, Ho, Wo, 9, 2) * 4.0).astype(np.float32)
     mask = rng.rand(B, Ho, Wo, 9).astype(np.float32)
-    return [torch.from_numpy(a) for a in (x, off, mask)]
+    arrays = [x, off, mask]
+    if Cout is not None:
+        arrays.append((rng.randn(9 * Cin, Cout) / np.sqrt(9 * Cin)).astype(
+            np.float32))
+    return [torch.from_numpy(a) for a in arrays]
+
+
+def _assert_int8_close(got, want, dtype):
+    """fp32: K2's forward tolerance, 1e-4; bf16: one bf16 step of the
+    output's magnitude (both round the sampled tile to bf16 the same way
+    and sum the contraction in fp32)."""
+    assert got.shape == want.shape and got.dtype == want.dtype
+    err = (got.float() - want.float()).abs().max().item()
+    if dtype == torch.float32:
+        assert err <= 1e-4, err
+    else:
+        assert err <= bf16_step(want.float().abs().max().item()), err
+
+
+# (B, H, W, Cin, Cout) of the fused K3 cases, all on grids the int8 variant
+# applies to: 40 x 50 puts 2,000 (stride 1) and 500 (stride 2) output
+# pixels in an image, so 64-pixel blocks straddle images; Cout 512 is two
+# N tiles; Cin 48 ends in a part stage (64-channel bf16 stages)
+INT8_CASES = {
+    "straddle": (3, 40, 50, 48, 64),
+    "two_n_tiles": (1, 40, 48, 32, 512),
+}
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("stride", [1, 2])
 @pytest.mark.parametrize("ties", [False, True])
-def test_int8_im2col_kernel_matches_plain(cuda, dtype, stride, ties):
-    """K3 at a grid the int8 variant applies to (40 x 48), 48 channels:
-    the kernel's table, scales and gather against the plain version's."""
-    rng = np.random.RandomState(7)
-    x, off, mask = (t.to(cuda, dtype) for t in _int8_case(
-        rng, 2, 40, 48, 48, stride, ties))
+@pytest.mark.parametrize("case", sorted(INT8_CASES))
+def test_int8_conv_kernel_matches_plain(cuda, dtype, stride, ties, case):
+    """The fused K3 (amax, quantize, implicit GEMM over the int8 table)
+    against deform_conv2d_int8_plain, with quantization ties."""
+    B, H, W, Cin, Cout = INT8_CASES[case]
+    assert dcn_ops.select_variant(H, W, "int8") == "int8"
+    x, off, mask, w = (t.to(cuda, dtype) for t in _int8_case(
+        np.random.RandomState(7), B, H, W, Cin, stride, ties, Cout))
     n0 = dcn_ops.int8_launches
-    got = dcn_ops.deform_im2col_int8(x, off, mask, stride)
-    want = dcn_ops.deform_im2col_int8_plain(x, off, mask, stride)
+    got = dcn_ops.deform_conv_int8_forward(x, off, mask, w, stride)
+    want = dcn_ops.deform_conv2d_int8_plain(x, off, mask, w, stride)
     torch.cuda.synchronize()
     assert dcn_ops.int8_launches == n0 + 1
-    assert got.shape == want.shape
-    err = (got.float() - want.float()).abs().max().item()
-    if dtype == torch.float32:
-        assert err <= 1e-4, err
-    else:
-        assert err <= 2e-2 * want.float().abs().max().item(), err
+    _assert_int8_close(got, want, dtype)
     if dtype == torch.float32:  # the quantized function, not the exact one
-        exact = dcn_ops.deform_im2col_plain(x, off, mask, stride)
-        assert (exact - want).abs().max().item() > 100 * max(err, 1e-6)
+        exact = dcn_ops.deform_conv2d_plain(x, off, mask, w, stride)
+        assert (exact - want).abs().max().item() > 1e-3
+
+
+@pytest.mark.cuda
+def test_int8_conv_kernel_takes_unaligned_inputs(cuda):
+    """x, offsets, mask and the weight off a 16-byte boundary (contiguous
+    views at an element offset; the kernels read x, offsets and mask with
+    scalar loads and their own table, scales and transposed weight), and
+    Cout 20, which takes the epilogue's scalar stores."""
+    ts = _int8_case(np.random.RandomState(15), 2, 40, 48, 32, 1, Cout=20)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, dtype=torch.bfloat16, device=cuda)
+        out = buf[1:].view(t.shape)
+        out.copy_(t)
+        return out
+
+    x, off, mask, w = (shifted(t) for t in ts)
+    assert x.data_ptr() % 16 and w.data_ptr() % 16
+    _assert_int8_close(dcn_ops.deform_conv_int8_forward(x, off, mask, w),
+                       dcn_ops.deform_conv2d_int8_plain(x, off, mask, w),
+                       torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_int8_conv_saves_no_column_tile(cuda):
+    """deform_conv2d(variant='int8') allocates no (B*Ho*Wo, 9*Cin) tile in
+    its forward (peak memory below the tile's size) and its autograd
+    Function saves x, offsets, mask and the weight only."""
+    x, off, mask = (t.to(cuda, torch.bfloat16) for t in _int8_case(
+        np.random.RandomState(16), 2, 40, 48, 64, 1))
+    B, H, W, Cin = x.shape
+    weight = (torch.randn(64, Cin, 3, 3, device=cuda) / np.sqrt(9 * Cin)).to(
+        torch.bfloat16)
+    leaves = [t.requires_grad_() for t in (x, off, mask, weight)]
+    tile_bytes = B * H * W * 9 * Cin * x.element_size()
+    saved = []
+
+    def pack(t):
+        saved.append(tuple(t.shape))
+        return t
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        out = dcn_ops.deform_conv2d(*leaves, variant="int8")
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - base < tile_bytes / 2
+    assert (B * H * W, 9 * Cin) not in saved
+    assert all(np.prod(s) < B * H * W * 9 * Cin for s in saved), saved
+    out.float().sum().backward()
+    assert all(t.grad is not None for t in leaves)
 
 
 @pytest.mark.cuda
@@ -606,9 +778,10 @@ def test_lidar_kernels_skip_empty_work(cuda):
     assert iou3d.bbox_overlaps_3d(torch.zeros(0, 7, device=cuda),
                                   torch.zeros(4, 7, device=cuda)).shape == (0, 4)
     x = torch.randn(0, 40, 48, 16, device=cuda)
-    assert dcn_ops.deform_im2col_int8(
+    assert dcn_ops.deform_conv_int8_forward(
         x, torch.zeros(0, 40, 48, 9, 2, device=cuda),
-        torch.ones(0, 40, 48, 9, device=cuda)).shape == (0, 144)
+        torch.ones(0, 40, 48, 9, device=cuda),
+        torch.randn(144, 8, device=cuda)).shape == (0, 40, 48, 8)
     assert (vox_ops.launches, vox_ops.scatter_launches, iou3d.launches,
             dcn_ops.int8_launches) == counts
 
