@@ -7,8 +7,8 @@ Runs the flagship Graph-DETR4D config
 (detr4d_res50_deform_pe_testaug_2subset_12e: 12 cameras at 640x1600,
 ResNet-50 + DCNv2, 900 queries, 6 decoder layers, bf16) with seeded random
 weights, serving (also with the int8 DCN table) and training, then the
-LiDAR detector ObjDGCNN and the rotated 3D IoU, and prints one JSON line
-per phase:
+LiDAR detector ObjDGCNN (served, and differentiated) and the rotated 3D
+IoU, and prints one JSON line per phase:
 
   1. build    nvcc for every kernel source, all started together;
   2. kernels  each kernel against its plain PyTorch version at the main
@@ -82,13 +82,28 @@ per phase:
               final-layer boxes against themselves and the 300 decoded boxes
               against 128 ground-truth-like boxes, against the plain version
               within 1e-5; 2 launches.
+ 11. lidar_grad  the lidar phase's weights and first cloud in fp32: the
+              detr3d loss of the head's outputs against 40 synthetic boxes
+              and its backward, once through the kernels (launches exactly
+              K6 features 1, scatter 1, scatter backward 1, K1 forward 6,
+              K1 backward 6, K4 1, K5 1) and once through the plain
+              versions, the plain route reusing the kernel route's k-NN
+              sets: loss within 1e-5 relative, the pillar layers'
+              gradients (pfn, pfn_norm) and the global gradient norm
+              within 5e-4 (train_plain's tolerances), pfn's weight gradient
+              finite and nonzero.
 Phase `kernels` also holds K3 (the fused int8-table conv, fp32 within
 1e-4 and bf16 within one bf16 step of the output's magnitude, both
 strides, the flagship's 7 int8 DCN shapes, with `gemm_ref_ms` as K2's),
-K6 (the lidar phase's clouds) and K7 (900 x 900 and 300 x 128) to their
-plain versions, with the time of one PyTorch call that computes the same
+K6 (the lidar phase's clouds: ids exactly and rows within 1e-5, the max
+exactly, its backward within 1e-6 of the gradient's magnitude on raw and
+relu'd features) and K7 (900 x 900 and 300 x 128) to their plain
+versions, with the time of one PyTorch call that computes the same
 function where there is one (K6: scatter_reduce_ 'amax' for the grid,
-index_add_ for the cell sums). K1's backward is checked and timed twice:
+index_add_ for the cell sums; the backward beside autograd's own backward
+of scatter_reduce_, several calls), and the host time and device kernels
+of one K6 features call and of one index_add_. K1's forward lists its
+device kernels too. K1's backward is checked and timed twice:
 on uniform samples (the table's row) and on samples clustered around 50
 reference points per camera at 3 pixels' spread, as a trained model's
 queries look at the same objects.
@@ -173,6 +188,10 @@ LIDAR_LAUNCHES = {"pillar_features": 1, "pillar_scatter": 1,
 # (runs measured at most 2 of 900), each a near-tie: the route's own k-th
 # and (k+1)-th squared distances within this relative gap
 KNN_MAX_DIFFERING, KNN_TIE_RTOL = 4, 1e-5
+# phase lidar_grad: one fp32 ObjDGCNN loss and backward, launches per step
+LIDAR_GRAD_LAUNCHES = {"pillar_features": 1, "pillar_scatter": 1,
+                       "pillar_scatter_backward": 1, "msda_forward": 6,
+                       "msda_backward": 6, "hungarian": 1, "focal_loss": 1}
 IOU_SHAPES = [(900, 900), (300, 128)]
 
 
@@ -204,6 +223,7 @@ def launch_counts():
             "deform_conv_int8_forward": dcn_ops.int8_launches,
             "pillar_features": vox_ops.launches,
             "pillar_scatter": vox_ops.scatter_launches,
+            "pillar_scatter_backward": vox_ops.scatter_backward_launches,
             "iou3d": iou3d.launches}
 
 
@@ -213,6 +233,7 @@ def reset_launch_counts():
     focal_ops.launches = lsa_ops.launches = 0
     dcn_ops.int8_launches = 0
     vox_ops.launches = vox_ops.scatter_launches = 0
+    vox_ops.scatter_backward_launches = 0
     iou3d.launches = 0
 
 
@@ -256,6 +277,20 @@ def device_events(prof):
 def bf16_step(magnitude):
     """One bf16 step (unit in the last place) at this magnitude."""
     return 2.0 ** (np.floor(np.log2(magnitude)) - 7)
+
+
+def host_us(fn, calls=100):
+    """Host time to issue one call of fn (microseconds, mean over `calls`
+    calls issued back to back after a synchronize): where it exceeds the
+    call's device time, CUDA-event times measure the host."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return 1e6 * (t1 - t0) / calls
 
 
 def device_breakdown(fn):
@@ -553,7 +588,9 @@ def kernel_msda(dev, gen):
     bound, bound_by = msda_bound_ms(value, loc, attn, index)
     results["msda_forward"] = dict(
         checks=checks, ms=ms * MSDA_CALLS, plain_ms=plain_ms * MSDA_CALLS,
-        bound_ms=bound * MSDA_CALLS, bound_by=bound_by, per_call_ms=ms)
+        bound_ms=bound * MSDA_CALLS, bound_by=bound_by, per_call_ms=ms,
+        device_ms_per_call=device_breakdown(lambda: msda_ops.msda_forward(
+            value, MSDA_LEVELS, loc, attn, index)))
     emit({"phase": "kernels", "kernel": "msda_forward",
           "shape": [BN, Q, R, heads, hd, L, P], **results["msda_forward"]})
 
@@ -656,8 +693,8 @@ def phase_kernels(dev):
     results["focal_loss"] = kernel_focal_loss(dev, gen)
     results["hungarian"] = kernel_hungarian(dev, gen)
     results["deform_conv_int8_forward"] = kernel_int8(dev, gen)
-    results["pillar_features"], results["pillar_scatter"] = kernel_voxelize(
-        dev, gen)
+    (results["pillar_features"], results["pillar_scatter"],
+     results["pillar_scatter_backward"]) = kernel_voxelize(dev, gen)
     results["iou3d"] = kernel_iou3d(dev)
     return results
 
@@ -858,15 +895,25 @@ def kernel_voxelize(dev, gen):
     xyz = pts[0, :, :3].contiguous()
     sums = torch.zeros(H * W + 1, 3, device=dev)
     feat_bytes = P * (LIDAR_FEATURES * 4 + 4 + 4 + (LIDAR_FEATURES + 5) * 4)
+
+    def kernel():
+        return vox_ops.pillar_features(pts, mask, pc, LIDAR_GRID)
+
+    def library():
+        return sums.index_add_(0, seg, xyz)
+
     features = dict(
         checks={"ids_differing": ids_differ, "rows_max_abs_err": aug_err,
                 "trash_share": trash},
         max_abs_err=aug_err,
-        ms=cuda_ms(lambda: vox_ops.pillar_features(pts, mask, pc, LIDAR_GRID), 20),
+        ms=cuda_ms(kernel, 20),
         plain_ms=cuda_ms(lambda: vox_ops.pillar_features_plain(
             pts, mask, pc, LIDAR_GRID), 3),
-        library_ms=cuda_ms(lambda: sums.index_add_(0, seg, xyz), 20),
-        bound_ms=1e3 * feat_bytes / PEAK_BYTES_PER_S, bound_by="bytes")
+        library_ms=cuda_ms(library, 20),
+        bound_ms=1e3 * feat_bytes / PEAK_BYTES_PER_S, bound_by="bytes",
+        host_us_per_call=host_us(kernel), device_ms_per_call=device_breakdown(kernel),
+        library_host_us_per_call=host_us(library),
+        library_device_ms_per_call=device_breakdown(library))
     emit({"phase": "kernels", "kernel": "pillar_features",
           "shape": [1, P, LIDAR_FEATURES], "grid": LIDAR_GRID, **features})
 
@@ -890,7 +937,47 @@ def kernel_voxelize(dev, gen):
         bound_ms=1e3 * scatter_bytes / PEAK_BYTES_PER_S, bound_by="bytes")
     emit({"phase": "kernels", "kernel": "pillar_scatter",
           "shape": [1, P, 64], "grid": LIDAR_GRID, **scatter})
-    return features, scatter
+    return features, scatter, kernel_scatter_backward(feats, ids, gen, dev)
+
+
+def kernel_scatter_backward(feats, ids, gen, dev):
+    """K6's scatter backward at the lidar phase's cloud, 64 channels: on
+    the raw features (negative cells) and on relu'd ones (what the model
+    gives it: ties at 0 in many channels of a cell), against autograd of
+    the plain version, the NaN-free cells exact up to the division. Timed
+    on the relu'd features, beside autograd's own backward of
+    scatter_reduce_ 'amax' (several PyTorch calls, so no library_ms)."""
+    P, C = feats.shape[1], feats.shape[2]
+    H, W = LIDAR_GRID
+    g = torch.randn(1, H, W, C, generator=gen).to(dev)
+    checks = {}
+    for name, f in (("raw", feats), ("relu", torch.relu(feats + 0.5))):
+        out = vox_ops.pillar_scatter(f, ids, LIDAR_GRID)
+        got = vox_ops.pillar_scatter_backward(f, ids, out, g, LIDAR_GRID)
+        want = vox_ops.pillar_scatter_backward_plain(f, ids, g, LIDAR_GRID)
+        err = (got - want).abs().max().item()
+        if not err <= 1e-6 * want.abs().max().item():
+            raise AssertionError(f"pillar_scatter_backward {name}: {err}")
+        checks[name] = [err, int((got != 0).sum())]
+    leaf = f.detach().clone().requires_grad_()
+    graph = vox_ops.pillar_scatter_plain(leaf, ids, LIDAR_GRID)
+    bytes_ = 2 * P * C * 4 + P * 4 + H * W * C * 4
+
+    def kernel():
+        return vox_ops.pillar_scatter_backward(f, ids, out, g, LIDAR_GRID)
+
+    record = dict(
+        checks=checks, max_abs_err=max(v[0] for v in checks.values()),
+        ms=cuda_ms(kernel, 20),
+        plain_ms=cuda_ms(lambda: vox_ops.pillar_scatter_backward_plain(
+            f, ids, g, LIDAR_GRID), 3),
+        pytorch_backward_ms=cuda_ms(lambda: torch.autograd.grad(
+            graph, leaf, g, retain_graph=True), 20),
+        library_ms=None, bound_ms=1e3 * bytes_ / PEAK_BYTES_PER_S,
+        bound_by="bytes", device_ms_per_call=device_breakdown(kernel))
+    emit({"phase": "kernels", "kernel": "pillar_scatter_backward",
+          "shape": [1, P, C], "grid": LIDAR_GRID, **record})
+    return record
 
 
 def random_boxes(rng, n, near=None):
@@ -1189,6 +1276,36 @@ def knn_route(calls, replay=False):
         dgcnn_mod.knn_farthest = inner
 
 
+@contextlib.contextmanager
+def neighbour_max_route(calls, replay=False):
+    """Record the neighbour each max over a query's k neighbours chooses
+    (models/dgcnn.py::neighbour_max, two per decoder layer) into `calls`;
+    or, with replay, take the recorded neighbours (a gather, so the
+    gradient goes where the recorded route's went) and yield, per call, the
+    relative gaps (own max - recorded value) / |own max| where this route's
+    own choice would have been another neighbour."""
+    inner = dgcnn_mod.neighbour_max
+    recorded = iter(list(calls))
+    tie_gaps = []
+
+    def route(y):
+        if not replay:
+            calls.append(y.detach().argmax(dim=2, keepdim=True))
+            return inner(y)
+        rec = next(recorded)
+        got = y.gather(2, rec).squeeze(2)
+        own = inner(y.detach())
+        differ = own != got.detach()
+        tie_gaps.append(((own - got.detach())[differ] / own[differ].abs()).tolist())
+        return got
+
+    dgcnn_mod.neighbour_max = route
+    try:
+        yield tie_gaps
+    finally:
+        dgcnn_mod.neighbour_max = inner
+
+
 def phase_lidar_plain(sd, cloud):
     """fp32 ObjDGCNN, kernels vs plain versions, every decoder layer
     compared as in phase plain. The head's k-NN picks the 16 farthest of
@@ -1250,6 +1367,100 @@ def phase_lidar_plain(sd, cloud):
                 raise AssertionError(
                     f"lidar kernel path vs plain path: {key} layer {i} "
                     f"{e} > {tol}")
+
+
+def lidar_gt(cfg):
+    """NUM_GT synthetic ground-truth boxes in the LiDAR range (the flagship
+    batch's, seed 0; the images are left tiny, nothing reads them)."""
+    b = synthetic_batch(dataclasses.replace(cfg, img_size=(32, 32)), seed=0,
+                        num_gt=NUM_GT)
+    return [torch.from_numpy(b[k]).cuda()
+            for k in ("gt_bboxes", "gt_labels", "gt_valid")]
+
+
+def relative_err(got, want):
+    """max |got - want| over max |want|."""
+    return ((got - want).abs().max() / want.abs().max()).item()
+
+
+def phase_lidar_grad(sd, cloud, cfg):
+    """One fp32 ObjDGCNN loss and backward (core/losses.detr3d_loss on the
+    head's outputs against NUM_GT synthetic boxes, as tests/
+    test_lidar_seg.py feeds the JAX head into it) from the lidar phase's
+    weights and first cloud, once through the kernels (K6 features,
+    scatter and its backward, K1 forward and backward, K4, K5: launches
+    exactly LIDAR_GRAD_LAUNCHES) and once through the plain versions
+    (autograd; no launch), the plain route reusing the kernel route's k-NN
+    sets as in phase lidar_plain, and its edge convs' neighbour maxima
+    (the gradient of a max goes to the neighbour it chose: where the two
+    routes' rounding reorders a near-tie, the choice, and with it the
+    pillar layers' gradients, jump; measured on an H100, without the
+    replay, 5e-4 to 1.5e-3 of their magnitude); the rows where the plain
+    route's own choice would differ must be near-ties (KNN_TIE_RTOL).
+    The loss within TRAIN_PLAIN_RTOL, the pillar layers' gradients (pfn,
+    pfn_norm) and the global gradient norm within
+    TRAIN_PLAIN_GRAD_NORM_RTOL of their magnitude; pfn's weight gradient
+    finite and nonzero on the kernel route."""
+    model = ObjDGCNN()
+    model.load_state_dict(sd, strict=True)
+    pts, mask = (torch.from_numpy(a).cuda() for a in cloud)
+    gt = lidar_gt(cfg)
+    losses, grads, counts, knn, maxima = {}, {}, {}, [], []
+    tie_gaps = max_gaps = None
+    for route, ctx, replay in (("kernels", contextlib.nullcontext, False),
+                               ("plain", plain_kernels, True)):
+        model.zero_grad(set_to_none=True)
+        reset_launch_counts()
+        with ctx(), knn_route(knn, replay) as gaps, \
+                neighbour_max_route(maxima, replay) as mgaps:
+            total, _ = detr3d_loss(model(pts, mask), *gt, cfg.loss,
+                                   model.head_cfg)
+            total.backward()
+        torch.cuda.synchronize()
+        if replay:
+            tie_gaps, max_gaps = gaps, mgaps
+        counts[route] = launch_counts()
+        losses[route] = total.item()
+        grads[route] = {n: p.grad.detach().clone()
+                        for n, p in model.named_parameters() if p.grad is not None}
+    norms = {r: torch.stack([g.norm() for g in gs.values()]).norm().item()
+             for r, gs in grads.items()}
+    pillar = [n for n in grads["kernels"] if n.startswith("pillar_encoder.")]
+    errs = {n: relative_err(grads["kernels"][n], grads["plain"][n])
+            for n in pillar}
+    pfn = grads["kernels"]["pillar_encoder.pfn.weight"]
+    emit({"phase": "lidar_grad", "dtype": "float32", "num_gt": NUM_GT,
+          "loss": losses, "grad_norm": norms,
+          "loss_rel_err": abs(losses["kernels"] - losses["plain"]) / abs(losses["plain"]),
+          "grad_norm_rel_err": abs(norms["kernels"] - norms["plain"]) / norms["plain"],
+          "pillar_grad_rel_err": errs,
+          "pfn_weight_grad_abs_max": pfn.abs().max().item(),
+          "knn_rows_differing_per_call": [len(g) for g in tie_gaps],
+          "neighbour_max_choices_differing_per_call": [len(g) for g in max_gaps],
+          "neighbour_max_tie_gaps": [x for g in max_gaps for x in g],
+          "launches": counts})
+    want_plain = dict.fromkeys(counts["plain"], 0)
+    if counts != {"kernels": {**want_plain, **LIDAR_GRAD_LAUNCHES},
+                  "plain": want_plain}:
+        raise AssertionError(f"lidar_grad launches per route {counts}")
+    if not (torch.isfinite(pfn).all() and pfn.abs().max() > 0):
+        raise AssertionError("lidar_grad: pfn.weight.grad is not finite and nonzero")
+    if len(pillar) != 4 or len(grads["kernels"]) != len(grads["plain"]):
+        raise AssertionError(f"lidar_grad: gradients of {pillar}")
+    if not all(len(g) <= KNN_MAX_DIFFERING and all(0 <= x < KNN_TIE_RTOL for x in g)
+               for g in tie_gaps):
+        raise AssertionError(f"lidar_grad k-NN rows differing per call: {tie_gaps}")
+    if len(max_gaps) != 2 * model.head_cfg.num_decoder_layers or not all(
+            0 <= x < KNN_TIE_RTOL for g in max_gaps for x in g):
+        raise AssertionError(f"lidar_grad neighbour maxima choosing otherwise: {max_gaps}")
+    if not abs(losses["kernels"] - losses["plain"]) <= TRAIN_PLAIN_RTOL * abs(losses["plain"]):
+        raise AssertionError(f"lidar_grad loss {losses}")
+    bad = {k: e for k, e in {**errs, "grad_norm": abs(norms["kernels"] - norms["plain"])
+                             / norms["plain"]}.items()
+           if not e <= TRAIN_PLAIN_GRAD_NORM_RTOL}
+    if bad:
+        raise AssertionError(f"lidar_grad kernels vs plain, relative: {bad}")
+    return counts["kernels"]
 
 
 def phase_iou(engine, cloud):
@@ -1626,6 +1837,8 @@ def main():
     del lidar_engine
     torch.cuda.empty_cache()
     phase_lidar_plain(lidar_sd, clouds[0])
+    torch.cuda.empty_cache()
+    lidar_grad_launches = phase_lidar_grad(lidar_sd, clouds[0], cfg)
 
     table = []
     for name, src, replaces, launches, covers in (
@@ -1660,6 +1873,11 @@ def main():
         ("pillar_scatter", "graph_detr4d_tpu_torch/csrc/voxelize.cu",
          "graph_detr4d_tpu/ops/voxelize.py:52", lidar_launches,
          "one lidar request's call, 300,000 points x 64 channels"),
+        ("pillar_scatter_backward", "graph_detr4d_tpu_torch/csrc/voxelize.cu",
+         "graph_detr4d_tpu/ops/voxelize.py:52", lidar_grad_launches,
+         "one lidar_grad step's call, 300,000 points x 64 relu'd channels "
+         "(pytorch_backward_ms: autograd's backward of scatter_reduce_ "
+         "'amax', several calls)"),
         ("iou3d", "graph_detr4d_tpu_torch/csrc/iou3d.cu",
          "graph_detr4d_tpu/core/iou3d.py:159", iou_launches,
          "the iou phase's 2 calls, 900 x 900 and 300 x 128"),
@@ -1680,6 +1898,8 @@ def main():
         }
         if "gemm_ref_ms" in k:  # not the same function: no library_ms
             row["gemm_ref_ms"] = k["gemm_ref_ms"]
+        if "pytorch_backward_ms" in k:
+            row["pytorch_backward_ms"] = k["pytorch_backward_ms"]
         if "clustered" in k:
             row["clustered_ms"] = k["clustered"]["ms"]
             row["clustered_bound_ms"] = k["clustered"]["bound_ms"]

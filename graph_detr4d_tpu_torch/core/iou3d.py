@@ -9,7 +9,9 @@ reference: core/bbox/iou_calculators/iou3d_calculator.py:8-298).
     pair. K7: for CUDA tensors the pairwise clip runs in the kernel of
     `csrc/iou3d.cu`, one thread per box pair; for CPU tensors
     `bbox_overlaps_3d_plain`, the JAX op's fixed-size Sutherland–Hodgman
-    clip written out over all pairs.
+    clip written out over all pairs. The kernel has no backward: on CUDA
+    tensors that require grad, with grad enabled, it raises (the plain
+    version differentiates; no model path needs it).
 
 Both routes take the rotated corners from `box_corners_bev` (plain
 PyTorch, O(M + N)), so they clip the same float32 polygons; the kernel
@@ -207,6 +209,12 @@ def bbox_overlaps_3d(bboxes1, bboxes2, mode: str = "iou"):
         return bbox_overlaps_3d_plain(bboxes1, bboxes2, mode)
     if bboxes1.device.type != "cuda":
         raise ValueError(f"iou3d: unsupported device {bboxes1.device}")
+    if torch.is_grad_enabled() and (bboxes1.requires_grad
+                                    or bboxes2.requires_grad):
+        raise RuntimeError(
+            "iou3d: the CUDA kernel has no backward; call it under "
+            "torch.no_grad() or on detached boxes (bbox_overlaps_3d_plain "
+            "differentiates)")
     M, N = bboxes1.shape[0], bboxes2.shape[0]
     out = torch.empty(M, N, dtype=torch.float32, device=bboxes1.device)
     if out.numel() == 0:  # nothing to launch

@@ -19,13 +19,15 @@
 // floor is the bytes of the value rows actually touched plus the loc /
 // attn / out streams, over 3.35 TB/s. What the design does about it:
 //   * values stay in the mmcv layout (BN, sum_l H_l*W_l, heads, hd), so
-//     the 32 lanes of a warp (one head at hd = 32) read one contiguous
-//     64-byte (bf16) row per corner;
-//   * the corner indices and weights (attn folded in) of a query tile are
-//     computed once into shared memory instead of once per channel;
-//   * a corner whose weight is zero (outside the image, or a sample the
-//     projection mask switched off) is not loaded at all: most samples of
-//     a query fall outside a given camera;
+//     a corner row of one head is hd contiguous elements: 8 lanes read it
+//     4 channels each, one 8-byte (bf16) or 16-byte (fp32) load a lane;
+//   * a warp takes one (query, head): its lanes compute 8 samples'
+//     corners at a time in registers, with no shared-memory phase and no
+//     barrier between them and the gathers, and a ballot lists the corners
+//     whose weight is not zero (outside the image, or a sample the
+//     projection mask switched off, have none: most samples of a query
+//     fall outside a given camera); its 4 lane groups then load only
+//     those, one each a step, all lanes on the same instructions;
 //   * the index list is read in the kernel, so the compacted queries are
 //     never copied into a gathered loc / attn tensor.
 // Accumulation is fp32 whatever the value type.
@@ -74,7 +76,7 @@
 namespace {
 
 constexpr int kMaxLevels = 8;
-constexpr int kQueryTile = 4;  // queries per block
+constexpr int kGroup = 8;  // lanes per sample, 4 channels each
 
 struct Levels {
   int h[kMaxLevels];
@@ -94,117 +96,6 @@ template <>
 __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
 }
-
-template <typename T>
-__global__ void msda_forward_kernel(
-    const T* __restrict__ value,         // (BN, S, heads, hd)
-    const float* __restrict__ loc,       // (BN, Q, heads, L, P, 2) as (x, y)
-    const float* __restrict__ attn,      // (BN, Q, heads, L, P)
-    const int64_t* __restrict__ index,   // (BN, R) or nullptr
-    T* __restrict__ out,                 // (BN, R, heads * hd)
-    int S, int Q, int R, int heads, int hd, int L, int P, Levels lv) {
-  extern __shared__ unsigned char smem[];
-  const int LP = L * P;
-  const int HLP = heads * LP;
-  int* s_row = reinterpret_cast<int*>(smem);                 // [tile][HLP][4]
-  float* s_w = reinterpret_cast<float*>(s_row + kQueryTile * HLP * 4);
-
-  const int bn = blockIdx.y;
-  const int r0 = blockIdx.x * kQueryTile;
-  const int nq = min(kQueryTile, R - r0);
-
-  // Phase 1: corner rows and weights of every sample of the tile. A row
-  // indexes `value` of this bn viewed as (S * heads, hd).
-  for (int e = threadIdx.x; e < nq * HLP; e += blockDim.x) {
-    const int t = e / HLP;
-    const int hlp = e - t * HLP;
-    const int h = hlp / LP;
-    const int l = (hlp - h * LP) / P;
-    const int64_t q =
-        index ? index[static_cast<int64_t>(bn) * R + r0 + t] : (r0 + t);
-    const int64_t src = (static_cast<int64_t>(bn) * Q + q) * HLP + hlp;
-    const float a = attn[src];
-    const int H = lv.h[l], W = lv.w[l];
-    const float x = loc[2 * src] * W - 0.5f;
-    const float y = loc[2 * src + 1] * H - 0.5f;
-    int* rows = s_row + e * 4;
-    float* ws = s_w + e * 4;
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      rows[k] = h;
-      ws[k] = 0.f;
-    }
-    // written so that NaN and far-away samples fall through to weight 0
-    if (a != 0.f && x > -1.f && x < static_cast<float>(W) && y > -1.f &&
-        y < static_cast<float>(H)) {
-      const float x0f = floorf(x), y0f = floorf(y);
-      const int x0 = static_cast<int>(x0f), y0 = static_cast<int>(y0f);
-      const float fx = x - x0f, fy = y - y0f;
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const int dy = k >> 1, dx = k & 1;
-        const int yy = y0 + dy, xx = x0 + dx;
-        if (yy >= 0 && yy < H && xx >= 0 && xx < W) {
-          ws[k] = a * (dy ? fy : 1.f - fy) * (dx ? fx : 1.f - fx);
-          rows[k] = (lv.start[l] + yy * W + xx) * heads + h;
-        }
-      }
-    }
-  }
-  __syncthreads();
-
-  // Phase 2: threads over (head, channel); a warp is one head at hd = 32.
-  const int C = heads * hd;
-  const T* vbase = value + static_cast<int64_t>(bn) * S * C;
-  for (int c = threadIdx.x; c < C; c += blockDim.x) {
-    const int h = c / hd;
-    const T* vch = vbase + (c - h * hd);
-    for (int t = 0; t < nq; ++t) {
-      const int off = ((t * heads) + h) * LP * 4;
-      const int* rows = s_row + off;
-      const float* ws = s_w + off;
-      float acc = 0.f;
-      for (int s = 0; s < LP * 4; ++s) {
-        const float w = ws[s];
-        if (w != 0.f) {
-          acc += w * to_float(vch[static_cast<int64_t>(rows[s]) * hd]);
-        }
-      }
-      out[(static_cast<int64_t>(bn) * R + r0 + t) * C + c] =
-          from_float<T>(acc);
-    }
-  }
-}
-
-template <typename T>
-cudaError_t launch(const void* value, const void* loc, const void* attn,
-                   const void* index, void* out, int BN, int S, int Q, int R,
-                   int heads, int hd, int L, int P, const Levels& lv,
-                   cudaStream_t stream) {
-  const int C = heads * hd;
-  int threads = ((C + 31) / 32) * 32;
-  if (threads > 1024) threads = 1024;
-  const size_t smem =
-      static_cast<size_t>(kQueryTile) * heads * L * P * 4 *
-      (sizeof(int) + sizeof(float));
-  const dim3 grid((R + kQueryTile - 1) / kQueryTile, BN);
-  msda_forward_kernel<T><<<grid, threads, smem, stream>>>(
-      static_cast<const T*>(value), static_cast<const float*>(loc),
-      static_cast<const float*>(attn), static_cast<const int64_t*>(index),
-      static_cast<T*>(out), S, Q, R, heads, hd, L, P, lv);
-  return cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------
-// Backward: the per-sample kernel (grad_loc, grad_attn) and the tile
-// kernels (grad_value), described in the head note.
-
-constexpr int kBwdWarps = 8;          // warps per block of the per-sample kernel
-constexpr int kGroup = 8;             // lanes per sample, 4 channels each
-constexpr int kTileThreads = 256;     // threads per grad_value tile block
-constexpr int kTileBytes = 64 * 1024; // fp32 accumulators of one tile
-constexpr int kMinTiles = 16;         // row bands a level is cut into, at least
-constexpr int kScanThreads = 1024;
 
 // Channels [c, c + n) of a row, n <= 4, as floats (0 past n): one 8-byte
 // (bf16) or 16-byte (fp32) load when vec and n == 4.
@@ -253,6 +144,206 @@ __device__ __forceinline__ void store4(T* __restrict__ p, const float* v,
   }
 }
 
+// Level l's size and first pixel, selected with constant indices: a
+// runtime index into the kernel's parameter struct would copy the struct
+// into every thread's local memory.
+__device__ __forceinline__ void level_of(const Levels& lv, int l, int& H,
+                                         int& W, int& start) {
+  H = lv.h[0];
+  W = lv.w[0];
+  start = lv.start[0];
+#pragma unroll
+  for (int m = 1; m < kMaxLevels; ++m) {
+    if (m == l) {
+      H = lv.h[m];
+      W = lv.w[m];
+      start = lv.start[m];
+    }
+  }
+}
+
+// A sample at (lx, ly) in [0, 1] of level l: the level's size and first
+// pixel in the value map, the top-left pixel (x0, y0) of the 2 x 2 it
+// reads at pixel position (lx * W - 0.5, ly * H - 0.5), and its position
+// (fx, fy) within that pixel. The forward and the backward's per-sample
+// kernel both sample through sample_at and corner, so they read the same
+// corners with the same weights.
+struct Sample {
+  int H, W, start, x0, y0;
+  float fx, fy;
+};
+
+// Returns false for a sample that touches no pixel: outside (-1, W) x
+// (-1, H), NaN included (the comparisons are written so that NaN and
+// far-away samples fail them). H and W are set either way.
+__device__ __forceinline__ bool sample_at(const Levels& lv, int l, float lx,
+                                          float ly, Sample& s) {
+  level_of(lv, l, s.H, s.W, s.start);
+  const float x = lx * s.W - 0.5f, y = ly * s.H - 0.5f;
+  if (!(x > -1.f && x < static_cast<float>(s.W) && y > -1.f &&
+        y < static_cast<float>(s.H)))
+    return false;
+  const float x0f = floorf(x), y0f = floorf(y);
+  s.x0 = static_cast<int>(x0f);
+  s.y0 = static_cast<int>(y0f);
+  s.fx = x - x0f;
+  s.fy = y - y0f;
+  return true;
+}
+
+// Corner k = (dy, dx) = (k >> 1, k & 1) of a sample: its pixel in the value
+// map, -1 outside the level, and its bilinear weight, 0 outside.
+__device__ __forceinline__ void corner(const Sample& s, int k, int& pix,
+                                       float& w) {
+  const int dy = k >> 1, dx = k & 1;
+  const int yy = s.y0 + dy, xx = s.x0 + dx;
+  const bool ok = yy >= 0 && yy < s.H && xx >= 0 && xx < s.W;
+  const float wy = dy ? s.fy : 1.f - s.fy, wx = dx ? s.fx : 1.f - s.fx;
+  w = ok ? wy * wx : 0.f;
+  pix = ok ? s.start + yy * s.W + xx : -1;
+}
+
+// store4 for values held in registers (unrolled, so they stay there).
+template <typename T>
+__device__ __forceinline__ void store4_regs(T* __restrict__ p,
+                                            const float (&v)[4], int n,
+                                            bool vec) {
+  if (vec && n == 4) {
+    if constexpr (std::is_same<T, float>::value) {
+      *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+    } else {
+      __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+      __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+      uint2 u;
+      u.x = *reinterpret_cast<const unsigned*>(&lo);
+      u.y = *reinterpret_cast<const unsigned*>(&hi);
+      *reinterpret_cast<uint2*>(p) = u;
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (e < n) p[e] = from_float<T>(v[e]);
+  }
+}
+
+// Forward. A warp takes one (bn, row, head), its 4 groups of 8 lanes a
+// lane 4 channels of the head (c = 4j, 4j + 32, ...: one 8-byte bf16 /
+// 16-byte fp32 load a corner row). The head's samples go 8 at a time, a
+// lane per corner: each lane places its sample on its level and computes
+// its corner in registers (no shared-memory phase, no barrier), with attn
+// folded into the weight. A ballot of the corners whose weight is not 0 (samples
+// outside the image or switched off by the projection mask have none)
+// lists the ones to load; the groups take them in order, one each a
+// step, the corner's pixel and weight fetched from its lane by shuffles. So every lane runs the same
+// instructions and loads only what adds to the sum. Two xor shuffles add
+// the 4 groups' sums; group 0 writes the head's channels, one vector store
+// a lane. The gathers are latency-bound: each group loads one corner a
+// step, and a register cap of 6 blocks an SM (42 registers) keeps 48 warps
+// in flight (on an H100, 2 or 4 corners a step, or a cap of 4 blocks, ran
+// no faster).
+constexpr int kFwdWarps = 8;
+constexpr int kFwdMinBlocks = 6;
+
+template <typename T>
+__global__ void __launch_bounds__(kFwdWarps * 32, kFwdMinBlocks)
+msda_forward_kernel(const T* __restrict__ value,        // (BN, S, heads, hd)
+                    const float* __restrict__ loc,      // (BN, Q, heads, L, P, 2)
+                    const float* __restrict__ attn,     // (BN, Q, heads, L, P)
+                    const int64_t* __restrict__ index,  // (BN, R) or nullptr
+                    T* __restrict__ out,                // (BN, R, heads * hd)
+                    int BN, int S, int Q, int R, int heads, int hd, int L,
+                    int P, Levels lv, bool vec) {
+  const int lane = threadIdx.x & 31, grp = lane >> 3, j = lane & (kGroup - 1);
+  const int64_t item =
+      static_cast<int64_t>(blockIdx.x) * kFwdWarps + (threadIdx.x >> 5);
+  if (item >= static_cast<int64_t>(BN) * R * heads) return;  // warp-uniform
+  const int h = static_cast<int>(item % heads);
+  const int64_t br = item / heads;  // bn * R + r
+  const int bn = static_cast<int>(br / R);
+  const int64_t q = index ? index[br] : (br - static_cast<int64_t>(bn) * R);
+  const int C = heads * hd;
+  const int LP = L * P;
+  const T* vbase = value + static_cast<int64_t>(bn) * S * C + h * hd;
+  const int64_t src0 = ((static_cast<int64_t>(bn) * Q + q) * heads + h) * LP;
+
+  for (int cb = 0; cb < hd; cb += 4 * kGroup) {  // the same trips in all lanes
+    const int c0 = cb + 4 * j;
+    const int n = min(4, hd - c0);  // <= 0: a lane past the head's width
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int sb = 0; sb < LP; sb += 8) {
+      // this lane's corner: sample sb + lane / 4, corner lane % 4
+      const int sp = sb + (lane >> 2);
+      int pix = -1;
+      float aw = 0.f;
+      if (sp < LP) {
+        const int64_t src = src0 + sp;
+        const float a = attn[src];
+        Sample smp;
+        if (a != 0.f &&
+            sample_at(lv, sp / P, loc[2 * src], loc[2 * src + 1], smp)) {
+          float w;
+          corner(smp, lane & 3, pix, w);
+          aw = a * w;
+        }
+      }
+      // a NaN weight is loaded and poisons the sum, as in the plain version
+      unsigned live = __ballot_sync(0xffffffffu, pix >= 0 && aw != 0.f);
+      while (live) {  // warp-uniform
+        // group g takes the g-th corner left: every lane peels the same bits
+        int src_lane = -1;
+#pragma unroll
+        for (int g = 0; g < 4; ++g) {
+          const int bit = live ? __ffs(live) - 1 : -1;
+          live &= live - 1;
+          if (g == grp) src_lane = bit;
+        }
+        const int cp = __shfl_sync(0xffffffffu, pix, src_lane & 31);
+        const float cw = __shfl_sync(0xffffffffu, aw, src_lane & 31);
+        if (src_lane >= 0 && n > 0) {
+          float v[4];
+          load4(vbase + static_cast<int64_t>(cp) * C + c0, n, vec, v);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[e] += cw * v[e];
+        }
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      acc[e] += __shfl_xor_sync(0xffffffffu, acc[e], kGroup);
+      acc[e] += __shfl_xor_sync(0xffffffffu, acc[e], 2 * kGroup);
+    }
+    if (grp == 0 && n > 0) store4_regs(out + br * C + h * hd + c0, acc, n, vec);
+  }
+}
+
+template <typename T>
+cudaError_t launch(const void* value, const void* loc, const void* attn,
+                   const void* index, void* out, int BN, int S, int Q, int R,
+                   int heads, int hd, int L, int P, const Levels& lv,
+                   cudaStream_t stream) {
+  const bool vec = hd % 4 == 0 &&
+                   reinterpret_cast<uintptr_t>(value) % (4 * sizeof(T)) == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % (4 * sizeof(T)) == 0;
+  const int64_t items = static_cast<int64_t>(BN) * R * heads;
+  const int64_t blocks = (items + kFwdWarps - 1) / kFwdWarps;
+  msda_forward_kernel<T><<<static_cast<unsigned>(blocks), kFwdWarps * 32, 0,
+                           stream>>>(
+      static_cast<const T*>(value), static_cast<const float*>(loc),
+      static_cast<const float*>(attn), static_cast<const int64_t*>(index),
+      static_cast<T*>(out), BN, S, Q, R, heads, hd, L, P, lv, vec);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------
+// Backward: the per-sample kernel (grad_loc, grad_attn) and the tile
+// kernels (grad_value), described in the head note.
+
+constexpr int kBwdWarps = 8;          // warps per block of the per-sample kernel
+constexpr int kTileThreads = 256;     // threads per grad_value tile block
+constexpr int kTileBytes = 64 * 1024; // fp32 accumulators of one tile
+constexpr int kMinTiles = 16;         // row bands a level is cut into, at least
+constexpr int kScanThreads = 1024;
+
 // (a) grad_attn = grad_out . sample and grad_loc = attn * grad_out .
 // d sample / d(x, y) * (W, H), per sample. A warp takes one (bn, row,
 // head); its 4 groups of 8 lanes take 4 of the head's L*P samples at a
@@ -294,31 +385,24 @@ __global__ void __launch_bounds__(kBwdWarps * 32, 4) msda_sample_grad_kernel(
     bool in = false;
     const int64_t src = src0 + lp;
     if (lp < LP) {
-      const int l = lp / P;
       a = attn[src];
-      H = lv.h[l];
-      W = lv.w[l];
-      const float x = loc[2 * src] * W - 0.5f;
-      const float y = loc[2 * src + 1] * H - 0.5f;
-      // written so that NaN and far-away samples fall through to no gradient
-      in = x > -1.f && x < static_cast<float>(W) && y > -1.f &&
-           y < static_cast<float>(H);
+      // a sample that touches no pixel has no gradient
+      Sample smp;
+      in = sample_at(lv, lp / P, loc[2 * src], loc[2 * src + 1], smp);
+      H = smp.H;
+      W = smp.W;
       if (in) {
-        const float x0f = floorf(x), y0f = floorf(y);
-        const int x0 = static_cast<int>(x0f), y0 = static_cast<int>(y0f);
-        const float fx = x - x0f, fy = y - y0f;
-        int64_t rows[4];  // element offset of the corner's row, -1 outside
+        int pix[4];
         float w[4], dwx[4], dwy[4];
 #pragma unroll
         for (int k = 0; k < 4; ++k) {
+          corner(smp, k, pix[k], w[k]);
           const int dy = k >> 1, dx = k & 1;
-          const int yy = y0 + dy, xx = x0 + dx;
-          const bool ok = yy >= 0 && yy < H && xx >= 0 && xx < W;
-          const float wy = dy ? fy : 1.f - fy, wx = dx ? fx : 1.f - fx;
-          w[k] = ok ? wy * wx : 0.f;
+          const bool ok = pix[k] >= 0;
+          const float wy = dy ? smp.fy : 1.f - smp.fy;
+          const float wx = dx ? smp.fx : 1.f - smp.fx;
           dwx[k] = ok ? wy * (dx ? 1.f : -1.f) : 0.f;
           dwy[k] = ok ? wx * (dy ? 1.f : -1.f) : 0.f;
-          rows[k] = ok ? static_cast<int64_t>(lv.start[l] + yy * W + xx) * C : -1;
         }
         for (int c0 = 4 * j; c0 < hd; c0 += 4 * kGroup) {
           const int n = min(4, hd - c0);
@@ -326,8 +410,8 @@ __global__ void __launch_bounds__(kBwdWarps * 32, 4) msda_sample_grad_kernel(
           load4(go + c0, n, vec, g);
 #pragma unroll
           for (int k = 0; k < 4; ++k) {
-            if (rows[k] >= 0) {
-              load4(vbase + rows[k] + c0, n, vec, v[k]);
+            if (pix[k] >= 0) {
+              load4(vbase + static_cast<int64_t>(pix[k]) * C + c0, n, vec, v[k]);
             } else {
 #pragma unroll
               for (int e = 0; e < 4; ++e) v[k][e] = 0.f;
@@ -719,13 +803,6 @@ bool make_levels(const int* level_hw, int L, int S, Levels* lv) {
 
 extern "C" {
 
-// Largest heads * L * P the kernel takes (its shared memory stays under
-// the 48 KB a block gets without opting in).
-int msda_max_hlp() {
-  return static_cast<int>(48 * 1024 /
-                          (kQueryTile * 4 * (sizeof(int) + sizeof(float))));
-}
-
 // level_hw: host array of 2 * L ints (H_0, W_0, H_1, W_1, ...).
 // dtype: 0 = float32 values / output, 1 = bfloat16.
 // Returns the cudaError_t of the launch (0 = success).
@@ -733,8 +810,6 @@ int msda_forward(const void* value, const void* loc, const void* attn,
                  const void* index, void* out, int BN, int S, int Q, int R,
                  int heads, int hd, int L, int P, const int* level_hw,
                  int dtype, void* stream) {
-  if (heads * L * P > msda_max_hlp())
-    return static_cast<int>(cudaErrorInvalidValue);
   // empty work launches nothing; the caller skips it, so 0 means launched
   if (R == 0 || BN == 0) return static_cast<int>(cudaErrorInvalidValue);
   Levels lv;

@@ -1,4 +1,4 @@
-// K6: pillar voxelization of a point cloud, forward. Hand-written for sm_90a.
+// K6: pillar voxelization of a point cloud. Hand-written for sm_90a.
 //
 // Replaces graph_detr4d_tpu/ops/voxelize.py: `pillar_indices` (:26),
 // `pillar_center_offsets` (:77) and `pillar_scatter` (:52), the dense
@@ -7,38 +7,37 @@
 // with x along the first axis; a point that is masked out or outside the
 // range in x, y or z goes to a trash cell H*W of its own sample.
 //
-// pillar_features (kernels A and B):
-//   A. one thread per point: the cell id, floor((x - x0) * (1 / sx)) with
-//      the float32 reciprocal of the cell size (the JAX op divides by a
-//      compile-time constant, which XLA turns into that multiplication, so
-//      ids agree bit for bit at cell borders), the bound checks
-//      (z0 <= z < z1, and the mask), the augmented row
-//      [point..., x - cx, y - cy] with the pillar centre taken from the id,
-//      and the per-cell xyz sums (float64 atomics) and point counts. The
-//      trash cell's sums, which every masked point would hit, are first
-//      reduced across the warp: one atomic per warp instead of one per
-//      point on a single address;
-//   B. one thread per point: the cluster offsets xyz - sum / max(count, 1)
-//      (the sum rounded to float32 first, as the JAX op sums in float32),
-//      written into the last three columns of the augmented row.
+// pillar_features: cell ids and augmented rows, one cooperative kernel
+// (described at pillar_features_kernel). What bounds it on this card:
+// bytes (each point read, its id and its 40-byte row written; about 0.006
+// ms for 300,000 points) and, at these sizes, the host: a call launches
+// one kernel and no memset, and its caller passes the grid's geometry as
+// plain floats.
 // pillar_scatter_max (kernel C): the grid filled with -inf, then one thread
 // per (point, channel) folds its feature into its cell with a float
 // atomic max (atomicMax on the int bits for a non-negative value,
 // atomicMin on the unsigned bits for a negative one, so any float orders
 // correctly), then every cell that is still not finite is set to 0, as the
-// JAX op's `where(isfinite(out), out, 0)`.
-//
-// What bounds it on this card: bytes, and atomics where many points share
-// a pillar. Each point is read once per kernel (20 B for F = 5), its row
-// (40 B) written once; the scatter reads (P, C) features once and touches
-// the (H*W, C) grid. Consecutive threads take consecutive channels of one
-// point, so feature reads and the atomics into a cell's row coalesce, and
-// a thread whose value cannot raise the cell's current maximum skips its
-// atomic.
+// JAX op's `where(isfinite(out), out, 0)`. What bounds it: bytes, and
+// atomics where many points share a pillar: it reads (P, C) features once
+// and touches the (H*W, C) grid. Consecutive threads take consecutive
+// channels of one point, so feature reads and the atomics into a cell's
+// row coalesce, and a thread whose value cannot raise the cell's current
+// maximum skips its atomic.
+// pillar_scatter_max_backward (kernels D and E): the max's gradient, each
+// cell's gradient split evenly between the points that hold its max (D
+// counts them, E divides). Bytes again: features, ids and grad_out read,
+// the features' gradient written, with (B, H*W, C) winner counts between
+// the two passes.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+#include <algorithm>
+#include <cmath>
 #include <cstdint>
 #include <limits>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -50,53 +49,98 @@ __device__ __forceinline__ double warp_sum(double v) {
   return v;
 }
 
-__global__ void pillar_ids_kernel(
+// One record of the cell table per (sample, cell), the real cells 0 ..
+// H*W - 1 and the trash cell H*W: the sums of the x, y and z of the points
+// in the cell, and their count. A real cell sums each coordinate times 2^k
+// rounded to an integer, with integer atomics, k per axis as large as the
+// sum of P such terms allows (2^(62 - e - bits of P) for coordinates below
+// 2^e): the sums do not depend on the order the points arrive in, and
+// where every coordinate is a multiple of 2^-k (all of |x| >= 2^(23 - k),
+// at a 300,000-point cloud's x all of |x| >= 2^-14) they are the exact
+// sums, as the plain version's float64 sums of float32 coordinates are, so
+// the two round to the same float32 means. The trash cell, which takes
+// points from anywhere, sums in float64 (its s[] holds double bits).
+struct __align__(32) CellSums {
+  unsigned long long s[3];
+  unsigned count;
+  unsigned pad;
+};
+
+struct Geometry {
+  float x0, y0, z0, z1;  // the range's lower x, y and its z bounds
+  float rx, ry;          // float32 reciprocals of the cell sizes
+  float sx, sy;          // the cell sizes
+  float fix[3];          // 2^k of each axis's cell sums
+  float unfix[3];        // 2^-k
+};
+
+// The whole of pillar_features in one cooperative launch (no memset, one
+// launch from the host), in three phases between grid-wide barriers:
+//   0. zero the cell table;
+//   1. one thread per point: its cell id, floor((x - x0) * (1 / sx)) with
+//      the float32 reciprocal of the cell size (the JAX op divides by a
+//      compile-time constant, which XLA turns into that multiplication, so
+//      ids agree bit for bit at cell borders), the bound checks (z0 <= z <
+//      z1, and mask > 0), and the point's sums into its cell's record (the
+//      trash cell's reduced over the block first, see there);
+//   2. the augmented rows [point..., x - cx, y - cy, xyz - sum / max(count,
+//      1)] (the pillar centre taken from the id, each sum rounded to
+//      float32 before the division, as the plain version), a block's
+//      kThreads rows staged in shared memory and written out as one
+//      contiguous run: a thread writing its own 40-byte row would leave
+//      every store instruction of a warp spread over 40 partial sectors.
+__global__ void __launch_bounds__(kThreads) pillar_features_kernel(
     const float* __restrict__ points,  // (B, P, F)
-    const uint8_t* __restrict__ mask,  // (B, P), 1 = valid
+    const float* __restrict__ mask,    // (B, P), > 0 = valid
     int* __restrict__ ids,             // (B, P)
     float* __restrict__ aug,           // (B, P, F + 5)
-    double* __restrict__ sums,         // (B, H*W + 1, 3), zeroed
-    int* __restrict__ counts,          // (B, H*W + 1), zeroed
-    int64_t n, int P, int F, int H, int W, float x0, float y0, float z0,
-    float z1, float rx, float ry, float sx, float sy) {
+    CellSums* __restrict__ table,      // (B, H*W + 1)
+    int64_t n, int P, int F, int H, int W, Geometry g) {
+  cg::grid_group grid = cg::this_grid();
   const int hw = H * W;
-  const int lane = threadIdx.x & 31;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  // every lane of a warp runs the same number of iterations (stride and
-  // the first index of a warp are multiples of 32), so the warp reduction
-  // below sees all 32 lanes
-  for (int64_t base = static_cast<int64_t>(blockIdx.x) * blockDim.x;
-       base < n; base += stride) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
+
+  uint4* words = reinterpret_cast<uint4*>(table);
+  const int64_t n_words = (n / P) * (hw + 1) * (sizeof(CellSums) / sizeof(uint4));
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+       i < n_words; i += stride)
+    words[i] = make_uint4(0u, 0u, 0u, 0u);
+  grid.sync();
+
+  // the trash cell's partial sums of each warp of an iteration
+  __shared__ double s_trash[kThreads / 32][3];
+  __shared__ unsigned s_trash_n[kThreads / 32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  // every thread of a block runs the same number of iterations, so the
+  // reductions below see all of them
+  for (int64_t base = static_cast<int64_t>(blockIdx.x) * kThreads; base < n;
+       base += stride) {
     const int64_t i = base + threadIdx.x;
-    const bool live = i < n;
     bool trash = false;
     double tx = 0.0, ty = 0.0, tz = 0.0;
     int64_t b = 0;
-    if (live) {
+    if (i < n) {
       b = i / P;
       const float* p = points + i * F;
       const float x = p[0], y = p[1], z = p[2];
-      const float fx = floorf((x - x0) * rx);
-      const float fy = floorf((y - y0) * ry);
+      const float fx = floorf((x - g.x0) * g.rx);
+      const float fy = floorf((y - g.y0) * g.ry);
       // written with float comparisons so NaN and far-away points fail
       const bool inb = fx >= 0.f && fx < static_cast<float>(H) && fy >= 0.f &&
-                       fy < static_cast<float>(W) && z >= z0 && z < z1 &&
-                       mask[i] != 0;
+                       fy < static_cast<float>(W) && z >= g.z0 && z < g.z1 &&
+                       mask[i] > 0.f;
       const int cell = inb ? static_cast<int>(fx) * W + static_cast<int>(fy)
                            : hw;
       ids[i] = cell;
-      const float cx = x0 + (static_cast<float>(cell / W) + 0.5f) * sx;
-      const float cy = y0 + (static_cast<float>(cell % W) + 0.5f) * sy;
-      float* row = aug + i * (F + 5);
-      for (int f = 0; f < F; ++f) row[f] = p[f];
-      row[F] = x - cx;
-      row[F + 1] = y - cy;
       if (inb) {
-        double* s = sums + (b * (hw + 1) + cell) * 3;
-        atomicAdd(s, static_cast<double>(x));
-        atomicAdd(s + 1, static_cast<double>(y));
-        atomicAdd(s + 2, static_cast<double>(z));
-        atomicAdd(counts + b * (hw + 1) + cell, 1);
+        CellSums* r = table + b * (hw + 1) + cell;
+        atomicAdd(&r->s[0], static_cast<unsigned long long>(
+                                __float2ll_rn(x * g.fix[0])));
+        atomicAdd(&r->s[1], static_cast<unsigned long long>(
+                                __float2ll_rn(y * g.fix[1])));
+        atomicAdd(&r->s[2], static_cast<unsigned long long>(
+                                __float2ll_rn(z * g.fix[2])));
+        atomicAdd(&r->count, 1u);
       } else {
         trash = true;
         tx = x;
@@ -104,45 +148,85 @@ __global__ void pillar_ids_kernel(
         tz = z;
       }
     }
-    // the trash cell: one atomic per warp and sample present in the warp
-    const int64_t b_first = __shfl_sync(0xffffffffu, b, 0);
-    const bool one_sample = __all_sync(0xffffffffu, !live || b == b_first);
-    if (one_sample) {
+    // The trash cell takes points from every warp (a fifth of a real
+    // cloud: masked padding, points beyond the range): its sums are reduced
+    // over the block, one atomic per block and iteration on its address
+    // (one per warp would put ~10,000 of them on it for 300,000 points). A
+    // block across two samples adds per point.
+    const int64_t last = (base + kThreads < n ? base + kThreads : n) - 1;
+    if (base / P == last / P) {  // block-uniform
       const double sx_ = warp_sum(tx), sy_ = warp_sum(ty), sz_ = warp_sum(tz);
-      const unsigned ballot = __ballot_sync(0xffffffffu, trash);
-      if (lane == 0 && ballot != 0) {
-        double* s = sums + (b_first * (hw + 1) + hw) * 3;
-        atomicAdd(s, sx_);
-        atomicAdd(s + 1, sy_);
-        atomicAdd(s + 2, sz_);
-        atomicAdd(counts + b_first * (hw + 1) + hw, __popc(ballot));
+      const unsigned k = __popc(__ballot_sync(0xffffffffu, trash));
+      if (lane == 0) {
+        s_trash[warp][0] = sx_;
+        s_trash[warp][1] = sy_;
+        s_trash[warp][2] = sz_;
+        s_trash_n[warp] = k;
       }
-    } else if (trash) {  // a warp across two samples: per point
-      double* s = sums + (b * (hw + 1) + hw) * 3;
+      __syncthreads();
+      if (threadIdx.x == 0) {
+        double a = 0.0, c = 0.0, d = 0.0;
+        unsigned m = 0;
+        for (int w = 0; w < kThreads / 32; ++w) {
+          a += s_trash[w][0];
+          c += s_trash[w][1];
+          d += s_trash[w][2];
+          m += s_trash_n[w];
+        }
+        if (m != 0) {
+          CellSums* r = table + (base / P) * (hw + 1) + hw;
+          double* s = reinterpret_cast<double*>(r->s);
+          atomicAdd(s, a);
+          atomicAdd(s + 1, c);
+          atomicAdd(s + 2, d);
+          atomicAdd(&r->count, m);
+        }
+      }
+      __syncthreads();  // s_trash is read before the next iteration's writes
+    } else if (trash) {
+      CellSums* r = table + b * (hw + 1) + hw;
+      double* s = reinterpret_cast<double*>(r->s);
       atomicAdd(s, tx);
       atomicAdd(s + 1, ty);
       atomicAdd(s + 2, tz);
-      atomicAdd(counts + b * (hw + 1) + hw, 1);
+      atomicAdd(&r->count, 1u);
     }
   }
-}
+  grid.sync();
 
-__global__ void pillar_cluster_kernel(const float* __restrict__ points,
-                                      const int* __restrict__ ids,
-                                      const double* __restrict__ sums,
-                                      const int* __restrict__ counts,
-                                      float* __restrict__ aug, int64_t n,
-                                      int P, int F, int hw) {
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < n; i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    const int64_t seg = (i / P) * (hw + 1) + ids[i];
-    const float c = fmaxf(static_cast<float>(counts[seg]), 1.f);
-    const float* p = points + i * F;
-    float* row = aug + i * (F + 5) + F + 2;
+  extern __shared__ float s_rows[];  // [kThreads][F + 5]
+  const int row = F + 5;
+  for (int64_t t0 = static_cast<int64_t>(blockIdx.x) * kThreads; t0 < n;
+       t0 += stride) {  // the same trip count in every thread of a block
+    const int64_t i = t0 + threadIdx.x;
+    if (i < n) {
+      const float* p = points + i * F;
+      const int cell = ids[i];
+      const CellSums r = table[(i / P) * (hw + 1) + cell];
+      const float c = fmaxf(static_cast<float>(r.count), 1.f);
+      float* o = s_rows + threadIdx.x * row;
+      for (int f = 0; f < F; ++f) o[f] = p[f];
+      // no fused multiply-add: the plain version rounds each step
+      const float cx = __fadd_rn(
+          g.x0, __fmul_rn(__fadd_rn(static_cast<float>(cell / W), 0.5f), g.sx));
+      const float cy = __fadd_rn(
+          g.y0, __fmul_rn(__fadd_rn(static_cast<float>(cell % W), 0.5f), g.sy));
+      o[F] = p[0] - cx;
+      o[F + 1] = p[1] - cy;
 #pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      row[k] = p[k] - static_cast<float>(sums[seg * 3 + k]) / c;
+      for (int k = 0; k < 3; ++k) {
+        const double sum =
+            cell < hw ? static_cast<double>(static_cast<long long>(r.s[k])) *
+                            static_cast<double>(g.unfix[k])
+                      : __longlong_as_double(static_cast<long long>(r.s[k]));
+        o[F + 2 + k] = p[k] - static_cast<float>(sum) / c;
+      }
     }
+    __syncthreads();
+    const int64_t m = min(static_cast<int64_t>(kThreads), n - t0) * row;
+    float* dst = aug + t0 * row;
+    for (int64_t e = threadIdx.x; e < m; e += kThreads) dst[e] = s_rows[e];
+    __syncthreads();
   }
 }
 
@@ -184,6 +268,127 @@ __global__ void zero_nonfinite_kernel(float* __restrict__ out, int64_t n) {
   }
 }
 
+// Set in a cell's winner count when one of its values is NaN or +inf: its
+// max then was not finite, the forward wrote 0 there, and the cell passes
+// no gradient.
+constexpr unsigned kNonFinite = 0x80000000u;
+constexpr int kWarps = kThreads / 32;
+
+// The backward's layout: a warp takes 32 consecutive points, a lane per
+// channel (c = lane, lane + 32, ...). Lane t first finds point t's cell
+// row (one coalesced id load and one division per point), then the warp
+// goes through the points kPointUnroll at a time, their loads all issued
+// before any use: the gathers of a point's cell row are latency-bound.
+constexpr int kPointUnroll = 4;
+
+// Offset of the cell row of point p0 + lane in a (B, hw, C) grid: -1 for
+// the trash cell, -2 past the last point.
+__device__ __forceinline__ int64_t cell_row(const int* __restrict__ ids,
+                                            int64_t p0, int64_t n_pts, int P,
+                                            int C, int hw) {
+  const int64_t pt = p0 + (threadIdx.x & 31);
+  if (pt >= n_pts) return -2;
+  const int cell = ids[pt];
+  return cell < hw ? ((pt / P) * hw + cell) * C : -1;
+}
+
+// Backward, pass 1 (kernel D): per (cell, channel), the number of points
+// whose value equals the forward's max (ties after relu are common: every
+// point of a cell that is 0 in a channel), or kNonFinite; and per point a
+// bit mask of the channels it won, so that pass 2 reads neither the
+// features nor the max again. A cell whose max is not finite holds 0 in
+// `out`, so a finite 0 there would count as a winner: the flag voids it (a
+// -inf value raises no flag: it makes the max -inf only if every value is
+// -inf, and then no finite value can win).
+__global__ void scatter_max_count_kernel(const float* __restrict__ feats,
+                                         const int* __restrict__ ids,
+                                         const float* __restrict__ out,
+                                         unsigned* __restrict__ wins,
+                                         unsigned* __restrict__ masks,
+                                         int64_t n_pts, int P, int C, int hw) {
+  const int lane = threadIdx.x & 31, words = (C + 31) / 32;
+  const int64_t step = static_cast<int64_t>(gridDim.x) * kWarps * 32;
+  for (int64_t p0 = (static_cast<int64_t>(blockIdx.x) * kWarps + (threadIdx.x >> 5)) * 32;
+       p0 < n_pts; p0 += step) {
+    const int64_t my_row = cell_row(ids, p0, n_pts, P, C, hw);
+    for (int t = 0; t < 32; t += kPointUnroll) {
+      int64_t row[kPointUnroll];
+#pragma unroll
+      for (int u = 0; u < kPointUnroll; ++u)
+        row[u] = __shfl_sync(0xffffffffu, my_row, t + u);
+      for (int w = 0; w < words; ++w) {
+        const int c = 32 * w + lane;
+        float v[kPointUnroll], o[kPointUnroll];
+#pragma unroll
+        for (int u = 0; u < kPointUnroll; ++u) {
+          const bool live = row[u] >= 0 && c < C;
+          v[u] = live ? feats[(p0 + t + u) * C + c] : 0.f;
+          o[u] = live ? out[row[u] + c] : 1.f;
+        }
+#pragma unroll
+        for (int u = 0; u < kPointUnroll; ++u) {
+          bool win = false;
+          if (row[u] >= 0 && c < C) {
+            if (isnan(v[u]) || (isinf(v[u]) && v[u] > 0.f)) {
+              atomicOr(wins + row[u] + c, kNonFinite);
+            } else if (v[u] == o[u]) {
+              atomicAdd(wins + row[u] + c, 1u);
+              win = true;
+            }
+          }
+          const unsigned m = __ballot_sync(0xffffffffu, win);
+          if (lane == 0 && row[u] != -2) masks[(p0 + t + u) * words + w] = m;
+        }
+      }
+    }
+  }
+}
+
+// Backward, pass 2 (kernel E): grad_feats = grad_out[cell] / winners where
+// the point won its cell's max, else 0 (trash points, losers, cells whose
+// max was not finite): the vector-Jacobian product of segment_max, ties
+// split evenly, as jax.vjp of the JAX op and autograd of scatter_reduce_
+// 'amax' give it. Laid out as pass 1.
+__global__ void scatter_max_grad_kernel(const int* __restrict__ ids,
+                                        const unsigned* __restrict__ wins,
+                                        const unsigned* __restrict__ masks,
+                                        const float* __restrict__ grad_out,
+                                        float* __restrict__ grad_feats,
+                                        int64_t n_pts, int P, int C, int hw) {
+  const int lane = threadIdx.x & 31, words = (C + 31) / 32;
+  const int64_t step = static_cast<int64_t>(gridDim.x) * kWarps * 32;
+  for (int64_t p0 = (static_cast<int64_t>(blockIdx.x) * kWarps + (threadIdx.x >> 5)) * 32;
+       p0 < n_pts; p0 += step) {
+    const int64_t my_row = cell_row(ids, p0, n_pts, P, C, hw);
+    for (int t = 0; t < 32; t += kPointUnroll) {
+      int64_t row[kPointUnroll];
+#pragma unroll
+      for (int u = 0; u < kPointUnroll; ++u)
+        row[u] = __shfl_sync(0xffffffffu, my_row, t + u);
+      for (int w = 0; w < words; ++w) {
+        const int c = 32 * w + lane;
+        unsigned k[kPointUnroll];
+        float g[kPointUnroll];
+#pragma unroll
+        for (int u = 0; u < kPointUnroll; ++u) {
+          // only a live point wins: its row is >= 0
+          const bool won = row[u] >= 0 &&
+                           ((masks[(p0 + t + u) * words + w] >> lane) & 1u);
+          k[u] = won ? wins[row[u] + c] : kNonFinite;
+          g[u] = won ? grad_out[row[u] + c] : 0.f;
+        }
+#pragma unroll
+        for (int u = 0; u < kPointUnroll; ++u) {
+          if (row[u] != -2 && c < C) {
+            grad_feats[(p0 + t + u) * C + c] =
+                k[u] & kNonFinite ? 0.f : g[u] / static_cast<float>(k[u]);
+          }
+        }
+      }
+    }
+  }
+}
+
 unsigned blocks_for(int64_t n) {
   const int64_t b = (n + kThreads - 1) / kThreads;
   return static_cast<unsigned>(b < (int64_t{1} << 20) ? b : (int64_t{1} << 20));
@@ -193,36 +398,64 @@ unsigned blocks_for(int64_t n) {
 
 extern "C" {
 
-// Kernels A and B. points (B, P, F) float32, F >= 3; mask (B, P) uint8;
-// ids (B, P) int32 and aug (B, P, F + 5) float32 are written; sums
-// (B, H*W + 1, 3) float64 and counts (B, H*W + 1) int32 are scratch, zeroed
-// here. rx, ry are the float32 reciprocals of the cell sizes sx, sy.
-// Returns the cudaError_t of the launches (0 = success).
+// pillar_features. points (B, P, F) float32 with 3 <= F <= 42 (a block's
+// rows of F + 5 floats are staged in shared memory, within the 48 KB a
+// block gets without opting in); mask (B, P)
+// float32, > 0 = valid; ids (B, P) int32 and aug (B, P, F + 5) float32 are
+// written; table is scratch of (B, H*W + 1) 32-byte records, zeroed here.
+// rx, ry are the float32 reciprocals of the cell sizes sx, sy; every
+// in-range x, y and z has a magnitude below 2^ex, 2^ey and 2^ez. One
+// cooperative launch, at most as many blocks as fit on the card at once.
+// Returns the cudaError_t of the launch (0 = success).
 int pillar_features(const void* points, const void* mask, void* ids,
-                    void* aug, void* sums, void* counts, int B, int P, int F,
-                    int H, int W, float x0, float y0, float z0, float z1,
-                    float rx, float ry, float sx, float sy, void* stream) {
-  const int64_t n = static_cast<int64_t>(B) * P;
+                    void* aug, void* table, int B, int P, int F, int H,
+                    int W, float x0, float y0, float z0, float z1, float rx,
+                    float ry, float sx, float sy, int ex, int ey, int ez,
+                    void* stream) {
+  int64_t n = static_cast<int64_t>(B) * P;
   // empty work launches nothing; the caller skips it, so 0 means launched
-  if (n == 0 || F < 3 || H <= 0 || W <= 0)
+  if (n == 0 || F < 3 || F > 42 || H <= 0 || W <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int64_t segs = static_cast<int64_t>(B) * (H * W + 1);
-  cudaError_t err = cudaMemsetAsync(sums, 0, sizeof(double) * 3 * segs, s);
-  if (err == cudaSuccess) err = cudaMemsetAsync(counts, 0, sizeof(int) * segs, s);
+  const size_t smem = sizeof(float) * kThreads * (F + 5);
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
-  pillar_ids_kernel<<<blocks_for(n), kThreads, 0, s>>>(
-      static_cast<const float*>(points), static_cast<const uint8_t*>(mask),
-      static_cast<int*>(ids), static_cast<float*>(aug),
-      static_cast<double*>(sums), static_cast<int*>(counts), n, P, F, H, W,
-      x0, y0, z0, z1, rx, ry, sx, sy);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  pillar_cluster_kernel<<<blocks_for(n), kThreads, 0, s>>>(
-      static_cast<const float*>(points), static_cast<const int*>(ids),
-      static_cast<const double*>(sums), static_cast<const int*>(counts),
-      static_cast<float*>(aug), n, P, F, H * W);
-  return static_cast<int>(cudaGetLastError());
+  // the most blocks that fit at once, per device and row width
+  static int cached_dev = -1, cached_f = -1, cached_blocks = 0;
+  if (dev != cached_dev || F != cached_f) {
+    int per_sm = 0, sms = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, pillar_features_kernel, kThreads, smem);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    cached_blocks = per_sm * sms;
+    cached_dev = dev;
+    cached_f = F;
+  }
+  const int64_t want = (n + kThreads - 1) / kThreads;
+  const unsigned blocks = static_cast<unsigned>(
+      want < cached_blocks ? want : cached_blocks);
+  if (blocks == 0) return static_cast<int>(cudaErrorInvalidConfiguration);
+  // each point's term below 2^(62 - bits of P): P of them sum below 2^62
+  int bits = 0;
+  while ((P >> bits) != 0) ++bits;
+  const int e[3] = {ex, ey, ez};
+  Geometry g{x0, y0, z0, z1, rx, ry, sx, sy, {}, {}};
+  for (int k = 0; k < 3; ++k) {
+    const int scale = std::min(62 - bits - e[k], 100);
+    g.fix[k] = ldexpf(1.f, scale);
+    g.unfix[k] = ldexpf(1.f, -scale);
+  }
+  const float* pts = static_cast<const float*>(points);
+  const float* msk = static_cast<const float*>(mask);
+  int* id = static_cast<int*>(ids);
+  float* rows = static_cast<float*>(aug);
+  CellSums* tab = static_cast<CellSums*>(table);
+  void* args[] = {&pts, &msk, &id, &rows, &tab, &n, &P, &F, &H, &W, &g};
+  return static_cast<int>(cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(pillar_features_kernel), blocks, kThreads,
+      args, smem, static_cast<cudaStream_t>(stream)));
 }
 
 // Kernel C. feats (B, P, C) float32, ids (B, P) int32 in [0, hw] (hw =
@@ -247,6 +480,38 @@ int pillar_scatter_max(const void* feats, const void* ids, void* out, int B,
   }
   zero_nonfinite_kernel<<<blocks_for(cells), kThreads, 0, s>>>(
       static_cast<float*>(out), cells);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Gradient of pillar_scatter_max for feats. feats (B, P, C) float32, ids
+// (B, P) int32, out (B, hw, C) float32 the forward's result for them,
+// grad_out (B, hw, C) float32; grad_feats (B, P, C) float32 is fully
+// written; scratch: B * hw * C + B * P * ceil(C / 32) uint32 (the winner
+// counts, zeroed here, then the winner masks). Returns the cudaError_t of
+// the launches.
+int pillar_scatter_max_backward(const void* feats, const void* ids,
+                                const void* out, const void* grad_out,
+                                void* grad_feats, void* scratch, int B, int P,
+                                int C, int hw, void* stream) {
+  const int64_t n_pts = static_cast<int64_t>(B) * P;
+  const int64_t cells = static_cast<int64_t>(B) * hw * C;
+  if (n_pts == 0 || C == 0 || cells == 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  unsigned* wins = static_cast<unsigned*>(scratch);
+  unsigned* masks = wins + cells;
+  cudaError_t err = cudaMemsetAsync(wins, 0, sizeof(unsigned) * cells, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned blocks = blocks_for(n_pts);  // a warp per 32 points
+  scatter_max_count_kernel<<<blocks, kThreads, 0, s>>>(
+      static_cast<const float*>(feats), static_cast<const int*>(ids),
+      static_cast<const float*>(out), wins, masks, n_pts, P, C, hw);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  scatter_max_grad_kernel<<<blocks, kThreads, 0, s>>>(
+      static_cast<const int*>(ids), wins, masks,
+      static_cast<const float*>(grad_out), static_cast<float*>(grad_feats),
+      n_pts, P, C, hw);
   return static_cast<int>(cudaGetLastError());
 }
 

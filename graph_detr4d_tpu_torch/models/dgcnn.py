@@ -51,6 +51,13 @@ def knn_farthest(x: torch.Tensor, k: int) -> torch.Tensor:
     return torch.topk(d2, k, dim=-1).indices
 
 
+def neighbour_max(y: torch.Tensor) -> torch.Tensor:
+    """(B, N, k, C) -> (B, N, C), the max over the k neighbours: a choice of
+    one neighbour per channel, as discontinuous as knn_farthest's, so a
+    comparison of two numerically different routes can hold it fixed."""
+    return y.amax(dim=2)
+
+
 class DGCNNAttn(nn.Module):
     """k-NN graph self-attention (dgcnn_attn.py:9-96): two edge convs
     (Linear over [neighbour, centre] + frozen BN + relu, max over the k
@@ -76,7 +83,7 @@ class DGCNNAttn(nn.Module):
         ctr = F.linear(x, w[:, C:])
         rows = torch.arange(B, device=x.device)[:, None, None]
         y = nb[rows, idx] + ctr[:, :, None]  # (B, N, k, C_out)
-        return F.relu(bn(y)).amax(dim=2)
+        return neighbour_max(F.relu(bn(y)))
 
     def forward(self, query, query_pos=None):
         x = query if query_pos is None else query + query_pos

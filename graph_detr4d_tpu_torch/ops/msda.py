@@ -53,8 +53,6 @@ def _lib():
         ctypes.c_void_p,
     ]
     lib.msda_backward.restype = ctypes.c_int
-    lib.msda_max_hlp.argtypes = []
-    lib.msda_max_hlp.restype = ctypes.c_int
     return lib
 
 
@@ -157,20 +155,14 @@ def _level_hw(spatial_shapes):
 def _launch_forward(value, spatial_shapes, loc, attn, index):
     global launches
     _contiguous(value=value, loc=loc, attn=attn, index=index)
-    lib = _lib()
     BN, S, heads, hd = value.shape
     Q, L, P = loc.shape[1], loc.shape[3], loc.shape[4]
-    if heads * L * P > lib.msda_max_hlp():
-        raise ValueError(
-            f"msda: heads*L*P = {heads * L * P} exceeds the kernel's "
-            f"{lib.msda_max_hlp()}"
-        )
     R = Q if index is None else index.shape[1]
     out = torch.empty(BN, R, heads * hd, dtype=value.dtype,
                       device=value.device)
     if out.numel() == 0:  # nothing to launch
         return out
-    err = lib.msda_forward(
+    err = _lib().msda_forward(
         value.data_ptr(), loc.data_ptr(), attn.data_ptr(),
         None if index is None else index.data_ptr(), out.data_ptr(),
         BN, S, Q, R, heads, hd, L, P, _level_hw(spatial_shapes),

@@ -1,4 +1,4 @@
-"""K6: pillar voxelization of a point cloud, forward.
+"""K6: pillar voxelization of a point cloud.
 
 Counterpart of graph_detr4d_tpu/ops/voxelize.py (`pillar_indices`,
 `pillar_center_offsets`, `pillar_scatter`): the dense PointPillars scatter
@@ -8,43 +8,58 @@ Every point gets a flat BEV cell id, x along the grid's first axis; a
 point that is masked out or outside the range in x, y or z goes to a trash
 cell H*W that contributes to no real pillar.
 
-Two launch sites, each with a plain PyTorch version for CPU tensors:
-  * `pillar_features` (kernels A and B of `csrc/voxelize.cu`): cell ids
-    and the augmented point rows [point..., dx_c, dy_c, dx_m, dy_m, dz_m],
-    offsets from the pillar's centre and from the mean xyz of the points
-    sharing it;
+Three launch sites, each with a plain PyTorch version for CPU tensors:
+  * `pillar_features` (one cooperative kernel of `csrc/voxelize.cu`):
+    cell ids and the augmented point rows [point..., dx_c, dy_c, dx_m,
+    dy_m, dz_m], offsets from the pillar's centre and from the mean xyz of
+    the points sharing it (the kernel sums a cell's coordinates as exact
+    integers, so its rows do not depend on the points' order);
   * `pillar_scatter` (kernel C): the per-cell max of per-point features,
     as a dense (B, H, W, C) grid with empty cells 0 (the JAX op's
-    `reduce="max"`, the only reduction a model path uses).
+    `reduce="max"`, the only reduction a model path uses), differentiable
+    in the features;
+  * `pillar_scatter_backward` (kernels D and E): that max's gradient, the
+    backward of `pillar_scatter`'s autograd Function.
 
-Batched over a leading sample axis (the JAX op's vmap). Not
-differentiable (the LiDAR branch serves; its training is a later step).
+Batched over a leading sample axis (the JAX op's vmap). On CUDA tensors
+`pillar_features` has no backward and raises when asked for one (the plain
+version differentiates the rows in the points; no model path needs it).
 """
 
 import ctypes
 import functools
+import math
 from typing import Sequence, Tuple
 
 import torch
 
 from . import build
 
-# kernel launches made by pillar_features and pillar_scatter (plain ints;
-# chip_smoke.py resets them before driving the main path and reads them
-# after)
+# kernel launches made by pillar_features, pillar_scatter and
+# pillar_scatter_backward (plain ints; chip_smoke.py resets them before
+# driving the main path and reads them after)
 launches = 0
 scatter_launches = 0
+scatter_backward_launches = 0
+
+# the widest point row pillar_features' kernel takes: it stages a block's
+# 256 rows of F + 5 floats in shared memory, within the 48 KB a block gets
+# without opting in
+MAX_FEATURES = 42
 
 
 @functools.cache
 def _lib():
     lib = build.load("voxelize")
-    lib.pillar_features.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
-        ctypes.c_float] * 8 + [ctypes.c_void_p]
+    lib.pillar_features.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
+        ctypes.c_float] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     lib.pillar_features.restype = ctypes.c_int
     lib.pillar_scatter_max.argtypes = [ctypes.c_void_p] * 3 + [
         ctypes.c_int] * 4 + [ctypes.c_void_p]
     lib.pillar_scatter_max.restype = ctypes.c_int
+    lib.pillar_scatter_max_backward.argtypes = [ctypes.c_void_p] * 6 + [
+        ctypes.c_int] * 4 + [ctypes.c_void_p]
+    lib.pillar_scatter_max_backward.restype = ctypes.c_int
     return lib
 
 
@@ -62,6 +77,25 @@ def _geometry(pc_range, grid_hw, device):
     one = f32(1.0)
     return (f32(pc_range[0]), f32(pc_range[1]), f32(pc_range[2]),
             f32(pc_range[5]), f32(sx), f32(sy), one / f32(sx), one / f32(sy))
+
+
+@functools.lru_cache(maxsize=16)
+def _kernel_geometry(pc_range, grid_hw):
+    """pillar_features' scalar arguments for a grid: the float32 values of
+    `_geometry` in the kernel's order (x0, y0, z0, z1, rx, ry, sx, sy), as
+    Python floats, then for x, y and z the exponent e with every in-range
+    coordinate's magnitude below 2^e (the kernel scales the axis into its
+    exact integer cell sums by 2^(62 - e - bits of P))."""
+    H, W = grid_hw
+    x0, y0, z0, z1, sx, sy, rx, ry = (
+        t.item() for t in _geometry(pc_range, grid_hw, "cpu"))
+
+    def exponent(lo, hi):
+        return math.ceil(math.log2(max(abs(lo), abs(hi), 2.0 ** -30)))
+
+    return (x0, y0, z0, z1, rx, ry, sx, sy,
+            exponent(x0, x0 + (H + 1) * sx), exponent(y0, y0 + (W + 1) * sy),
+            exponent(z0, z1))
 
 
 def pillar_indices_plain(points, mask, pc_range, grid_hw):
@@ -90,7 +124,8 @@ def pillar_center_offsets_plain(points, ids, pc_range, grid_hw):
     """[points..., dx_c, dy_c, dx_m, dy_m, dz_m] (B, P, F + 5): offsets
     from the pillar's geometric centre (taken from the id, so trash points
     get them too) and from the mean xyz of the points sharing the cell
-    (float64 sums, rounded to float32 before the division, as the kernel)."""
+    (float64 sums, rounded to float32 before the division: the kernel's
+    exact integer sums round to the same float32)."""
     H, W = grid_hw
     x0, y0, _, _, sx, sy, _, _ = _geometry(pc_range, grid_hw, points.device)
     ix, iy = ids // W, ids % W
@@ -149,22 +184,29 @@ def pillar_features(
         return pillar_features_plain(points, mask, pc_range, grid_hw)
     if points.device.type != "cuda":
         raise ValueError(f"voxelize: unsupported device {points.device}")
+    if torch.is_grad_enabled() and points.requires_grad:
+        raise RuntimeError(
+            "voxelize: pillar_features' CUDA kernel has no backward; call it "
+            "under torch.no_grad() or on detached points "
+            "(pillar_features_plain differentiates)")
     H, W = grid_hw
     B, P, F = points.shape
+    if F > MAX_FEATURES:
+        raise ValueError(f"voxelize: the kernel takes at most {MAX_FEATURES} "
+                         f"features a point, got {F}")
     points = points.contiguous()
-    valid = (mask > 0).to(torch.uint8).contiguous()
+    # the kernel reads float32 and tests > 0 itself
+    mask = (mask if mask.dtype == torch.float32 else (mask > 0).float()).contiguous()
     ids = torch.empty(B, P, dtype=torch.int32, device=points.device)
     aug = torch.empty(B, P, F + 5, dtype=torch.float32, device=points.device)
     if ids.numel() == 0:  # nothing to launch
         return ids, aug
-    sums = torch.empty(B, H * W + 1, 3, dtype=torch.float64, device=points.device)
-    counts = torch.empty(B, H * W + 1, dtype=torch.int32, device=points.device)
-    geo = [t.item() for t in _geometry(pc_range, grid_hw, "cpu")]
-    x0, y0, z0, z1, sx, sy, rx, ry = geo
+    # the kernel's cell table: (B, H*W + 1) records of 32 bytes
+    table = torch.empty(B, H * W + 1, 4, dtype=torch.int64, device=points.device)
     err = _lib().pillar_features(
-        points.data_ptr(), valid.data_ptr(), ids.data_ptr(), aug.data_ptr(),
-        sums.data_ptr(), counts.data_ptr(), B, P, F, H, W,
-        x0, y0, z0, z1, rx, ry, sx, sy,
+        points.data_ptr(), mask.data_ptr(), ids.data_ptr(), aug.data_ptr(),
+        table.data_ptr(), B, P, F, H, W,
+        *_kernel_geometry(tuple(pc_range), (H, W)),
         torch.cuda.current_stream(points.device).cuda_stream,
     )
     if err != 0:
@@ -188,12 +230,26 @@ def pillar_scatter_plain(feats, ids, grid_hw):
     return out.view(B, n, C)[:, : H * W].reshape(B, H, W, C)
 
 
+def _check_scatter(feats, ids):
+    if feats.dtype != torch.float32 or ids.dtype != torch.int32:
+        raise TypeError("voxelize: feats must be float32 and ids int32")
+    if feats.dim() != 3 or tuple(ids.shape) != tuple(feats.shape[:2]):
+        raise ValueError(f"voxelize: feats {tuple(feats.shape)} and ids "
+                         f"{tuple(ids.shape)} do not match")
+    if ids.device != feats.device:
+        raise ValueError("voxelize: all tensors must be on one device")
+    if feats.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"voxelize: unsupported device {feats.device}")
+
+
 def pillar_scatter(
     feats: torch.Tensor,
     ids: torch.Tensor,
     grid_hw: Tuple[int, int],
 ) -> torch.Tensor:
-    """Per-cell max of point features into a dense BEV grid.
+    """Per-cell max of point features into a dense BEV grid, differentiable
+    in feats (each cell's gradient goes to the points that hold its max,
+    split evenly between ties; cells whose max is not finite pass none).
 
     Args:
       feats: (B, P, C) float32.
@@ -203,28 +259,81 @@ def pillar_scatter(
     Returns (B, H, W, C) float32; cells no point reaches, and cells whose
     maximum is not finite, are 0.
     """
-    global scatter_launches
-    if feats.dtype != torch.float32 or ids.dtype != torch.int32:
-        raise TypeError("voxelize: feats must be float32 and ids int32")
-    if feats.dim() != 3 or tuple(ids.shape) != tuple(feats.shape[:2]):
-        raise ValueError(f"voxelize: feats {tuple(feats.shape)} and ids "
-                         f"{tuple(ids.shape)} do not match")
-    if ids.device != feats.device:
-        raise ValueError("voxelize: all tensors must be on one device")
+    _check_scatter(feats, ids)
     if feats.device.type == "cpu":
         return pillar_scatter_plain(feats, ids, grid_hw)
-    if feats.device.type != "cuda":
-        raise ValueError(f"voxelize: unsupported device {feats.device}")
+    return _PillarScatterFunction.apply(feats, ids, tuple(grid_hw))
+
+
+class _PillarScatterFunction(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, feats, ids, grid_hw):
+        global scatter_launches
+        H, W = grid_hw
+        B, P, C = feats.shape
+        feats, ids = feats.contiguous(), ids.contiguous()
+        out = torch.empty(B, H, W, C, dtype=torch.float32, device=feats.device)
+        ctx.save_for_backward(feats, ids, out)
+        ctx.grid_hw = grid_hw
+        if out.numel() == 0:  # nothing to launch
+            return out
+        err = _lib().pillar_scatter_max(
+            feats.data_ptr(), ids.data_ptr(), out.data_ptr(), B, P, C, H * W,
+            torch.cuda.current_stream(feats.device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(
+                f"pillar_scatter kernel launch failed: cudaError {err}")
+        scatter_launches += 1
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad_out):
+        feats, ids, out = ctx.saved_tensors
+        return (pillar_scatter_backward(feats, ids, out, grad_out, ctx.grid_hw),
+                None, None)
+
+
+def pillar_scatter_backward_plain(feats, ids, grad_out, grid_hw):
+    """The same function as `pillar_scatter_backward`: autograd through
+    `pillar_scatter_plain` (it recomputes the max)."""
+    with torch.enable_grad():
+        f = feats.detach().requires_grad_()
+        out = pillar_scatter_plain(f, ids, grid_hw)
+        return torch.autograd.grad(out, f, grad_out)[0]
+
+
+def pillar_scatter_backward(feats, ids, out, grad_out, grid_hw):
+    """Gradient of `pillar_scatter` for feats (B, P, C) float32, given its
+    result `out` for these inputs (B, H, W, C) and grad_out of that shape.
+    The kernels for CUDA tensors (a pass that counts each cell's winners
+    and marks each point's, then the gradient pass),
+    `pillar_scatter_backward_plain` for CPU tensors."""
+    global scatter_backward_launches
+    _check_scatter(feats, ids)
     H, W = grid_hw
     B, P, C = feats.shape
+    for name, t in (("out", out), ("grad_out", grad_out)):
+        if tuple(t.shape) != (B, H, W, C) or t.dtype != torch.float32:
+            raise ValueError(f"voxelize: {name} must be float32 {(B, H, W, C)}")
+        if t.device != feats.device:
+            raise ValueError("voxelize: all tensors must be on one device")
+    if feats.device.type == "cpu":
+        return pillar_scatter_backward_plain(feats, ids, grad_out, grid_hw)
     feats, ids = feats.contiguous(), ids.contiguous()
-    out = torch.empty(B, H, W, C, dtype=torch.float32, device=feats.device)
-    if out.numel() == 0:  # nothing to launch
-        return out
-    err = _lib().pillar_scatter_max(
-        feats.data_ptr(), ids.data_ptr(), out.data_ptr(), B, P, C, H * W,
+    out, grad_out = out.contiguous(), grad_out.contiguous()
+    grad_feats = torch.empty_like(feats)  # every element written
+    if grad_feats.numel() == 0 or out.numel() == 0:  # nothing to launch
+        return grad_feats.zero_()
+    # the kernels' winner counts per (cell, channel) and masks per point
+    scratch = torch.empty(B * H * W * C + B * P * -(-C // 32), dtype=torch.int32,
+                          device=feats.device)
+    err = _lib().pillar_scatter_max_backward(
+        feats.data_ptr(), ids.data_ptr(), out.data_ptr(), grad_out.data_ptr(),
+        grad_feats.data_ptr(), scratch.data_ptr(), B, P, C, H * W,
         torch.cuda.current_stream(feats.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"pillar_scatter kernel launch failed: cudaError {err}")
-    scatter_launches += 1
-    return out
+        raise RuntimeError(
+            f"pillar_scatter backward kernel launch failed: cudaError {err}")
+    scatter_backward_launches += 1
+    return grad_feats

@@ -16,7 +16,7 @@ import pytest
 import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-from chip_smoke import bf16_step, dcn_kinks, msda_kinks  # noqa: E402
+from chip_smoke import bf16_step, dcn_kinks, lidar_cloud, msda_kinks  # noqa: E402
 from graph_detr4d_tpu_torch.ops import deform_conv as dcn_ops  # noqa: E402
 from graph_detr4d_tpu_torch.ops import focal_loss as focal_ops  # noqa: E402
 from graph_detr4d_tpu_torch.ops import hungarian as lsa_ops  # noqa: E402
@@ -736,6 +736,144 @@ def test_pillar_scatter_kernel_matches_plain(cuda, shift):
 
 
 @pytest.mark.cuda
+def test_pillar_features_kernel_is_order_free_on_a_clustered_cloud(cuda):
+    """K6's features kernel on a smaller copy of chip_smoke's cloud (points
+    on 60 objects, a ground plane, z outliers, a masked tail; permuted):
+    ids exactly and rows within 1e-5 of the plain version, for the cloud
+    and for the same points in another order, and with a bool mask."""
+    pts, mask = (torch.from_numpy(a).to(cuda) for a in lidar_cloud(3, 60000))
+    want_ids, want_aug = vox_ops.pillar_features_plain(pts, mask, PC, (128, 128))
+    perm = torch.from_numpy(np.random.RandomState(13).permutation(60000)).to(cuda)
+    cases = {"cloud": (pts, mask, slice(None)),
+             "permuted": (pts[:, perm], mask[:, perm], perm),
+             "bool_mask": (pts, mask > 0, slice(None))}
+    for name, (p, m, order) in cases.items():
+        ids, aug = vox_ops.pillar_features(p, m, PC, (128, 128))
+        torch.cuda.synchronize()
+        assert torch.equal(ids, want_ids[:, order]), name
+        err = (aug - want_aug[:, order]).abs().max().item()
+        assert err <= 1e-5, (name, err)
+    crowded = torch.bincount(want_ids[0].long()).max().item()
+    assert crowded > 100  # object cells take many points
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["mixed", "relu", "negative"])
+def test_pillar_scatter_backward_kernel_matches_plain(cuda, case):
+    """K6's scatter backward against autograd of the plain max-scatter:
+    ties (relu's zeros, and three points planted on a crowded cell's max),
+    all-negative cells, the trash cell, and (case mixed) a NaN, a +inf and
+    a -inf in three cells (a cell whose max is not finite passes no
+    gradient). Then the same through pillar_scatter's autograd Function."""
+    rng = np.random.RandomState(14)
+    pts, mask = _cloud(rng, 2, 5000)
+    ids, _ = vox_ops.pillar_features_plain(pts, mask, PC, (128, 128))
+    feats = rng.randn(2, 5000, 64).astype(np.float32)
+    if case == "relu":
+        feats = np.maximum(feats - 0.5, 0.0)
+    elif case == "negative":
+        feats = np.minimum(feats - 4.0, -0.01)
+    live = ids[0][ids[0] < 128 * 128].long()
+    members = torch.nonzero(ids[0] == torch.bincount(live).argmax())[:, 0].numpy()
+    assert len(members) >= 50  # the crowded pillar
+    tied = members[:3]
+    feats[0, tied, 5] = feats[0, members, 5].max() + 1.0
+    if case == "mixed":
+        feats[0, members[3], 7], feats[0, members[4], 8] = np.nan, np.inf
+        feats[0, members[5], 9] = -np.inf
+    feats, ids = torch.from_numpy(feats).to(cuda), ids.to(cuda)
+    g = torch.randn(2, 128, 128, 64, generator=torch.Generator().manual_seed(0))
+    g = g.to(cuda)
+    out = vox_ops.pillar_scatter(feats, ids, (128, 128))
+    n0 = vox_ops.scatter_backward_launches
+    got = vox_ops.pillar_scatter_backward(feats, ids, out, g, (128, 128))
+    want = vox_ops.pillar_scatter_backward_plain(feats, ids, g, (128, 128))
+    torch.cuda.synchronize()
+    assert vox_ops.scatter_backward_launches == n0 + 1
+    # the NaN's cell passes no gradient; autograd's amax backward divides
+    # 0 by the 0 values that equal NaN there
+    nan_cell = torch.isnan(want)
+    assert nan_cell.any() == (case == "mixed")
+    assert (got[nan_cell] == 0).all()
+    want = want.masked_fill(nan_cell, 0.0)
+    assert (got - want).abs().max().item() <= 1e-6 * want.abs().max().item()
+    assert (want[ids == 128 * 128] == 0).all()
+    tied = torch.from_numpy(tied).to(cuda)
+    cell = ids[0, tied[0]].long()
+    torch.testing.assert_close(want[0, tied, 5],
+                               (g[0].reshape(-1, 64)[cell, 5] / 3).expand(3),
+                               rtol=1e-6, atol=0)
+    if case == "mixed":  # the +inf's cell passes none, the -inf's does
+        assert (want[0, torch.from_numpy(members).to(cuda), 8] == 0).all()
+        assert want[0, torch.from_numpy(members).to(cuda), 9].abs().sum() > 0
+    f = feats.clone().requires_grad_()
+    out = vox_ops.pillar_scatter(f, ids, (128, 128))
+    assert out.grad_fn is not None
+    out.backward(g)
+    torch.cuda.synchronize()
+    assert vox_ops.scatter_backward_launches == n0 + 2
+    assert torch.equal(f.grad, got)
+
+
+@pytest.mark.cuda
+def test_lidar_kernels_without_a_backward_refuse_grad(cuda):
+    """pillar_features' rows and K7 have no backward kernel: with grad
+    enabled and an input that requires grad they raise, rather than return
+    a result that cuts the gradient; under no_grad they run. The features
+    kernel also refuses rows wider than its shared-memory staging."""
+    pts, mask = (t.to(cuda) for t in _cloud(np.random.RandomState(15), 1, 500))
+    leaf = pts.clone().requires_grad_()
+    with pytest.raises(RuntimeError, match="no backward"):
+        vox_ops.pillar_features(leaf, mask, PC, (128, 128))
+    with torch.no_grad():
+        vox_ops.pillar_features(leaf, mask, PC, (128, 128))
+    boxes = torch.rand(4, 7, device=cuda) + 1.0
+    with pytest.raises(RuntimeError, match="no backward"):
+        iou3d.bbox_overlaps_3d(boxes.clone().requires_grad_(), boxes)
+    with pytest.raises(RuntimeError, match="no backward"):
+        iou3d.bbox_overlaps_3d(boxes, boxes.clone().requires_grad_())
+    with torch.no_grad():
+        iou3d.bbox_overlaps_3d(boxes.clone().requires_grad_(), boxes)
+    # the features kernel stages a block's rows in shared memory
+    with pytest.raises(ValueError, match="at most 42"):
+        vox_ops.pillar_features(torch.zeros(1, 4, 43, device=cuda),
+                                torch.ones(1, 4, device=cuda), PC, (8, 8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("compact", [False, True])
+@pytest.mark.parametrize("case", ["hd6", "hd44", "unaligned"])
+def test_msda_forward_kernel_odd_shapes(cuda, dtype, compact, case):
+    """K1's forward where its vector loads and stores do not apply: a head
+    width that is no multiple of 4 (6: fewer channels than a lane group
+    covers; 44: more than one pass of 32), and a value tensor whose data
+    starts one element past an aligned address; R = 37 rows fill no tile."""
+    rng = np.random.RandomState(16)
+    shapes = [(20, 50), (10, 25), (5, 13), (3, 7)]
+    hd = {"hd6": 6, "hd44": 44, "unaligned": 32}[case]
+    value, loc, attn = _msda_inputs(rng, 3, 37, 8, hd, shapes, 4, dtype, cuda)
+    if case == "unaligned":
+        buf = torch.empty(value.numel() + 1, dtype=dtype, device=cuda)
+        buf[1:].copy_(value.reshape(-1))
+        value = buf[1:].view(value.shape)
+        assert value.data_ptr() % 16 != 0 and value.is_contiguous()
+    index = None
+    if compact:
+        perm = np.stack([rng.permutation(37)[:23] for _ in range(3)])
+        index = torch.from_numpy(perm.astype(np.int64)).to(cuda)
+    n0 = msda_ops.launches
+    got = msda_ops.msda_forward(value, shapes, loc, attn, index)
+    want = msda_ops.msda_forward_plain(value, shapes, loc, attn, index)
+    torch.cuda.synchronize()
+    assert msda_ops.launches == n0 + 1
+    assert got.shape == want.shape == (3, 23 if compact else 37, 8 * hd)
+    err = (got.float() - want.float()).abs().max().item()
+    tol = 1e-4 if dtype == torch.float32 else 2e-2 * want.float().abs().max().item()
+    assert err <= tol, err
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("mode", ["iou", "iof", "bev"])
 def test_iou3d_kernel_matches_plain(cuda, mode):
     """K7 on random pairs 50 m out and planted identical, touching,
@@ -812,3 +950,43 @@ def test_tiny_obj_dgcnn_on_the_card_matches_the_cpu(cuda):
     for key in ("all_cls_scores", "all_bbox_preds"):
         torch.testing.assert_close(got[key].cpu(), want[key], rtol=0,
                                    atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_tiny_obj_dgcnn_differentiates_on_the_card_as_on_the_cpu(cuda):
+    """The gradient of a fixed random projection of a tiny ObjDGCNN's head
+    outputs for the pillar layers (pfn, pfn_norm): through K6's scatter
+    backward and K1's backward on the card, against autograd of the plain
+    versions on the CPU, within 1e-3 of each gradient's magnitude (the
+    forward outputs agree within 1e-3, above); one scatter backward and a
+    K1 backward per decoder layer."""
+    from graph_detr4d_tpu_torch.config import HeadConfig
+    from graph_detr4d_tpu_torch.models.dgcnn import ObjDGCNN
+    from graph_detr4d_tpu_torch.weights import init_weights
+
+    cfg = HeadConfig(num_query=24, embed_dims=32, num_decoder_layers=2,
+                     num_heads=4, num_points=2, ffn_dims=64)
+    models = {"cpu": ObjDGCNN(cfg, (30, 22), 8, 4, device="cpu")}
+    init_weights(models["cpu"], seed=0)
+    models["cuda"] = ObjDGCNN(cfg, (30, 22), 8, 4, device=cuda)
+    models["cuda"].load_state_dict(models["cpu"].state_dict())
+    pts, mask = _cloud(np.random.RandomState(12), 2, 3000)
+    gen = torch.Generator().manual_seed(3)
+    proj = {k: torch.randn(2, 2, 24, 10, generator=gen)
+            for k in ("all_cls_scores", "all_bbox_preds")}
+    counts = (vox_ops.scatter_backward_launches, msda_ops.backward_launches)
+    grads = {}
+    for dev, model in models.items():
+        out = model(pts.to(dev), mask.to(dev))
+        sum((out[k] * p.to(dev)).sum() for k, p in proj.items()).backward()
+        grads[dev] = {n: p.grad.cpu() for n, p in model.named_parameters()
+                      if n.startswith("pillar_encoder.")}
+    torch.cuda.synchronize()
+    assert (vox_ops.scatter_backward_launches - counts[0],
+            msda_ops.backward_launches - counts[1]) == (1, 2)
+    assert len(grads["cuda"]) == 4
+    for name, want in grads["cpu"].items():
+        scale = want.abs().max().item()
+        assert scale > 0, name
+        err = (grads["cuda"][name] - want).abs().max().item()
+        assert err <= 1e-3 * scale, (name, err, scale)

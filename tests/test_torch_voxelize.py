@@ -133,6 +133,55 @@ def test_pillar_scatter_matches_jax(shift):
         assert (cells[torch.from_numpy(~empty)] < 0).all()
 
 
+@pytest.mark.parametrize("shift", [-0.5, -3.0])
+def test_pillar_scatter_backward_matches_jax_vjp(shift):
+    """The max-scatter's gradient (autograd through the plain route, and
+    `pillar_scatter_backward`) against jax.vjp of the jitted, vmapped JAX
+    op: ties split evenly (three points planted on a cell's nonzero max,
+    two on a cell's max of 0, as relu leaves many), cells all negative,
+    empty cells (no gradient), trash points (none)."""
+    pts, mask = _points(2)
+    want_ids, _, _ = _jax_features(pts[None], mask[None])
+    rng = np.random.RandomState(5)
+    P, C = pts.shape[0], 6
+    feats = np.minimum(rng.randn(2, P, C) + shift,
+                       -0.01 if shift < -1 else np.inf).astype(np.float32)
+    ids = np.stack([want_ids[0], rng.permutation(want_ids[0])]).astype(np.int32)
+    H, W = GRID
+    crowded = np.bincount(ids[0][ids[0] < H * W], minlength=H * W).argmax()
+    members = np.flatnonzero(ids[0] == crowded)
+    assert len(members) >= 3
+    top = feats[0, members, 0].max() + 0.25
+    feats[0, members[:3], 0] = top  # three-way tie on a nonzero max
+    feats[0, members, 1] = np.minimum(feats[0, members, 1], -0.5)
+    feats[0, members[:2], 1] = 0.0  # two-way tie on 0
+    g = rng.randn(2, H, W, C).astype(np.float32)
+
+    def scatter(f):
+        return jax.vmap(lambda a, i: jax_vox.pillar_scatter(
+            a, i, GRID, reduce="max"))(f, jnp.asarray(ids))
+
+    want = np.asarray(jax.jit(lambda f, gg: jax.vjp(scatter, f)[1](gg)[0])(
+        jnp.asarray(feats), jnp.asarray(g)))
+    f = torch.from_numpy(feats).requires_grad_()
+    out = vox.pillar_scatter(f, torch.from_numpy(ids), GRID)
+    out.backward(torch.from_numpy(g))
+    direct = vox.pillar_scatter_backward(
+        torch.from_numpy(feats), torch.from_numpy(ids), out.detach(),
+        torch.from_numpy(g), GRID)
+    for got in (f.grad, direct):
+        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6)
+    # the fixture exercises what it claims
+    cell = g[0].reshape(H * W, C)[crowded]
+    np.testing.assert_allclose(want[0, members[:3], 0], cell[0] / 3, rtol=1e-6)
+    np.testing.assert_allclose(want[0, members[:2], 1], cell[1] / 2, rtol=1e-6)
+    assert (want[ids == H * W] == 0).all() and (ids == H * W).any()
+    empty = np.bincount(ids[0][ids[0] < H * W], minlength=H * W) == 0
+    assert empty.any()
+    if shift < -1:
+        assert (out[0].reshape(H * W, C)[torch.from_numpy(~empty)][:, 2:] < 0).all()
+
+
 def test_wrappers_validate_inputs():
     pts = torch.zeros(1, 4, 3)
     with pytest.raises(ValueError):
