@@ -29,7 +29,12 @@ IoU, and prints one JSON line per phase:
               are left out and counted); K5 (focal loss) within 1e-5
               relative; K4
               (assignment) identical, on random costs, planted ties and
-              nan / inf entries, num_valid from 0 to 128;
+              nan / inf entries, num_valid from 0 to 128, timed with the
+              Dijkstra steps of its longest problem and ns per step; at
+              H-DETR's one2many shape (768 x 1,800) identical at
+              num_valid 200 and scipy's optimum at 768; after phase train
+              also on that step's own cost matrices (row
+              hungarian_train_costs);
   3. serve    serve.Engine answers 4 requests from synthetic_batch; time
               per request (CUDA events), peak memory, cam_overflow, valid
               detections and the launch counters (K1 6 and K2 forward 9
@@ -97,7 +102,8 @@ Phase `kernels` also holds K3 (the fused int8-table conv, fp32 within
 strides, the flagship's 7 int8 DCN shapes, with `gemm_ref_ms` as K2's),
 K6 (the lidar phase's clouds: ids exactly and rows within 1e-5, the max
 exactly, its backward within 1e-6 of the gradient's magnitude on raw and
-relu'd features) and K7 (900 x 900 and 300 x 128) to their plain
+relu'd features) and K7 (900 x 900 and 300 x 128, with the host's us per
+call and the share of pairs its pre-test skips) to their plain
 versions, with the time of one PyTorch call that computes the same
 function where there is one (K6: scatter_reduce_ 'amax' for the grid,
 index_add_ for the cell sums; the backward beside autograd's own backward
@@ -741,10 +747,47 @@ def kernel_focal_loss(dev, gen):
     return record
 
 
+def hungarian_record(cost, nv):
+    """K4 on (problems, R, C) costs on the card against the plain version
+    (identical assignments required), its CUDA-event time, the host's
+    microseconds to issue one call, the device time of its kernel (the
+    profiler), the Dijkstra steps of each problem and the nanoseconds per
+    step of the longest, which bounds the kernel: its steps are
+    sequential."""
+    got = lsa_ops.hungarian_assignment(cost, nv)
+    want, steps = lsa_ops.hungarian_assignment_plain(cost.cpu(), nv.cpu(),
+                                                     return_steps=True)
+    mismatches = int((got.cpu() != want).sum())
+
+    def call():
+        return lsa_ops.hungarian_assignment(cost, nv)
+
+    device = device_breakdown(call)
+    kernel_ms = sum(ms for name, ms, _ in device if "lsa_kernel" in name)
+    P, R, C = cost.shape
+    # the work depends on the data: the valid rows are read once (the
+    # kernel keeps the rows it reads in shared memory), and each Dijkstra
+    # step does 3 adds and a compare a column
+    valid_rows = int(nv.clamp(0, R).sum())
+    bytes_ = valid_rows * C * 4 + P * 4 + P * R * 4
+    t_bytes = bytes_ / PEAK_BYTES_PER_S
+    t_ops = sum(steps) * C * 4 / PEAK_FP32_FLOPS
+    return dict(mismatches=mismatches, dijkstra_steps=steps,
+                longest_steps=max(steps), ms=cuda_ms(call, 20),
+                host_us_per_call=host_us(call), device_ms_per_call=device,
+                kernel_device_ms=kernel_ms,
+                ns_per_step=1e6 * kernel_ms / max(max(steps), 1),
+                bound_ms=1e3 * max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
 def kernel_hungarian(dev, gen):
-    """K4 at the flagship's matching: 6 problems (layers) of 128 GT rows x
-    900 queries, identical to the plain version on random costs with
-    num_valid from 0 to 128, on planted ties and on nan / inf entries."""
+    """K4 at the flagship's matching shape: 6 problems (layers) of 128 GT
+    rows x 900 queries on uniform random costs, num_valid from 0 to 128
+    (timed), and on planted ties and nan / inf entries; identical to the
+    plain version. Then H-DETR's one2many shape, 768 rows x 1,800
+    columns, which the kernel must take: identical to the plain version
+    at num_valid 200, scipy's optimum at 768."""
     P, R, C = 6, 128, 900
     nv = torch.tensor([0, 1, 40, 64, 127, 128], dtype=torch.int32)
     base = torch.rand(P, R, C, generator=gen)
@@ -755,35 +798,66 @@ def kernel_hungarian(dev, gen):
             (torch.arange(P), torch.arange(P), torch.arange(P) * 7),
             torch.tensor([float("nan"), float("inf"), float("-inf")] * 2)),
     }
-    mismatches, steps = {}, None
+    mismatches = {}
     for name, cost in cases.items():
-        cost_d, nv_d = cost.to(dev), nv.to(dev)
-        got = lsa_ops.hungarian_assignment(cost_d, nv_d)
-        want, k = lsa_ops.hungarian_assignment_plain(cost_d, nv_d,
-                                                     return_steps=True)
-        mismatches[name] = int((got != want).sum())
-        if name == "random":
-            steps = k
-    if any(mismatches.values()):
-        raise AssertionError(f"hungarian: assignments differ {mismatches}")
-    cost_d, nv_d = base.to(dev), nv.to(dev)
-    ms = cuda_ms(lambda: lsa_ops.hungarian_assignment(cost_d, nv_d), 20)
+        got = lsa_ops.hungarian_assignment(cost.to(dev), nv.to(dev))
+        mismatches[name] = int((got.cpu() != lsa_ops.hungarian_assignment_plain(
+            cost, nv)).sum())
+    rec = hungarian_record(base.to(dev), nv.to(dev))
     t0 = time.perf_counter()
-    lsa_ops.hungarian_assignment_plain(cost_d, nv_d)
+    lsa_ops.hungarian_assignment_plain(base.to(dev), nv.to(dev))
     torch.cuda.synchronize()
-    plain_ms = 1e3 * (time.perf_counter() - t0)
-    # the work depends on the data: each Dijkstra step reads one cost row
-    bytes_ = sum(steps) * C * 4 + P * 4 + P * R * 4
-    t_bytes = bytes_ / PEAK_BYTES_PER_S
-    t_ops = sum(steps) * C * 4 / PEAK_FP32_FLOPS  # 3 adds and a compare
-    record = dict(checks={"mismatches": mismatches, "dijkstra_steps": steps},
-                  max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
-                  bound_ms=1e3 * max(t_bytes, t_ops),
-                  bound_by="bytes" if t_bytes >= t_ops else "operations",
-                  note="latency-bound: the steps of a problem are sequential")
+    rec["plain_ms"] = 1e3 * (time.perf_counter() - t0)
+    mismatches["random"] += rec.pop("mismatches")
+    rec["hdetr"] = kernel_hungarian_hdetr(dev)
+    record = dict(checks={"mismatches": mismatches}, max_abs_err=0.0,
+                  note="latency-bound: the steps of a problem are sequential",
+                  **rec)
     emit({"phase": "kernels", "kernel": "hungarian", "shape": [P, R, C],
           "num_valid": nv.tolist(), **record})
+    if any(mismatches.values()):
+        raise AssertionError(f"hungarian: assignments differ {mismatches}")
     return record
+
+
+def kernel_hungarian_hdetr(dev):
+    import scipy.optimize
+
+    R, C = 768, 1800
+    max_cols = lsa_ops._lib().lsa_max_cols(R)
+    # its own generator, so that the later kernels' inputs stay those of
+    # earlier runs
+    cost = torch.rand(2, R, C, generator=torch.Generator().manual_seed(2))
+    nv = torch.tensor([200, R], dtype=torch.int32)
+    cost_d, nv_d = cost.to(dev), nv.to(dev)
+    got = lsa_ops.hungarian_assignment(cost_d, nv_d).cpu()
+    want = lsa_ops.hungarian_assignment_plain(cost[:1], nv[:1])
+    c = cost[1].numpy()
+    rows, cols = scipy.optimize.linear_sum_assignment(c)
+    total = float(c[np.arange(R), got[1].numpy()].astype(np.float64).sum())
+    optimum = float(c[rows, cols].astype(np.float64).sum())
+    rec = dict(shape=[2, R, C], num_valid=nv.tolist(), max_cols=max_cols,
+               mismatches_at_200=int((got[0] != want[0]).sum()),
+               cost_rel_err_at_768=abs(total - optimum) / optimum,
+               ms=cuda_ms(lambda: lsa_ops.hungarian_assignment(cost_d, nv_d), 3))
+    if not (max_cols >= C and rec["mismatches_at_200"] == 0
+            and rec["cost_rel_err_at_768"] <= 1e-5
+            and len(set(got[1].tolist())) == R):
+        raise AssertionError(f"hungarian at H-DETR's shape: {rec}")
+    return rec
+
+
+def kernel_hungarian_train(dev, calls):
+    """K4 on the flagship train step's own costs (phase train's warm-up
+    step, recorded by record_assignments): 6 layers x 128 GT rows (40
+    valid) x 900 queries; identical to the plain version."""
+    (cost, nv, _), = calls
+    rec = hungarian_record(cost.to(dev), nv.to(dev))
+    emit({"phase": "kernels", "kernel": "hungarian_train_costs",
+          "shape": list(cost.shape), "num_valid": nv.tolist(), **rec})
+    if rec["mismatches"]:
+        raise AssertionError(f"hungarian on the train step's costs: {rec}")
+    return rec
 
 
 def kernel_int8(dev, gen):
@@ -996,30 +1070,73 @@ def random_boxes(rng, n, near=None):
     return b
 
 
+def pretest_skips(bboxes1, bboxes2, mode: str = "iou"):
+    """(M, N) bool: the pairs whose answer is 0 without clipping, by K7's
+    float32 pre-test (csrc/iou3d.cu) written out in PyTorch. Both boxes
+    finite, and either their BEV bounding circles apart by more than
+    iou3d.PRETEST_MARGIN of the pair's scale (the largest centre
+    coordinate plus both radii; the clip's rounding is ~1e-6 of it, so
+    the clip of such a pair is empty and its area exactly 0), or, for IoU
+    and IoF, their z-extents not overlapping (0 times a finite area)."""
+    b1, b2 = bboxes1[:, :7].float(), bboxes2[:, :7].float()
+
+    def circle(b):
+        radius = 0.5 * torch.sqrt(b[:, 3] * b[:, 3] + b[:, 4] * b[:, 4])
+        extent = torch.maximum(b[:, 0].abs(), b[:, 1].abs())
+        return b[:, 0], b[:, 1], radius, extent
+
+    x1, y1, r1, e1 = circle(b1)
+    x2, y2, r2, e2 = circle(b2)
+    dx, dy = x1[:, None] - x2[None], y1[:, None] - y2[None]
+    scale = torch.maximum(e1[:, None], e2[None]) + r1[:, None] + r2[None]
+    reach = (r1[:, None] + r2[None]) + iou3d.PRETEST_MARGIN * scale
+    skip = dx * dx + dy * dy > reach * reach
+    if mode != "bev":
+        skip |= iou3d._z_overlap(b1, b2) == 0
+    ok = torch.isfinite(b1).all(1)
+    return skip & ok[:, None] & torch.isfinite(b2).all(1)[None]
+
+
 def iou_operations(b1, b2):
-    """About the float operations K7 does on these boxes: per clip step 10
-    per vertex it tests (two side tests) and 9 per vertex it emits (a
-    crossing at most), then 3 per vertex of the shoelace and 12 for the
-    z overlap and the ratio: counted from this run's polygons."""
+    """About the float operations K7's IoU needs on these boxes: the
+    pre-test, 25 a pair, for every pair; for the pairs it leaves
+    (`pretest_skips`), per clip step 10 per vertex tested (two side
+    tests) and 9 per vertex emitted (a crossing at most), then 3 per
+    vertex of the shoelace and 12 for the z overlap and the ratio:
+    counted from this run's polygons."""
+    M, N = b1.shape[0], b2.shape[0]
+    clip = ~pretest_skips(b1, b2).reshape(-1)
     c1, c2 = iou3d.box_corners_bev(b1), iou3d.box_corners_bev(b2)
-    M, N = c1.shape[0], c2.shape[0]
-    p1 = c1[:, None].expand(M, N, 4, 2).reshape(M * N, 4, 2)
-    p2 = c2[None].expand(M, N, 4, 2).reshape(M * N, 4, 2)
+    p1 = c1[:, None].expand(M, N, 4, 2).reshape(M * N, 4, 2)[clip]
+    p2 = c2[None].expand(M, N, 4, 2).reshape(M * N, 4, 2)[clip]
     pts = torch.cat([p1, p1[:, :1].expand(-1, iou3d.V_MAX - 4, 2)], dim=1)
-    count = torch.full((M * N,), 4, dtype=torch.long, device=b1.device)
-    ops = 0
+    count = torch.full((p1.shape[0],), 4, dtype=torch.long, device=b1.device)
+    ops = 25 * M * N
     for i in range(4):
         tested = int(count.sum())
         pts, count = iou3d._clip_poly(pts, count, p2[:, i], p2[:, (i + 1) % 4])
         ops += 10 * tested + 9 * int(count.sum())
-    return ops + 3 * int(count.sum()) + 12 * M * N
+    return ops + 3 * int(count.sum()) + 12 * p1.shape[0]
+
+
+def kernel_skipped(b1, b2, mode="iou"):
+    """The pairs K7's pre-test answered without clipping, counted by the
+    kernel, and the count of `pretest_skips`."""
+    skipped = torch.zeros(1, dtype=torch.int64, device=b1.device)
+    iou3d.bbox_overlaps_3d(b1, b2, mode, skipped=skipped)
+    return int(skipped), int(pretest_skips(b1, b2, mode).sum())
 
 
 def kernel_iou3d(dev):
     """K7 at the iou phase's shapes, 900 x 900 and 300 x 128 boxes 50 m
-    out, against the plain version (1e-5)."""
+    out, against the plain version (1e-5); per shape the host's
+    microseconds to issue a call, the device kernels of one call and the
+    share of pairs the kernel's pre-test answered without clipping, as the
+    kernel counts it (it must equal `pretest_skips`' count)."""
     rng = np.random.RandomState(0)
-    rec = {"checks": {}, "ms": 0.0, "plain_ms": 0.0, "max_abs_err": 0.0}
+    rec = {"checks": {}, "ms": 0.0, "plain_ms": 0.0, "max_abs_err": 0.0,
+           "host_us_per_call": [], "device_ms_per_call": [],
+           "pretest_skipped_share": []}
     ops = 0
     for M, N in IOU_SHAPES:
         b1 = random_boxes(rng, M)
@@ -1033,8 +1150,21 @@ def kernel_iou3d(dev):
                 raise AssertionError(f"iou3d {M}x{N} {mode}: {err} > 1e-5")
             rec["checks"][f"{M}x{N}_{mode}"] = [err, int((want > 0.1).sum())]
             rec["max_abs_err"] = max(rec["max_abs_err"], err)
-        rec["ms"] += cuda_ms(lambda: iou3d.bbox_overlaps_3d(b1, b2), 20)
+
+        def call():
+            return iou3d.bbox_overlaps_3d(b1, b2)
+
+        rec["ms"] += cuda_ms(call, 20)
         rec["plain_ms"] += cuda_ms(lambda: iou3d.bbox_overlaps_3d_plain(b1, b2), 3)
+        rec["host_us_per_call"].append(host_us(call))
+        rec["device_ms_per_call"].append(device_breakdown(call))
+        for mode in ("iou", "iof", "bev"):
+            counted, want = kernel_skipped(b1, b2, mode)
+            if counted != want:
+                raise AssertionError(f"iou3d {M}x{N} {mode}: the kernel skipped "
+                                     f"{counted} pairs, its pre-test {want}")
+            if mode == "iou":
+                rec["pretest_skipped_share"].append(counted / (M * N))
         ops += iou_operations(b1, b2)
         torch.cuda.empty_cache()
     t_ops = ops / PEAK_FP32_FLOPS
@@ -1479,22 +1609,32 @@ def phase_iou(engine, cloud):
                          random_boxes(rng, 64)])
     gt = torch.from_numpy(gt).to(engine.device)
     boxes, det = boxes.contiguous(), det.contiguous()
+    skipped = torch.zeros(2, dtype=torch.int64, device=engine.device)
     reset_launch_counts()
-    ious = [iou3d.bbox_overlaps_3d(boxes, boxes), iou3d.bbox_overlaps_3d(det, gt)]
+    ious = [iou3d.bbox_overlaps_3d(boxes, boxes, skipped=skipped[0:1]),
+            iou3d.bbox_overlaps_3d(det, gt, skipped=skipped[1:2])]
     torch.cuda.synchronize()
     launches = launch_counts()
+    pairs = [(boxes, boxes), (det, gt)]
+    skip_counts = [int(pretest_skips(a, b).sum()) for a, b in pairs]
     errs = [(i - iou3d.bbox_overlaps_3d_plain(a, b)).abs().max().item()
-            for i, (a, b) in zip(ious, ((boxes, boxes), (det, gt)))]
+            for i, (a, b) in zip(ious, pairs)]
     diag = torch.diagonal(ious[0])
     emit({"phase": "iou", "shapes": [list(i.shape) for i in ious],
           "max_abs_err_vs_plain": errs, "launches": launches,
           "self_iou_min": diag.min().item(),
           "iou_max": max(i.max().item() for i in ious),
+          "pretest_skipped_share": [
+              int(k) / i.numel() for k, i in zip(skipped.tolist(), ious)],
+          "pretest_skips_counted": skip_counts,
           "pairs_above_0.1": [int((i > 0.1).sum()) for i in ious]})
     want = dict.fromkeys(launches, 0)
     want["iou3d"] = 2
     if launches != want:
         raise AssertionError(f"iou launch counts {launches} != {want}")
+    if skipped.tolist() != skip_counts:
+        raise AssertionError(f"iou: the kernel skipped {skipped.tolist()} "
+                             f"pairs, its pre-test {skip_counts}")
     for i, e in zip(ious, errs):
         if not (torch.isfinite(i).all() and e <= 1e-5):
             raise AssertionError(f"iou: non-finite or {e} > 1e-5 from plain")
@@ -1643,15 +1783,18 @@ def train_batch(cfg):
 
 
 def phase_train(cfg, sd, work_dir):
-    """Trainer at full width: 1 warm-up step, then TRAIN_STEPS timed ones
-    with the launch counters counted from 0 just before them."""
+    """Trainer at full width: 1 warm-up step (its K4 call recorded, for
+    kernel_hungarian_train), then TRAIN_STEPS timed ones with the launch
+    counters counted from 0 just before them."""
     batch = train_batch(cfg)
     trainer = Trainer(cfg, sd, itertools.repeat(batch), work_dir, seed=0)
     frozen = "img_backbone.conv1.weight"
     main_w = "pts_bbox_head.cls_branches.0.0.weight"
     before = {k: trainer.model.state_dict()[k].clone()
               for k in (frozen, main_w)}
-    trainer.fit(1, log_interval=1)  # warm-up: cuDNN / cuBLAS choices
+    assignments = []
+    with record_assignments(assignments):
+        trainer.fit(1, log_interval=1)  # warm-up: cuDNN / cuBLAS choices
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
@@ -1686,7 +1829,7 @@ def phase_train(cfg, sd, work_dir):
         raise AssertionError(f"frozen {frozen} changed")
     if torch.equal(after[main_w], before[main_w]):
         raise AssertionError(f"main-group {main_w} did not change")
-    return trainer, batch, launches
+    return trainer, batch, launches, assignments
 
 
 def phase_train_breakdown(trainer, batch):
@@ -1825,10 +1968,12 @@ def main():
     phase_plain(cfg, sd)
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as work_dir:
-        trainer, batch, train_launches = phase_train(cfg, sd, work_dir)
+        trainer, batch, train_launches, assignments = phase_train(
+            cfg, sd, work_dir)
         phase_train_breakdown(trainer, batch)
         del trainer
     torch.cuda.empty_cache()
+    kernels["hungarian"]["train_costs"] = kernel_hungarian_train(dev, assignments)
     phase_train_plain(cfg, sd)
     torch.cuda.empty_cache()
     lidar_sd = lidar_state_dict()
@@ -1860,7 +2005,9 @@ def main():
          "one train step's call, fp32"),
         ("hungarian", "graph_detr4d_tpu_torch/csrc/hungarian.cu",
          "graph_detr4d_tpu/ops/hungarian.py:95", train_launches,
-         "one train step's call (6 layers x 128 x 900)"),
+         "one call on uniform random costs, 6 problems of 128 x 900 with "
+         "num_valid 0-128 (train_costs_ms: the train step's own costs, 40 "
+         "valid rows of 128)"),
         ("deform_conv_int8_forward",
          "graph_detr4d_tpu_torch/csrc/deform_conv_int8.cu",
          "graph_detr4d_tpu/ops/deform_conv.py:259", int8_launches,
@@ -1900,6 +2047,14 @@ def main():
             row["gemm_ref_ms"] = k["gemm_ref_ms"]
         if "pytorch_backward_ms" in k:
             row["pytorch_backward_ms"] = k["pytorch_backward_ms"]
+        if "train_costs" in k:
+            row["train_costs_ms"] = k["train_costs"]["ms"]
+            row["longest_steps"] = k["longest_steps"]
+            row["ns_per_step"] = k["ns_per_step"]
+            row["train_costs_ns_per_step"] = k["train_costs"]["ns_per_step"]
+        if "pretest_skipped_share" in k:
+            row["host_us_per_call"] = k["host_us_per_call"]
+            row["pretest_skipped_share"] = k["pretest_skipped_share"]
         if "clustered" in k:
             row["clustered_ms"] = k["clustered"]["ms"]
             row["clustered_bound_ms"] = k["clustered"]["bound_ms"]

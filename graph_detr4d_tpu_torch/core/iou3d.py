@@ -6,22 +6,25 @@ reference: core/bbox/iou_calculators/iou3d_calculator.py:8-298).
     plain PyTorch on any device.
   * `bbox_overlaps_3d`: the exact rotated BEV overlap times the z-extent
     overlap, IoU or IoF; `rotated_overlap_bev` the BEV overlap of one
-    pair. K7: for CUDA tensors the pairwise clip runs in the kernel of
-    `csrc/iou3d.cu`, one thread per box pair; for CPU tensors
-    `bbox_overlaps_3d_plain`, the JAX op's fixed-size Sutherland–Hodgman
-    clip written out over all pairs. The kernel has no backward: on CUDA
-    tensors that require grad, with grad enabled, it raises (the plain
-    version differentiates; no model path needs it).
+    pair. K7: for CUDA tensors one launch of the kernel of
+    `csrc/iou3d.cu` (tiles of 32 x 32 pairs, corners computed in the
+    kernel, pairs whose bounding circles lie apart by more than
+    PRETEST_MARGIN of their coordinate scale answered 0 without clipping);
+    for CPU tensors `bbox_overlaps_3d_plain`, the JAX op's fixed-size
+    Sutherland–Hodgman clip written out over all pairs. The kernel has no
+    backward: on CUDA tensors that require grad, with grad enabled, it
+    raises (the plain version differentiates; no model path needs it).
 
-Both routes take the rotated corners from `box_corners_bev` (plain
-PyTorch, O(M + N)), so they clip the same float32 polygons; the kernel
-then repeats the plain version's float operations in its order, without
-fused multiply-adds. Boxes are (cx, cy, cz, w, l, h, yaw) in LiDAR
-coordinates (gravity-centre z).
+The kernel computes the rotated corners with the formula and order of
+`box_corners_bev`, and then repeats the plain version's float operations
+in its order, without fused multiply-adds, so both clip the same float32
+polygons. Boxes are (cx, cy, cz, w, l, h, yaw) in LiDAR coordinates
+(gravity-centre z).
 """
 
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 
@@ -33,14 +36,19 @@ from ..ops import build
 launches = 0
 
 V_MAX = 8  # a quad clipped by 4 half-planes has <= 8 vertices
+# the kernel's pre-test margin, a share of a pair's coordinate scale (the
+# largest centre coordinate plus both bounding-circle radii; the clip's
+# rounding is ~1e-6 of it, so the clip of a pair apart by more is empty)
+PRETEST_MARGIN = 1e-3
 _MODES = {"iou": 0, "iof": 1, "bev": 2}
 
 
 @functools.cache
 def _lib():
     lib = build.load("iou3d")
-    lib.box_overlaps_3d.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
-        ctypes.c_void_p]
+    lib.box_overlaps_3d.argtypes = [ctypes.c_void_p, ctypes.c_int] * 2 + [
+        ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_float] + [
+        ctypes.c_void_p] * 2
     lib.box_overlaps_3d.restype = ctypes.c_int
     return lib
 
@@ -162,15 +170,19 @@ def rotated_overlaps_bev_plain(c1, c2):
     return _polygon_area(pts).view(M, N)
 
 
-def _overlaps_from_bev(inter_bev, bboxes1, bboxes2, mode):
-    if mode == "bev":
-        return inter_bev
+def _z_overlap(bboxes1, bboxes2):
     z1lo = bboxes1[:, 2] - bboxes1[:, 5] / 2
     z1hi = bboxes1[:, 2] + bboxes1[:, 5] / 2
     z2lo = bboxes2[:, 2] - bboxes2[:, 5] / 2
     z2hi = bboxes2[:, 2] + bboxes2[:, 5] / 2
-    zo = (torch.minimum(z1hi[:, None], z2hi[None, :])
-          - torch.maximum(z1lo[:, None], z2lo[None, :])).clamp(min=0.0)
+    return (torch.minimum(z1hi[:, None], z2hi[None, :])
+            - torch.maximum(z1lo[:, None], z2lo[None, :])).clamp(min=0.0)
+
+
+def _overlaps_from_bev(inter_bev, bboxes1, bboxes2, mode):
+    if mode == "bev":
+        return inter_bev
+    zo = _z_overlap(bboxes1, bboxes2)
     inter = inter_bev * zo
     v1 = bboxes1[:, 3] * bboxes1[:, 4] * bboxes1[:, 5]
     v2 = bboxes2[:, 3] * bboxes2[:, 4] * bboxes2[:, 5]
@@ -189,11 +201,17 @@ def bbox_overlaps_3d_plain(bboxes1, bboxes2, mode: str = "iou"):
     return _overlaps_from_bev(inter_bev, bboxes1, bboxes2, mode)
 
 
-def bbox_overlaps_3d(bboxes1, bboxes2, mode: str = "iou"):
+def bbox_overlaps_3d(bboxes1, bboxes2, mode: str = "iou", *,
+                     skipped: Optional[torch.Tensor] = None):
     """(M, 7) x (N, 7) float32 -> (M, N) exact rotated 3D IoU or IoF
     (iou3d_calculator.py:127-150): rotated BEV overlap times z-extent
     overlap, over max(union, 1e-8). mode 'bev' returns the BEV
-    intersection areas."""
+    intersection areas.
+
+    skipped: optional one-element int64 tensor on the boxes' CUDA device;
+    the kernel adds to it the pairs its pre-test answered without
+    clipping. The plain version (CPU tensors) clips every pair and leaves
+    it as it is."""
     global launches
     if mode not in _MODES:
         raise ValueError(mode)
@@ -205,6 +223,10 @@ def bbox_overlaps_3d(bboxes1, bboxes2, mode: str = "iou"):
                          f"{tuple(bboxes1.shape)}, {tuple(bboxes2.shape)}")
     if bboxes1.device != bboxes2.device:
         raise ValueError("iou3d: all tensors must be on one device")
+    if skipped is not None and (skipped.dtype != torch.int64
+                                or skipped.numel() != 1
+                                or skipped.device != bboxes1.device):
+        raise ValueError("iou3d: skipped must be one int64 on the boxes' device")
     if bboxes1.device.type == "cpu":
         return bbox_overlaps_3d_plain(bboxes1, bboxes2, mode)
     if bboxes1.device.type != "cuda":
@@ -219,13 +241,12 @@ def bbox_overlaps_3d(bboxes1, bboxes2, mode: str = "iou"):
     out = torch.empty(M, N, dtype=torch.float32, device=bboxes1.device)
     if out.numel() == 0:  # nothing to launch
         return out
-    b1 = bboxes1[:, :7].contiguous()
-    b2 = bboxes2[:, :7].contiguous()
-    c1 = box_corners_bev(b1).contiguous()
-    c2 = box_corners_bev(b2).contiguous()
+    b1, b2 = (b if b.stride(1) == 1 else b.contiguous()
+              for b in (bboxes1, bboxes2))
     err = _lib().box_overlaps_3d(
-        b1.data_ptr(), b2.data_ptr(), c1.data_ptr(), c2.data_ptr(),
-        out.data_ptr(), M, N, _MODES[mode],
+        b1.data_ptr(), b1.stride(0), b2.data_ptr(), b2.stride(0),
+        out.data_ptr(), M, N, _MODES[mode], PRETEST_MARGIN,
+        None if skipped is None else skipped.data_ptr(),
         torch.cuda.current_stream(bboxes1.device).cuda_stream,
     )
     if err != 0:

@@ -7,9 +7,11 @@ Jonker-Volgenant shortest augmenting paths, solving only the first
 to 100 and -inf to -100. Unsolved rows get -1.
 
 `hungarian_assignment` launches `csrc/hungarian.cu` (one thread block per
-problem, every problem in one launch, no host sync) for a CUDA tensor and
-runs `hungarian_assignment_plain`, the same algorithm as a Python loop
-over rows and Dijkstra steps vectorised over the columns, for a CPU tensor.
+problem, every problem in one launch, the cost rows it reads resident in
+shared memory, one barrier a Dijkstra step, no host sync) for a CUDA
+tensor and runs `hungarian_assignment_plain`, the same algorithm as a
+Python loop over rows and Dijkstra steps vectorised over the columns, for
+a CPU tensor.
 Both follow the JAX op's arithmetic and its tie rule (lowest column
 first), so they assign identically.
 """
@@ -26,13 +28,17 @@ from . import build
 # resets it before driving the main path and reads it after)
 launches = 0
 
+# cost rows the kernel keeps in shared memory, 0 for as many as fit; the
+# card tests lower it to drive the ring of rows read ahead at small sizes
+_max_rows = 0
+
 _INF = 1e18  # the JAX op's _INF
 
 
 @functools.cache
 def _lib():
     lib = build.load("hungarian")
-    lib.lsa_solve.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
+    lib.lsa_solve.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
         ctypes.c_void_p
     ]
     lib.lsa_solve.restype = ctypes.c_int
@@ -82,13 +88,15 @@ def hungarian_assignment(
             f"hungarian: {C} columns exceed the kernel's {lib.lsa_max_cols(R)} "
             f"for {R} rows")
     cost = cost.float().contiguous()
-    out = torch.full((P, R), -1, dtype=torch.int32, device=cost.device)
+    # the kernel writes every row, -1 for those it does not solve
+    out = torch.empty((P, R), dtype=torch.int32, device=cost.device)
     if P == 0 or R == 0:  # nothing to launch
         return out
     nv = None if num_valid is None else num_valid.to(torch.int32).contiguous()
     err = lib.lsa_solve(
         cost.data_ptr(), None if nv is None else nv.data_ptr(), out.data_ptr(),
-        P, R, C, torch.cuda.current_stream(cost.device).cuda_stream,
+        P, R, C, _max_rows,
+        torch.cuda.current_stream(cost.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"hungarian kernel launch failed: cudaError {err}")

@@ -16,13 +16,19 @@ import pytest
 import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-from chip_smoke import bf16_step, dcn_kinks, lidar_cloud, msda_kinks  # noqa: E402
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))  # lsa_iou_cases
+from chip_smoke import (bf16_step, dcn_kinks, lidar_cloud, msda_kinks,  # noqa: E402
+                        pretest_skips)
 from graph_detr4d_tpu_torch.ops import deform_conv as dcn_ops  # noqa: E402
 from graph_detr4d_tpu_torch.ops import focal_loss as focal_ops  # noqa: E402
 from graph_detr4d_tpu_torch.ops import hungarian as lsa_ops  # noqa: E402
 from graph_detr4d_tpu_torch.ops import msda as msda_ops  # noqa: E402
 from graph_detr4d_tpu_torch.ops import voxelize as vox_ops  # noqa: E402
 from graph_detr4d_tpu_torch.core import iou3d  # noqa: E402
+from lsa_iou_cases import RESIDENT_ROWS, iou_pairs, lsa_cases  # noqa: E402
+
+LSA_CASES = lsa_cases()
+IOU_PAIRS = iou_pairs(iou3d.PRETEST_MARGIN)
 
 
 @pytest.fixture
@@ -362,6 +368,62 @@ def test_hungarian_kernel_matches_plain(cuda):
     assert got.dtype == torch.int32
     torch.testing.assert_close(got, want, rtol=0, atol=0)
     assert (got[4] == -1).all() and (got[6, 9:] == -1).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_rows", [0, RESIDENT_ROWS])
+@pytest.mark.parametrize("name", sorted(LSA_CASES))
+def test_hungarian_kernel_planted_cases(cuda, monkeypatch, name, max_rows):
+    """The planted problems of the CPU tests (long augmenting paths,
+    num_valid around RESIDENT_ROWS, square): identical to the plain
+    version with all rows resident and with RESIDENT_ROWS row slots (rows
+    past them through the ring and L2)."""
+    monkeypatch.setattr(lsa_ops, "_max_rows", max_rows)
+    cost, num_valid = (torch.from_numpy(a) for a in LSA_CASES[name])
+    want = lsa_ops.hungarian_assignment_plain(cost, num_valid)
+    got = lsa_ops.hungarian_assignment(cost.to(cuda), num_valid.to(cuda))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_hungarian_kernel_beyond_shared_memory(cuda):
+    """The flagship's shape with every row valid: 128 rows x 900 columns,
+    more rows than the 62 that shared memory holds, so rows 54-127 come
+    through the ring and L2; identical to the plain version."""
+    rng = np.random.RandomState(7)
+    cost = torch.from_numpy(rng.rand(2, 128, 900).astype(np.float32))
+    cost[1] = torch.round(cost[1] * 8) / 8
+    nv = torch.tensor([128, 100], dtype=torch.int32)
+    got = lsa_ops.hungarian_assignment(cost.to(cuda), nv.to(cuda))
+    want = lsa_ops.hungarian_assignment_plain(cost, nv)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_hungarian_kernel_takes_the_hdetr_one2many_shape(cuda):
+    """H-DETR's one2many matching: 6 x 128 = 768 rows x 1,800 columns.
+    num_valid 200: identical to the plain version; 768: a matching whose
+    summed cost is scipy's optimum within 1e-5."""
+    import scipy.optimize
+
+    lib = lsa_ops._lib()
+    assert lib.lsa_max_cols(768) >= 1800
+    rng = np.random.RandomState(9)
+    cost = rng.rand(2, 768, 1800).astype(np.float32)
+    nv = torch.tensor([200, 768], dtype=torch.int32)
+    got = lsa_ops.hungarian_assignment(torch.from_numpy(cost).to(cuda),
+                                       nv.to(cuda)).cpu().numpy()
+    torch.cuda.synchronize()
+    want = lsa_ops.hungarian_assignment_plain(torch.from_numpy(cost[:1]),
+                                              nv[:1]).numpy()
+    np.testing.assert_array_equal(got[0], want[0])
+    assert len(set(got[1].tolist())) == 768
+    rows, cols = scipy.optimize.linear_sum_assignment(cost[1])
+    np.testing.assert_allclose(
+        cost[1, np.arange(768), got[1]].astype(np.float64).sum(),
+        cost[1, rows, cols].astype(np.float64).sum(), rtol=1e-5)
 
 
 @pytest.mark.cuda
@@ -895,14 +957,51 @@ def test_iou3d_kernel_matches_plain(cuda, mode):
     b2[7, :3], b2[7, 6] = b1[7, :3], b1[7, 6]
     b2[8, 5] = 0.0  # zero height
     b1t, b2t = torch.from_numpy(b1).to(cuda), torch.from_numpy(b2).to(cuda)
+    skipped = torch.zeros(1, dtype=torch.int64, device=cuda)
     n0 = iou3d.launches
-    got = iou3d.bbox_overlaps_3d(b1t, b2t, mode)
+    got = iou3d.bbox_overlaps_3d(b1t, b2t, mode, skipped=skipped)
     want = iou3d.bbox_overlaps_3d_plain(b1t, b2t, mode)
     torch.cuda.synchronize()
     assert iou3d.launches == n0 + 1
     assert got.shape == (300, 128)
     assert (got - want).abs().max().item() <= 1e-5
     assert (want > 0.1).sum().item() > 100
+    # the kernel's count of the pairs it did not clip is its pre-test's
+    assert int(skipped) == int(pretest_skips(b1t, b2t, mode).sum()) > 30000
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["iou", "iof", "bev"])
+@pytest.mark.parametrize("case", sorted(IOU_PAIRS))
+def test_iou3d_kernel_planted_pairs(cuda, case, mode):
+    """The planted pairs of the CPU tests (gaps around the pre-test's
+    margin, touching, inside, a quarter turn) within 1e-5 of the plain
+    version; the pairs the pre-test skips are exactly 0, and the kernel
+    counts as many skipped pairs as chip_smoke.pretest_skips marks."""
+    b1, b2 = (torch.from_numpy(a).to(cuda) for a in IOU_PAIRS[case])
+    skipped = torch.zeros(1, dtype=torch.int64, device=cuda)
+    got = iou3d.bbox_overlaps_3d(b1, b2, mode, skipped=skipped)
+    want = iou3d.bbox_overlaps_3d_plain(b1, b2, mode)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= 1e-5
+    skip = pretest_skips(b1, b2, mode)
+    assert (got[skip] == 0).all() and (want[skip] == 0).all()
+    assert int(skipped) == int(skip.sum())
+
+
+@pytest.mark.cuda
+def test_iou3d_kernel_reads_strided_boxes(cuda):
+    """(M, 9) boxes and a column slice are read in place (row stride 9)."""
+    rng = np.random.RandomState(13)
+    wide = torch.from_numpy(rng.uniform(0.5, 3.0, (40, 9)).astype(np.float32))
+    wide[:, :2] = torch.from_numpy(rng.uniform(-4, 4, (40, 2)).astype(np.float32))
+    wide = wide.to(cuda)
+    got = iou3d.bbox_overlaps_3d(wide[:25], wide[10:])
+    want = iou3d.bbox_overlaps_3d_plain(wide[:25, :7].contiguous(),
+                                        wide[10:, :7].contiguous())
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= 1e-5
+    assert (want > 0.1).sum().item() > 20
 
 
 @pytest.mark.cuda
