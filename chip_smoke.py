@@ -34,7 +34,9 @@ IoU, and prints one JSON line per phase:
               H-DETR's one2many shape (768 x 1,800) identical at
               num_valid 200 and scipy's optimum at 768; after phase train
               also on that step's own cost matrices (row
-              hungarian_train_costs);
+              hungarian_train_costs); K5 the same way on that step's
+              own inputs (row focal_loss_train_inputs), its loss bitwise
+              equal over two calls;
   3. serve    serve.Engine answers 4 requests from synthetic_batch; time
               per request (CUDA events), peak memory, cam_overflow, valid
               detections and the launch counters (K1 6 and K2 forward 9
@@ -101,14 +103,17 @@ Phase `kernels` also holds K3 (the fused int8-table conv, fp32 within
 1e-4 and bf16 within one bf16 step of the output's magnitude, both
 strides, the flagship's 7 int8 DCN shapes, with `gemm_ref_ms` as K2's),
 K6 (the lidar phase's clouds: ids exactly and rows within 1e-5, the max
-exactly, its backward within 1e-6 of the gradient's magnitude on raw and
-relu'd features) and K7 (900 x 900 and 300 x 128, with the host's us per
+exactly on raw and relu'd features and on the cloud in scan order
+(`scan_order`: by sweep, then azimuth), each timed (`ms`, `relu_ms`,
+`scan_order_ms`), its backward within 1e-6 of the gradient's magnitude on
+raw and relu'd features) and K7 (900 x 900 and 300 x 128, with the host's us per
 call and the share of pairs its pre-test skips) to their plain
 versions, with the time of one PyTorch call that computes the same
 function where there is one (K6: scatter_reduce_ 'amax' for the grid,
 index_add_ for the cell sums; the backward beside autograd's own backward
 of scatter_reduce_, several calls), and the host time and device kernels
-of one K6 features call and of one index_add_. K1's forward lists its
+of one K6 features call and of one index_add_, of one K6 scatter call
+and of one K5 call. K1's forward lists its
 device kernels too. K1's backward is checked and timed twice:
 on uniform samples (the table's row) and on samples clustered around 50
 reference points per camera at 3 pixels' spread, as a trained model's
@@ -310,6 +315,21 @@ def device_breakdown(fn):
         torch.cuda.synchronize()
     return [[e.key[:60], dev_us(e) / 1e3, e.count]
             for e in sorted(device_events(prof), key=dev_us, reverse=True)]
+
+
+def launch_device_ms(fn, kernel, tries=3):
+    """Device ms of the one kernel, named `kernel`, that one call of fn
+    launches: from the first of `tries` device_breakdown traces that lists
+    that launch once and nothing else. The profiler can miss a launch (a
+    cooperative one; K4 and K5 after phase train), so where no trace shows
+    it the time is None, not a sum over an empty list. Returns
+    (breakdown, ms)."""
+    for _ in range(tries):
+        device = device_breakdown(fn)
+        if (len(device) == 1 and kernel in device[0][0]
+                and device[0][2] == 1):
+            return device, device[0][1]
+    return device, None
 
 
 def check_close(name, got, want, dtype, bf16_tol=None):
@@ -713,38 +733,67 @@ def kernel_focal_loss(dev, gen):
     labels = torch.randint(0, C + 1, (layers, N), generator=gen).to(dev)
     weights = torch.rand(layers, N, generator=gen).to(dev)
     avg = (torch.rand(layers, generator=gen) * 40 + 1).to(dev)
-    loss, grad = focal_ops.focal_loss_with_grad(logits, labels, weights, avg)
-    leaf = logits.clone().requires_grad_()
-    want = focal_ops.sigmoid_focal_loss_plain(leaf, labels, weights, avg)
-    (want_grad,) = torch.autograd.grad(want.sum(), leaf)
-    loss_err = ((loss - want).abs() / want.abs()).max().item()
-    grad_err = (grad - want_grad).abs().max().item()
-    grad_scale = want_grad.abs().max().item()
-    if not (loss_err <= 1e-5 and grad_err <= 1e-5 * grad_scale):
-        raise AssertionError(f"focal_loss: loss rel {loss_err}, grad {grad_err}"
-                             f" of {grad_scale}")
-    ms = cuda_ms(lambda: focal_ops.focal_loss_with_grad(logits, labels,
-                                                        weights, avg), 50)
+    rec = focal_loss_record(logits, labels, weights, avg, 0.25, 2.0)
+    checks = {k: rec.pop(k) for k in ("loss_rel", "grad_abs", "grad_scale",
+                                      "deterministic")}
 
     def plain():
         leaf = logits.clone().requires_grad_()
         out = focal_ops.sigmoid_focal_loss_plain(leaf, labels, weights, avg)
         torch.autograd.grad(out.sum(), leaf)
 
-    plain_ms = cuda_ms(plain, 20)
     n = logits.numel()
     # read logits, labels, weights, avg; write the loss and dlogits
     bytes_ = n * 4 + labels.numel() * 8 + weights.numel() * 4 + layers * 8 + n * 4
     t_bytes = bytes_ / PEAK_BYTES_PER_S
-    t_ops = 40 * n / PEAK_FP32_FLOPS  # exp, log1p, pow, ~40 flops each
-    record = dict(checks={"loss_rel": loss_err, "grad_abs": grad_err,
-                          "grad_scale": grad_scale},
-                  max_abs_err=max((loss - want).abs().max().item(), grad_err),
-                  ms=ms, plain_ms=plain_ms, bound_ms=1e3 * max(t_bytes, t_ops),
-                  bound_by="bytes" if t_bytes >= t_ops else "operations")
+    t_ops = 40 * n / PEAK_FP32_FLOPS  # exp, log1p and the rest, ~40 flops
+    record = dict(checks=checks,
+                  max_abs_err=max(rec.pop("loss_abs"), checks["grad_abs"]),
+                  plain_ms=cuda_ms(plain, 20), bound_ms=1e3 * max(t_bytes, t_ops),
+                  bound_by="bytes" if t_bytes >= t_ops else "operations", **rec)
     emit({"phase": "kernels", "kernel": "focal_loss",
           "shape": [layers, N, C], **record})
     return record
+
+
+def focal_loss_record(logits, labels, weights, avg, alpha, gamma):
+    """K5 on given inputs against autograd of the plain version (loss
+    within 1e-5 relative, gradient within 1e-5 of its magnitude, the loss
+    bitwise equal over two calls): CUDA-event ms, host us a call and the
+    device kernels of one call."""
+    def kernel():
+        return focal_ops.focal_loss_with_grad(logits, labels, weights, avg,
+                                              alpha, gamma)
+
+    loss, grad = kernel()
+    again, _ = kernel()
+    leaf = logits.clone().requires_grad_()
+    want = focal_ops.sigmoid_focal_loss_plain(leaf, labels, weights, avg,
+                                              alpha, gamma)
+    (want_grad,) = torch.autograd.grad(want.sum(), leaf)
+    rec = dict(loss_rel=((loss - want).abs() / want.abs()).max().item(),
+               loss_abs=(loss - want).abs().max().item(),
+               grad_abs=(grad - want_grad).abs().max().item(),
+               grad_scale=want_grad.abs().max().item(),
+               deterministic=torch.equal(loss, again),
+               ms=cuda_ms(kernel, 50), host_us_per_call=host_us(kernel))
+    rec["device_ms_per_call"], rec["kernel_device_ms"] = launch_device_ms(
+        kernel, "focal_loss_kernel")
+    if not (rec["loss_rel"] <= 1e-5 and rec["deterministic"]
+            and rec["grad_abs"] <= 1e-5 * rec["grad_scale"]):
+        raise AssertionError(f"focal_loss: {rec}")
+    return rec
+
+
+def kernel_focal_loss_train(calls):
+    """K5 on the flagship train step's own inputs (phase train's warm-up
+    step, recorded by record_focal_inputs): 6 layers x 900 queries x 10
+    classes, 40 boxes' labels, the step's label weights and avg_factor."""
+    (args, kw), = calls
+    rec = focal_loss_record(*args, kw["alpha"], kw["gamma"])
+    emit({"phase": "kernels", "kernel": "focal_loss_train_inputs",
+          "shape": list(args[0].shape), **rec})
+    return rec
 
 
 def hungarian_record(cost, nv):
@@ -762,8 +811,7 @@ def hungarian_record(cost, nv):
     def call():
         return lsa_ops.hungarian_assignment(cost, nv)
 
-    device = device_breakdown(call)
-    kernel_ms = sum(ms for name, ms, _ in device if "lsa_kernel" in name)
+    device, kernel_ms = launch_device_ms(call, "lsa_kernel")
     P, R, C = cost.shape
     # the work depends on the data: the valid rows are read once (the
     # kernel keeps the rows it reads in shared memory), and each Dijkstra
@@ -776,7 +824,8 @@ def hungarian_record(cost, nv):
                 longest_steps=max(steps), ms=cuda_ms(call, 20),
                 host_us_per_call=host_us(call), device_ms_per_call=device,
                 kernel_device_ms=kernel_ms,
-                ns_per_step=1e6 * kernel_ms / max(max(steps), 1),
+                ns_per_step=(None if kernel_ms is None
+                             else 1e6 * kernel_ms / max(max(steps), 1)),
                 bound_ms=1e3 * max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
@@ -946,6 +995,18 @@ def lidar_cloud(seed, n=LIDAR_POINTS):
     return pts, mask
 
 
+def scan_order(pts, mask):
+    """The order in which a 10-sweep cloud of lidar_cloud's layout
+    arrives: its valid points by sweep (the time lag, feature 4), then
+    azimuth, the masked padded tail last. Returns a permutation of the
+    points (numpy, int64)."""
+    n = pts.shape[1]
+    valid = np.flatnonzero(mask[0] > 0)
+    p = pts[0, valid]
+    order = valid[np.lexsort((np.arctan2(p[:, 1], p[:, 0]), p[:, 4]))]
+    return np.concatenate([order, np.setdiff1d(np.arange(n), valid)])
+
+
 def kernel_voxelize(dev, gen):
     """K6 at the lidar phase's first cloud: kernels A + B (ids and
     augmented rows) and kernel C (max-scatter of 64-channel features,
@@ -992,23 +1053,46 @@ def kernel_voxelize(dev, gen):
           "shape": [1, P, LIDAR_FEATURES], "grid": LIDAR_GRID, **features})
 
     feats = (torch.randn(1, P, 64, generator=gen) - 0.5).to(dev)
-    got = vox_ops.pillar_scatter(feats, ids, LIDAR_GRID)
-    want = vox_ops.pillar_scatter_plain(feats, ids, LIDAR_GRID)
-    if not torch.equal(got, want):
-        raise AssertionError("pillar_scatter: max differs from the plain "
-                             f"version by {(got - want).abs().max().item()}")
+    # the same cloud as it arrives (by sweep, then azimuth), its ids
+    # computed from the sorted points; and relu'd features, as
+    # PillarEncoder gives them (ties at 0)
+    order = torch.from_numpy(scan_order(pts_np, mask_np)).to(dev)
+    scan_ids, _ = vox_ops.pillar_features(pts[:, order], mask[:, order], pc,
+                                          LIDAR_GRID)
+    if not torch.equal(scan_ids, ids[:, order]):
+        raise AssertionError("pillar_features: ids depend on the points' order")
+    cases = {"raw": (feats, ids), "relu": (torch.relu(feats + 0.5), ids),
+             "scan_order": (feats[:, order].contiguous(), scan_ids)}
+    for name, (f, i) in cases.items():
+        got = vox_ops.pillar_scatter(f, i, LIDAR_GRID)
+        want = vox_ops.pillar_scatter_plain(f, i, LIDAR_GRID)
+        if not torch.equal(got, want):
+            raise AssertionError(
+                f"pillar_scatter {name}: max differs from the plain version by "
+                f"{(got - want).abs().max().item()}")
+        if name == "raw":
+            negative = int((got < 0).sum())
     idx = seg[:, None].expand(-1, 64)
     grid = torch.zeros(H * W + 1, 64, device=dev)
     scatter_bytes = P * 64 * 4 + P * 4 + H * W * 64 * 4
+
+    def scatter_kernel(f=feats, i=ids):
+        return vox_ops.pillar_scatter(f, i, LIDAR_GRID)
+
     scatter = dict(
-        checks={"equal": True, "negative_cells": int((got < 0).sum())},
+        checks={"equal": list(cases), "negative_cells": negative},
         max_abs_err=0.0,
-        ms=cuda_ms(lambda: vox_ops.pillar_scatter(feats, ids, LIDAR_GRID), 20),
+        ms=cuda_ms(scatter_kernel, 20),
+        relu_ms=cuda_ms(lambda: scatter_kernel(*cases["relu"]), 20),
+        scan_order_ms=cuda_ms(lambda: scatter_kernel(*cases["scan_order"]), 20),
         plain_ms=cuda_ms(lambda: vox_ops.pillar_scatter_plain(
             feats, ids, LIDAR_GRID), 3),
         library_ms=cuda_ms(lambda: grid.scatter_reduce_(
             0, idx, feats[0], "amax", include_self=False), 20),
-        bound_ms=1e3 * scatter_bytes / PEAK_BYTES_PER_S, bound_by="bytes")
+        bound_ms=1e3 * scatter_bytes / PEAK_BYTES_PER_S, bound_by="bytes",
+        host_us_per_call=host_us(scatter_kernel))
+    scatter["device_ms_per_call"], scatter["kernel_device_ms"] = (
+        launch_device_ms(scatter_kernel, "scatter_max_kernel"))
     emit({"phase": "kernels", "kernel": "pillar_scatter",
           "shape": [1, P, 64], "grid": LIDAR_GRID, **scatter})
     return features, scatter, kernel_scatter_backward(feats, ids, gen, dev)
@@ -1718,6 +1802,25 @@ def plain_kernels(routes=KERNEL_ROUTES):
 
 
 @contextlib.contextmanager
+def record_focal_inputs(calls):
+    """Append ((logits, labels, weights, avg_factor), {alpha, gamma}) of
+    every K5 call (whichever route is active) to `calls`."""
+    inner = focal_ops.sigmoid_focal_loss
+
+    def recording(logits, labels, weights, avg_factor, alpha=0.25, gamma=2.0):
+        calls.append((tuple(t.detach().clone() for t in
+                            (logits, labels, weights, avg_factor)),
+                      {"alpha": alpha, "gamma": gamma}))
+        return inner(logits, labels, weights, avg_factor, alpha, gamma)
+
+    focal_ops.sigmoid_focal_loss = recording
+    try:
+        yield
+    finally:
+        focal_ops.sigmoid_focal_loss = inner
+
+
+@contextlib.contextmanager
 def record_assignments(calls):
     """Append (cost, num_valid, col4row) of every K4 call (whichever route
     is active) to `calls`."""
@@ -1783,8 +1886,8 @@ def train_batch(cfg):
 
 
 def phase_train(cfg, sd, work_dir):
-    """Trainer at full width: 1 warm-up step (its K4 call recorded, for
-    kernel_hungarian_train), then TRAIN_STEPS timed ones with the launch
+    """Trainer at full width: 1 warm-up step (its K4 and K5 calls
+    recorded, for kernel_hungarian_train and kernel_focal_loss_train), then TRAIN_STEPS timed ones with the launch
     counters counted from 0 just before them."""
     batch = train_batch(cfg)
     trainer = Trainer(cfg, sd, itertools.repeat(batch), work_dir, seed=0)
@@ -1792,8 +1895,8 @@ def phase_train(cfg, sd, work_dir):
     main_w = "pts_bbox_head.cls_branches.0.0.weight"
     before = {k: trainer.model.state_dict()[k].clone()
               for k in (frozen, main_w)}
-    assignments = []
-    with record_assignments(assignments):
+    assignments, focal_inputs = [], []
+    with record_assignments(assignments), record_focal_inputs(focal_inputs):
         trainer.fit(1, log_interval=1)  # warm-up: cuDNN / cuBLAS choices
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1829,7 +1932,7 @@ def phase_train(cfg, sd, work_dir):
         raise AssertionError(f"frozen {frozen} changed")
     if torch.equal(after[main_w], before[main_w]):
         raise AssertionError(f"main-group {main_w} did not change")
-    return trainer, batch, launches, assignments
+    return trainer, batch, launches, assignments, focal_inputs
 
 
 def phase_train_breakdown(trainer, batch):
@@ -1968,12 +2071,13 @@ def main():
     phase_plain(cfg, sd)
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as work_dir:
-        trainer, batch, train_launches, assignments = phase_train(
+        trainer, batch, train_launches, assignments, focal_inputs = phase_train(
             cfg, sd, work_dir)
         phase_train_breakdown(trainer, batch)
         del trainer
     torch.cuda.empty_cache()
     kernels["hungarian"]["train_costs"] = kernel_hungarian_train(dev, assignments)
+    kernels["focal_loss"]["train_inputs"] = kernel_focal_loss_train(focal_inputs)
     phase_train_plain(cfg, sd)
     torch.cuda.empty_cache()
     lidar_sd = lidar_state_dict()
@@ -2052,8 +2156,20 @@ def main():
             row["longest_steps"] = k["longest_steps"]
             row["ns_per_step"] = k["ns_per_step"]
             row["train_costs_ns_per_step"] = k["train_costs"]["ns_per_step"]
-        if "pretest_skipped_share" in k:
+        if "host_us_per_call" in k:
             row["host_us_per_call"] = k["host_us_per_call"]
+        if name in ("focal_loss", "pillar_scatter"):
+            row["device_ms_per_call"] = k["kernel_device_ms"]
+        if "relu_ms" in k:
+            row["relu_ms"] = k["relu_ms"]
+            row["scan_order_ms"] = k["scan_order_ms"]
+        if "train_inputs" in k:
+            row["train_inputs_ms"] = k["train_inputs"]["ms"]
+            row["train_inputs_host_us_per_call"] = k["train_inputs"][
+                "host_us_per_call"]
+            row["train_inputs_device_ms_per_call"] = k["train_inputs"][
+                "kernel_device_ms"]
+        if "pretest_skipped_share" in k:
             row["pretest_skipped_share"] = k["pretest_skipped_share"]
         if "clustered" in k:
             row["clustered_ms"] = k["clustered"]["ms"]

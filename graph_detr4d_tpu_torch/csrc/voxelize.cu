@@ -13,17 +13,23 @@
 // ms for 300,000 points) and, at these sizes, the host: a call launches
 // one kernel and no memset, and its caller passes the grid's geometry as
 // plain floats.
-// pillar_scatter_max (kernel C): the grid filled with -inf, then one thread
-// per (point, channel) folds its feature into its cell with a float
-// atomic max (atomicMax on the int bits for a non-negative value,
-// atomicMin on the unsigned bits for a negative one, so any float orders
-// correctly), then every cell that is still not finite is set to 0, as the
-// JAX op's `where(isfinite(out), out, 0)`. What bounds it: bytes, and
-// atomics where many points share a pillar: it reads (P, C) features once
-// and touches the (H*W, C) grid. Consecutive threads take consecutive
-// channels of one point, so feature reads and the atomics into a cell's
-// row coalesce, and a thread whose value cannot raise the cell's current
-// maximum skips its atomic.
+// pillar_scatter_max (kernel C, scatter_max_kernel): the per-cell max, one
+// cooperative launch (no fill kernel, no memset, no fix-up kernel). What
+// bounds it: bytes, the (P, C) features read once (77 MB at 300,000 points
+// x 64 channels, ~0.023 ms), and the L2 atomics that fold them into the
+// (H*W, C) grid (4.2 MB, kept in L2: the features are streamed past it
+// evict-first). The grid holds an order-preserving uint32 key of each
+// float (one unsigned atomicMax for either sign; 0 = no point; every NaN
+// the largest key), zeroed, scattered and decoded in place (non-finite ->
+// 0) between two grid-wide barriers. A warp takes 32 consecutive points:
+// ids loaded once, coalesced, one division per point; lane t takes
+// columns t, t + 32, ... of a point's row, so each atomic instruction
+// covers 128 contiguous bytes of one cell
+// (16-byte loads a lane would leave each atomic instruction spread over
+// 16 sectors: measured slower); 8 points' loads are issued before their
+// atomics; consecutive points of one cell fold into one atomic. Reading
+// the cell's key first to skip atomics that cannot raise it was measured
+// slower in every layout tried (PERF.md), so every run issues its atomic.
 // pillar_scatter_max_backward (kernels D and E): the max's gradient, each
 // cell's gradient split evenly between the points that hold its max (D
 // counts them, E divides). Bytes again: features, ids and grad_out read,
@@ -42,6 +48,7 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
 
 __device__ __forceinline__ double warp_sum(double v) {
 #pragma unroll
@@ -230,49 +237,177 @@ __global__ void __launch_bounds__(kThreads) pillar_features_kernel(
   }
 }
 
-__global__ void fill_kernel(float* __restrict__ out, int64_t n, float v) {
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < n; i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    out[i] = v;
+// The forward max-scatter keeps each (cell, channel)'s running max as an
+// order-preserving uint32 key of the float, in the output buffer itself:
+// one atomicMax on unsigned ints orders every float of either sign, and
+// key 0 means "no point yet". Every NaN, of either sign, maps to the
+// largest key, so a cell holding one ends NaN, as segment_max and
+// scatter_reduce_'s amax propagate it.
+__device__ __forceinline__ unsigned order_key(float v) {
+  const unsigned b = __float_as_uint(v);
+  return isnan(v) ? 0xffffffffu : b ^ ((b >> 31) ? 0xffffffffu : 0x80000000u);
+}
+
+// The float a key stands for, 0 where that is not finite: a NaN or +inf
+// max, a cell whose points were all -inf, and key 0 (no point; it decodes
+// to a NaN), as the JAX op's where(isfinite(out), out, 0).
+__device__ __forceinline__ float key_value(unsigned k) {
+  const float v = __uint_as_float(k ^ ((k >> 31) ? 0x80000000u : 0xffffffffu));
+  return isfinite(v) ? v : 0.f;
+}
+
+// Points a warp loads at once, before any of their atomics.
+constexpr int kBatch = 8;
+
+// Columns a lane reads of a point's row at a time: lane t takes col0 + t
+// and col0 + t + 32. Only C = 64 has been timed (the model's width); any C
+// runs, in groups of 64 columns.
+constexpr int NW = 2;
+
+// Columns col0 + lane + 32 w (w < NW; those >= C take no part) of the
+// warp's 32 points p0 .. p0 + 31. cell: point p0 + lane's flat cell b *
+// hw + cell, -1 for the trash cell, -2 past the last point. A point's NW
+// loads are issued together, so its row is read in one sweep. Consecutive
+// points of one cell fold in registers into one run (a run is the same
+// for every lane, so its atomics coalesce: 32 consecutive keys, 128
+// bytes), and a run flushes with one atomicMax a column.
+__device__ __forceinline__ void scatter_columns(const float* __restrict__ feats,
+                                                unsigned* keys, int cell,
+                                                int64_t p0, int C, int col0) {
+  int col[NW];
+  bool ok[NW];
+#pragma unroll
+  for (int w = 0; w < NW; ++w) {
+    col[w] = col0 + (threadIdx.x & 31) + 32 * w;
+    ok[w] = col[w] < C;
+  }
+  int run_cell = -1;
+  unsigned run[NW];
+#pragma unroll
+  for (int w = 0; w < NW; ++w) run[w] = 0u;
+  auto flush = [&]() {
+    if (run_cell < 0) return;
+    unsigned* dst = keys + static_cast<int64_t>(run_cell) * C;
+#pragma unroll
+    for (int w = 0; w < NW; ++w)
+      if (ok[w]) atomicMax(dst + col[w], run[w]);
+  };
+#pragma unroll
+  for (int k0 = 0; k0 < 32; k0 += kBatch) {
+    int cells[kBatch];
+    float v[kBatch][NW];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u)
+      cells[u] = __shfl_sync(0xffffffffu, cell, k0 + u);
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const float* row = feats + (p0 + k0 + u) * C;
+#pragma unroll
+      for (int w = 0; w < NW; ++w)  // streamed once: evict-first in L2
+        v[u][w] = cells[u] >= 0 && ok[w] ? __ldcs(row + col[w]) : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      if (cells[u] != run_cell) {
+        flush();
+        run_cell = cells[u];
+#pragma unroll
+        for (int w = 0; w < NW; ++w) run[w] = 0u;
+      }
+      if (cells[u] >= 0) {
+#pragma unroll
+        for (int w = 0; w < NW; ++w) run[w] = max(run[w], order_key(v[u][w]));
+      }
+    }
+  }
+  flush();
+}
+
+// Phase 0 of the forward: every key 0, 16 bytes a thread (the keys are
+// 16-byte aligned), the last n_cells % 4 one at a time.
+__device__ __forceinline__ void zero_keys(unsigned* keys, int64_t n_cells,
+                                          int64_t tid, int64_t stride) {
+  uint4* k4 = reinterpret_cast<uint4*>(keys);
+  for (int64_t i = tid; i < n_cells / 4; i += stride)
+    k4[i] = make_uint4(0u, 0u, 0u, 0u);
+  if (tid < n_cells % 4) keys[n_cells - n_cells % 4 + tid] = 0u;
+}
+
+// The last phase: every key decoded to its float in place, as zero_keys
+// walks them.
+__device__ __forceinline__ void decode_keys(unsigned* keys, int64_t n_cells,
+                                            int64_t tid, int64_t stride) {
+  const uint4* k4 = reinterpret_cast<const uint4*>(keys);
+  float4* o4 = reinterpret_cast<float4*>(keys);
+  for (int64_t i = tid; i < n_cells / 4; i += stride) {
+    const uint4 k = __ldcg(k4 + i);
+    o4[i] = make_float4(key_value(k.x), key_value(k.y), key_value(k.z),
+                        key_value(k.w));
+  }
+  if (tid < n_cells % 4) {
+    const int64_t i = n_cells - n_cells % 4 + tid;
+    reinterpret_cast<float*>(keys)[i] = key_value(__ldcg(keys + i));
   }
 }
 
-__device__ __forceinline__ void atomic_max_float(float* addr, float v) {
-  if (!signbit(v)) {
-    atomicMax(reinterpret_cast<int*>(addr), __float_as_int(v));
-  } else {
-    atomicMin(reinterpret_cast<unsigned*>(addr), __float_as_uint(v));
-  }
+// Point p0 + lane's flat cell b * hw + cell: -1 for the trash cell, -2
+// past the last point (one division per point).
+__device__ __forceinline__ int flat_cell(const int* __restrict__ ids,
+                                         int64_t p0, int64_t n_pts, int P,
+                                         int hw) {
+  const int64_t pt = p0 + (threadIdx.x & 31);
+  if (pt >= n_pts) return -2;
+  const int id = ids[pt];
+  return id < hw ? static_cast<int>(pt / P) * hw + id : -1;
 }
 
-__global__ void scatter_max_kernel(const float* __restrict__ feats,  // (B, P, C)
-                                   const int* __restrict__ ids,      // (B, P)
-                                   float* __restrict__ out,  // (B, H*W, C)
-                                   int64_t n, int P, int C, int hw) {
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < n; i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    const int64_t pt = i / C;
-    const int c = static_cast<int>(i - pt * C);
-    const int cell = ids[pt];
-    if (cell >= hw) continue;  // the trash cell is not part of the grid
-    float* dst = out + ((pt / P) * hw + cell) * C + c;
-    const float v = feats[i];
-    if (!(v <= *dst)) atomic_max_float(dst, v);  // skip what cannot raise it
+// The forward max-scatter for any C, in one cooperative launch, three
+// phases between grid-wide barriers: every key 0; the scatter, a warp per
+// 32 consecutive points, NW columns a lane at a time (groups of 32 NW
+// columns) read from device memory into registers; every key decoded.
+__global__ void __launch_bounds__(kThreads) scatter_max_kernel(
+    const float* __restrict__ feats,  // (B, P, C)
+    const int* __restrict__ ids,      // (B, P)
+    unsigned* keys,                   // (B, hw, C): the output, as keys
+    int64_t n_pts, int64_t n_cells, int P, int C, int hw) {
+  cg::grid_group grid = cg::this_grid();
+  const int64_t tid = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
+  zero_keys(keys, n_cells, tid, stride);
+  grid.sync();
+  const int lane = threadIdx.x & 31;
+  for (int64_t p0 = tid - lane; p0 < n_pts; p0 += stride) {
+    const int cell = flat_cell(ids, p0, n_pts, P, hw);
+    for (int col0 = 0; col0 < C; col0 += 32 * NW)
+      scatter_columns(feats, keys, cell, p0, C, col0);
   }
+  grid.sync();
+  decode_keys(keys, n_cells, tid, stride);
 }
 
-__global__ void zero_nonfinite_kernel(float* __restrict__ out, int64_t n) {
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < n; i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    if (!isfinite(out[i])) out[i] = 0.f;
+// The most blocks of a kernel that fit on the current device at once with
+// smem bytes of dynamic shared memory (at most 48 KB), cached per call
+// site in cache: {device, smem, blocks}. Returns 0 on an error.
+template <typename Kernel>
+int coresident_blocks(Kernel kernel, size_t smem, int cache[3]) {
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  if (dev != cache[0] || static_cast<int>(smem) != cache[1]) {
+    int per_sm = 0, sms = 0;
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads,
+                                                      smem) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess)
+      return 0;
+    cache[0] = dev, cache[1] = static_cast<int>(smem), cache[2] = per_sm * sms;
   }
+  return cache[2];
 }
 
 // Set in a cell's winner count when one of its values is NaN or +inf: its
 // max then was not finite, the forward wrote 0 there, and the cell passes
 // no gradient.
 constexpr unsigned kNonFinite = 0x80000000u;
-constexpr int kWarps = kThreads / 32;
 
 // The backward's layout: a warp takes 32 consecutive points, a lane per
 // channel (c = lane, lane + 32, ...). Lane t first finds point t's cell
@@ -286,10 +421,8 @@ constexpr int kPointUnroll = 4;
 __device__ __forceinline__ int64_t cell_row(const int* __restrict__ ids,
                                             int64_t p0, int64_t n_pts, int P,
                                             int C, int hw) {
-  const int64_t pt = p0 + (threadIdx.x & 31);
-  if (pt >= n_pts) return -2;
-  const int cell = ids[pt];
-  return cell < hw ? ((pt / P) * hw + cell) * C : -1;
+  const int cell = flat_cell(ids, p0, n_pts, P, hw);
+  return cell >= 0 ? static_cast<int64_t>(cell) * C : cell;
 }
 
 // Backward, pass 1 (kernel D): per (cell, channel), the number of points
@@ -417,26 +550,11 @@ int pillar_features(const void* points, const void* mask, void* ids,
   if (n == 0 || F < 3 || F > 42 || H <= 0 || W <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = sizeof(float) * kThreads * (F + 5);
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  // the most blocks that fit at once, per device and row width
-  static int cached_dev = -1, cached_f = -1, cached_blocks = 0;
-  if (dev != cached_dev || F != cached_f) {
-    int per_sm = 0, sms = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, pillar_features_kernel, kThreads, smem);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    cached_blocks = per_sm * sms;
-    cached_dev = dev;
-    cached_f = F;
-  }
+  static int cache[3] = {-1, -1, 0};
+  const int most = coresident_blocks(pillar_features_kernel, smem, cache);
+  if (most == 0) return static_cast<int>(cudaErrorInvalidConfiguration);
   const int64_t want = (n + kThreads - 1) / kThreads;
-  const unsigned blocks = static_cast<unsigned>(
-      want < cached_blocks ? want : cached_blocks);
-  if (blocks == 0) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const unsigned blocks = static_cast<unsigned>(want < most ? want : most);
   // each point's term below 2^(62 - bits of P): P of them sum below 2^62
   int bits = 0;
   while ((P >> bits) != 0) ++bits;
@@ -459,28 +577,31 @@ int pillar_features(const void* points, const void* mask, void* ids,
 }
 
 // Kernel C. feats (B, P, C) float32, ids (B, P) int32 in [0, hw] (hw =
-// trash); out (B, hw, C) float32 is written. Returns the cudaError_t.
+// trash), B * (hw + 1) < 2^31; out (B, hw, C) float32, 16-byte aligned (a
+// fresh allocation), is written. One cooperative launch of as many blocks
+// as the work wants and the card holds at once. Returns the cudaError_t of
+// the launch.
 int pillar_scatter_max(const void* feats, const void* ids, void* out, int B,
                        int P, int C, int hw, void* stream) {
-  const int64_t n = static_cast<int64_t>(B) * P * C;
-  const int64_t cells = static_cast<int64_t>(B) * hw * C;
-  if (cells == 0) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  fill_kernel<<<blocks_for(cells), kThreads, 0, s>>>(
-      static_cast<float*>(out), cells,
-      -std::numeric_limits<float>::infinity());
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (n > 0) {
-    scatter_max_kernel<<<blocks_for(n), kThreads, 0, s>>>(
-        static_cast<const float*>(feats), static_cast<const int*>(ids),
-        static_cast<float*>(out), n, P, C, hw);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  zero_nonfinite_kernel<<<blocks_for(cells), kThreads, 0, s>>>(
-      static_cast<float*>(out), cells);
-  return static_cast<int>(cudaGetLastError());
+  int64_t n_pts = static_cast<int64_t>(B) * P;
+  int64_t cells = static_cast<int64_t>(B) * hw * C;
+  if (cells == 0 || P < 0 || reinterpret_cast<uintptr_t>(out) % 16 != 0 ||
+      static_cast<int64_t>(B) * (hw + 1) > std::numeric_limits<int>::max())
+    return static_cast<int>(cudaErrorInvalidValue);
+  static int cache[3] = {-1, -1, 0};
+  const int most = coresident_blocks(scatter_max_kernel, 0, cache);
+  if (most == 0) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const int64_t work = std::max((n_pts + kThreads - 1) / kThreads,
+                                (cells / 4 + kThreads - 1) / kThreads);
+  const unsigned blocks = static_cast<unsigned>(
+      std::max<int64_t>(1, std::min<int64_t>(work, most)));
+  const float* f = static_cast<const float*>(feats);
+  const int* id = static_cast<const int*>(ids);
+  unsigned* keys = static_cast<unsigned*>(out);
+  void* args[] = {&f, &id, &keys, &n_pts, &cells, &P, &C, &hw};
+  return static_cast<int>(cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(scatter_max_kernel), blocks, kThreads,
+      args, 0, static_cast<cudaStream_t>(stream)));
 }
 
 // Gradient of pillar_scatter_max for feats. feats (B, P, C) float32, ids
@@ -495,7 +616,8 @@ int pillar_scatter_max_backward(const void* feats, const void* ids,
                                 int C, int hw, void* stream) {
   const int64_t n_pts = static_cast<int64_t>(B) * P;
   const int64_t cells = static_cast<int64_t>(B) * hw * C;
-  if (n_pts == 0 || C == 0 || cells == 0)
+  if (n_pts == 0 || C == 0 || cells == 0 ||
+      static_cast<int64_t>(B) * (hw + 1) > std::numeric_limits<int>::max())
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   unsigned* wins = static_cast<unsigned*>(scratch);

@@ -7,8 +7,10 @@ target), per-sample weights, the sum divided by a per-layer avg_factor.
 
 `sigmoid_focal_loss` is differentiable in the logits. For a CUDA tensor it
 launches `csrc/focal_loss.cu`, which gives every layer's summed loss and
-d loss / d logits in one pass (one launch for all layers), inside an
-autograd Function whose backward scales the saved gradient by grad_out.
+d loss / d logits in one pass (one launch for all layers, blocks of 64
+query rows that sum across blocks through a small scratch kept per device
+and stream), inside an autograd Function whose backward scales the saved
+gradient by grad_out.
 For a CPU tensor it runs `sigmoid_focal_loss_plain`, the JAX formula,
 which autograd differentiates.
 """
@@ -28,11 +30,34 @@ launches = 0
 @functools.cache
 def _lib():
     lib = build.load("focal_loss")
-    lib.focal_loss.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [
+    lib.focal_loss.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [
         ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
     ]
     lib.focal_loss.restype = ctypes.c_int
+    lib.focal_loss_scratch_bytes.argtypes = [ctypes.c_int] * 2
+    lib.focal_loss_scratch_bytes.restype = ctypes.c_int64
     return lib
+
+
+# the kernel's scratch per (device, stream): its cross-block ticket, which
+# every call leaves at 0, and the per-block partial sums. Zeroed once when
+# made or grown, never per call; a stream's calls run in order, so they
+# can share it.
+_scratch = {}
+
+
+@functools.lru_cache(maxsize=64)
+def _scratch_bytes(layers, N):
+    return _lib().focal_loss_scratch_bytes(layers, N)
+
+
+def _scratch_ptr(device, stream, nbytes):
+    key = (device, stream)
+    buf = _scratch.get(key)
+    if buf is None or buf.numel() < nbytes:
+        buf = _scratch[key] = torch.zeros(max(nbytes, 4096), dtype=torch.uint8,
+                                          device=device)
+    return buf.data_ptr()
 
 
 def _check(logits, labels, weights, avg_factor):
@@ -109,15 +134,18 @@ def focal_loss_with_grad(logits, labels, weights, avg_factor, alpha=0.25,
     logits, labels, weights, avg_factor = (
         t.contiguous() for t in (logits, labels, weights, avg_factor))
     layers, N, C = logits.shape
-    loss = torch.zeros(layers, dtype=torch.float32, device=logits.device)
-    grad = torch.zeros_like(logits)
-    if layers == 0:  # nothing to launch
-        return loss, grad
+    device = logits.device
+    # the kernel writes every element of both
+    loss = torch.empty(layers, dtype=torch.float32, device=device)
+    grad = torch.empty_like(logits)
+    if layers == 0 or C == 0:  # nothing to launch
+        return loss.zero_(), grad
+    stream = torch.cuda.current_stream(device).cuda_stream
     err = _lib().focal_loss(
         logits.data_ptr(), labels.data_ptr(), weights.data_ptr(),
         avg_factor.data_ptr(), loss.data_ptr(), grad.data_ptr(),
-        layers, N, C, alpha, gamma,
-        torch.cuda.current_stream(logits.device).cuda_stream,
+        _scratch_ptr(device, stream, _scratch_bytes(layers, N)),
+        layers, N, C, alpha, gamma, stream,
     )
     if err != 0:
         raise RuntimeError(f"focal_loss kernel launch failed: cudaError {err}")

@@ -17,8 +17,8 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))  # lsa_iou_cases
-from chip_smoke import (bf16_step, dcn_kinks, lidar_cloud, msda_kinks,  # noqa: E402
-                        pretest_skips)
+from chip_smoke import (bf16_step, dcn_kinks, device_breakdown,  # noqa: E402
+                        lidar_cloud, msda_kinks, pretest_skips, scan_order)
 from graph_detr4d_tpu_torch.ops import deform_conv as dcn_ops  # noqa: E402
 from graph_detr4d_tpu_torch.ops import focal_loss as focal_ops  # noqa: E402
 from graph_detr4d_tpu_torch.ops import hungarian as lsa_ops  # noqa: E402
@@ -345,6 +345,61 @@ def test_focal_loss_kernel_matches_plain(cuda):
     (out * torch.arange(1.0, layers + 1, device=cuda)).sum().backward()
     scaled = want_grad * torch.arange(1.0, layers + 1, device=cuda)[:, None, None]
     assert (leaf.grad - scaled).abs().max() <= 1e-5 * scaled.abs().max()
+
+
+def _focal_inputs(rng, layers, N, dev, C=10):
+    """Focal loss inputs with background labels, layer 0 all background."""
+    logits = torch.from_numpy((rng.randn(layers, N, C) * 3).astype(np.float32))
+    labels = torch.from_numpy(rng.randint(0, C + 1, (layers, N)))
+    labels[0] = C
+    weights = torch.from_numpy(rng.rand(layers, N).astype(np.float32))
+    avg = torch.from_numpy(rng.uniform(1, 50, layers).astype(np.float32))
+    return tuple(t.to(dev) for t in (logits, labels, weights, avg))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gamma", [2.0, 1.5])
+@pytest.mark.parametrize("layers", [1, 6])
+def test_focal_loss_kernel_cases(cuda, gamma, layers):
+    """K5 at gamma 2 (its own path) and 1.5 (the general one), 1 and 6
+    layers, 1,001 queries (no multiple of any row tile), layer 0 all
+    background: loss within 1e-5 relative and gradient within 1e-5 of its
+    magnitude of the plain version; a second call bitwise equal."""
+    args = _focal_inputs(np.random.RandomState(17), layers, 1001, cuda)
+    leaf = args[0].clone().requires_grad_()
+    want = focal_ops.sigmoid_focal_loss_plain(leaf, *args[1:], gamma=gamma)
+    (want_grad,) = torch.autograd.grad(want.sum(), leaf)
+    n0 = focal_ops.launches
+    loss, grad = focal_ops.focal_loss_with_grad(*args, gamma=gamma)
+    again, grad_again = focal_ops.focal_loss_with_grad(*args, gamma=gamma)
+    torch.cuda.synchronize()
+    assert focal_ops.launches == n0 + 2
+    torch.testing.assert_close(loss, want, rtol=1e-5, atol=0)
+    assert (grad - want_grad).abs().max() <= 1e-5 * want_grad.abs().max()
+    assert torch.equal(loss, again) and torch.equal(grad, grad_again)
+
+
+@pytest.mark.cuda
+def test_focal_loss_kernel_after_a_refused_call(cuda):
+    """Calls that raise on bad shapes launch nothing, and the next call
+    still gives the right loss (the kernel's cross-block state is left
+    ready); one call runs one kernel and nothing else (no fill)."""
+    args = _focal_inputs(np.random.RandomState(18), 6, 900, cuda)
+    want = focal_ops.sigmoid_focal_loss_plain(*args)
+    n0 = focal_ops.launches
+    with pytest.raises(ValueError):
+        focal_ops.focal_loss_with_grad(args[0], args[1][:, :899], *args[2:])
+    with pytest.raises(ValueError):
+        focal_ops.focal_loss_with_grad(args[0][:5], *args[1:])
+    assert focal_ops.launches == n0
+    loss, _ = focal_ops.focal_loss_with_grad(*args)
+    torch.testing.assert_close(loss, want, rtol=1e-5, atol=0)
+    def call():
+        return focal_ops.focal_loss_with_grad(*args)
+
+    kernels = device_breakdown(call)
+    assert sum(count for _, _, count in kernels) == 1, kernels
+    assert _runtime_launches(call) == ["cudaLaunchKernel"]
 
 
 @pytest.mark.cuda
@@ -795,6 +850,111 @@ def test_pillar_scatter_kernel_matches_plain(cuda, shift):
     assert (cells[~occupied] == 0).all()
     if shift < -2:
         assert (cells[occupied] < 0).all()
+
+
+def _scatter_case(case):
+    """(feats (B, P, C), ids (B, P)) on the CPU for one case of the
+    max-scatter's card tests (a 128 x 128 grid)."""
+    rng = np.random.RandomState(16)
+    hw = 128 * 128
+    if case in ("scan_order", "permuted"):
+        # chip_smoke's cloud at 60,000 points, as it arrives (by sweep,
+        # then azimuth) and randomly permuted: the same points and
+        # features, the ids computed from each order
+        pts_np, mask_np = lidar_cloud(3, 60000)
+        order = (scan_order(pts_np, mask_np) if case == "scan_order"
+                 else rng.permutation(60000))
+        pts, mask = (torch.from_numpy(a)[:, order] for a in (pts_np, mask_np))
+        ids, _ = vox_ops.pillar_features_plain(pts, mask, PC, (128, 128))
+        feats = rng.randn(60000, 64).astype(np.float32)[order][None]
+        return torch.from_numpy(np.ascontiguousarray(feats)), ids
+    pts, mask = _cloud(rng, 2, 6000)
+    ids, _ = vox_ops.pillar_features_plain(pts, mask, PC, (128, 128))
+    C = {"c3": 3, "c33": 33}.get(case, 64)
+    feats = rng.randn(2, 6000, C).astype(np.float32)
+    if case == "nonfinite":
+        # a NaN of each sign, a +inf and a -inf among finite values of
+        # four cells, and a cell whose points are -inf in every channel
+        counts = torch.bincount(ids[0][ids[0] < hw].long(), minlength=hw)
+        cells = torch.nonzero(counts >= 3).flatten()[:5].tolist()
+        nan = np.float32(np.nan)
+        for cell, v in zip(cells, (nan, -nan, np.inf, -np.inf)):
+            feats[0, int(torch.nonzero(ids[0] == cell)[1]), 5] = v
+        feats[0, (ids[0] == cells[4]).numpy()] = -np.inf
+    elif case == "second_sample_trash":
+        ids[1] = hw
+    elif case == "crowded_cell":
+        ids[0, :1000] = 5 * 128 + 7  # 1,000 points in one cell
+    elif case == "relu_ties":
+        feats = np.maximum(feats, 0.0)  # half the values tie at 0
+    return torch.from_numpy(feats), ids
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["nonfinite", "second_sample_trash", "c3",
+                                  "c33", "c64", "scan_order", "permuted",
+                                  "crowded_cell", "relu_ties"])
+def test_pillar_scatter_kernel_cases(cuda, case):
+    """K6's max-scatter forward equal to the plain version, bit for bit, on
+    non-finite values (cells whose max is NaN or +inf hold 0, a -inf is
+    passed over, an all -inf cell holds 0), a sample all in the trash
+    cell, 3, 33 and 64 channels, one cloud in scan order and permuted, a
+    cell of 1,000 points, and relu's ties at 0."""
+    feats, ids = (t.to(cuda) for t in _scatter_case(case))
+    n0 = vox_ops.scatter_launches
+    got = vox_ops.pillar_scatter(feats, ids, (128, 128))
+    want = vox_ops.pillar_scatter_plain(feats, ids, (128, 128))
+    torch.cuda.synchronize()
+    assert vox_ops.scatter_launches == n0 + 1
+    assert torch.equal(got, want)
+    if case == "second_sample_trash":
+        assert (got[1] == 0).all() and (got[0] != 0).any()
+    if case == "nonfinite":
+        assert torch.isfinite(got).all()
+
+
+def _runtime_launches(fn):
+    """The CUDA runtime calls that start work on the card in one call of fn
+    (after a warm-up call), by name, from a torch.profiler trace (its list
+    of device kernels can miss a cooperative launch)."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.name.startswith(
+        ("cudaLaunch", "cuLaunch", "cudaMemset", "cudaMemcpy"))]
+
+
+@pytest.mark.cuda
+def test_pillar_scatter_kernel_is_one_launch(cuda):
+    """One K6 scatter call launches one kernel and nothing else (no fill
+    or memset)."""
+    feats, ids = (t.to(cuda) for t in _scatter_case("c64"))
+    calls = _runtime_launches(
+        lambda: vox_ops.pillar_scatter(feats, ids, (128, 128)))
+    assert calls == ["cudaLaunchCooperativeKernel"], calls
+
+
+@pytest.mark.cuda
+def test_pillar_scatter_kernel_odd_grid_and_unaligned_output(cuda):
+    """A (5, 7) grid at 3 channels, 2 samples (210 keys: the kernel zeroes
+    and decodes the last 210 % 4 one at a time) equal to the plain version;
+    an output that is not 16-byte aligned is refused, not written."""
+    rng = np.random.RandomState(21)
+    feats = torch.from_numpy(rng.randn(2, 500, 3).astype(np.float32)).to(cuda)
+    ids = torch.from_numpy(rng.randint(0, 36, (2, 500)).astype(np.int32)).to(cuda)
+    got = vox_ops.pillar_scatter(feats, ids, (5, 7))
+    assert torch.equal(got, vox_ops.pillar_scatter_plain(feats, ids, (5, 7)))
+    out = torch.full((2 * 35 * 3 + 1,), 7.0, device=cuda)
+    err = vox_ops._lib().pillar_scatter_max(
+        feats.data_ptr(), ids.data_ptr(), out.data_ptr() + 4, 2, 500, 3, 35,
+        torch.cuda.current_stream(cuda).cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 1  # cudaErrorInvalidValue
+    assert (out == 7.0).all()
 
 
 @pytest.mark.cuda

@@ -158,6 +158,44 @@ def test_focal_loss_matches_jax():
                                atol=LOSS_RTOL * np.abs(want_grad).max())
 
 
+@pytest.mark.parametrize("gamma", [2.0, 1.5])
+def test_focal_loss_edge_cases_match_jax(gamma):
+    """The plain focal loss against JAX at gamma 2 and 1.5 on three
+    layers: logits of +-40 (sigmoid rounds to 0 or 1 in float32, so 1 - p_t
+    is exactly 0 for a confident right answer), a layer with no foreground
+    label, and a layer whose weights are all 0 (its loss and gradient 0)."""
+    rng = np.random.RandomState(11)
+    layers, N, C = 3, 40, 10
+    logits = (rng.randn(layers, N, C) * 3).astype(np.float32)
+    logits[0] = np.where(rng.rand(N, C) < 0.5, 40.0, -40.0)
+    labels = rng.randint(0, C + 1, (layers, N))
+    labels[0, :C] = np.arange(C)
+    logits[0, np.arange(C), np.arange(C)] = 40.0  # right, and confident
+    labels[1] = C  # background only
+    weights = rng.rand(layers, N).astype(np.float32)
+    weights[2] = 0.0
+    avg = rng.uniform(1, 20, layers).astype(np.float32)
+
+    def jax_obj(lg):
+        return jnp.stack([jax_focal(lg[i], jnp.asarray(labels[i]),
+                                    jnp.asarray(weights[i]), gamma=gamma,
+                                    avg_factor=avg[i]) for i in range(layers)])
+
+    want = np.asarray(jax_obj(jnp.asarray(logits)))
+    want_grad = np.asarray(jax.grad(lambda lg: jax_obj(lg).sum())(
+        jnp.asarray(logits)))
+    leaf = torch.from_numpy(logits).requires_grad_()
+    got = focal_ops.sigmoid_focal_loss(
+        leaf, torch.from_numpy(labels), torch.from_numpy(weights),
+        torch.from_numpy(avg), gamma=gamma)
+    got.sum().backward()
+    assert np.isfinite(want).all() and want[2] == 0 and want[1] > 0
+    np.testing.assert_allclose(got.detach().numpy(), want, rtol=LOSS_RTOL)
+    np.testing.assert_allclose(leaf.grad.numpy(), want_grad, rtol=0,
+                               atol=LOSS_RTOL * np.abs(want_grad).max())
+    assert (leaf.grad[2] == 0).all()
+
+
 def test_hungarian_matches_jax_and_scipy():
     """Shared costs with ties (rounded), nan / +-inf entries and num_valid
     below R: the JAX op's assignment exactly, and scipy's optimum cost."""

@@ -133,6 +133,42 @@ def test_pillar_scatter_matches_jax(shift):
         assert (cells[torch.from_numpy(~empty)] < 0).all()
 
 
+@pytest.mark.parametrize("nan_sign", [1.0, -1.0])
+def test_pillar_scatter_nonfinite_matches_jax(nan_sign):
+    """Non-finite features: a NaN (of either sign; x86 arithmetic makes
+    negative ones), a +inf and a -inf, each in one channel of one point of
+    three occupied cells among finite values, and a fourth cell whose
+    points are -inf in every channel. The max is NaN or +inf in the first
+    two, so they hold 0; the -inf is passed over; the all -inf cell holds
+    0: exactly as the jitted, vmapped JAX op (segment_max, then
+    where(isfinite, ., 0))."""
+    pts, mask = _points(2)
+    want_ids, _, _ = _jax_features(pts[None], mask[None])
+    ids = want_ids[0].astype(np.int32)
+    H, W = GRID
+    counts = np.bincount(ids[ids < H * W], minlength=H * W)
+    cells = np.flatnonzero(counts >= 2)[:4]
+    assert len(cells) == 4
+    rng = np.random.RandomState(4)
+    feats = rng.randn(1, pts.shape[0], 6).astype(np.float32)
+    nan = np.copysign(np.float32(np.nan), np.float32(nan_sign))
+    for cell, v in zip(cells[:3], (nan, np.float32(np.inf), np.float32(-np.inf))):
+        feats[0, np.flatnonzero(ids == cell)[0], 2] = v
+    feats[0, ids == cells[3]] = -np.inf
+    assert (np.signbit(feats[np.isnan(feats)]) == (nan_sign < 0)).all()
+    want = np.asarray(jax.jit(jax.vmap(
+        lambda f, i: jax_vox.pillar_scatter(f, i, GRID, reduce="max")))(
+            jnp.asarray(feats), jnp.asarray(ids[None])))
+    got = vox.pillar_scatter(torch.from_numpy(feats),
+                             torch.from_numpy(ids[None]), GRID).numpy()
+    np.testing.assert_array_equal(got, want)
+    out = got[0].reshape(H * W, 6)
+    assert out[cells[0], 2] == 0 and out[cells[1], 2] == 0
+    finite = feats[0, ids == cells[2], 2]
+    assert out[cells[2], 2] == finite[np.isfinite(finite)].max()
+    assert (out[cells[3]] == 0).all()
+
+
 @pytest.mark.parametrize("shift", [-0.5, -3.0])
 def test_pillar_scatter_backward_matches_jax_vjp(shift):
     """The max-scatter's gradient (autograd through the plain route, and
