@@ -1,10 +1,13 @@
 """Named configs of the models the port runs, and `--cfg-options` overrides.
 
-The port's copy of the detr4d `deform_pe` entries of
-`graph_detr4d_tpu/configs/__init__.py` (`get_config`, `apply_overrides` and
-the `_detr4d` helper): the families the port's head and cross-attention
-implement. Names and values are the JAX registry's
-(tests/test_torch_weights.py holds them equal).
+The port's copy of the entries of `graph_detr4d_tpu/configs/__init__.py`
+whose every feature the port runs (`get_config`, `apply_overrides` and the
+`_detr4d` helper): the detr4d `deform_pe` family, the plain head
+(with_pe False), the MP, DETR3D and DETR3D-v2 cross-attentions and the
+single-frame 6-camera models. Names and values are the JAX registry's
+(tests/test_torch_weights.py holds them equal). Configs whose training
+pipeline switches (`resize_scales`, `*_aug`) the port does not run yet are
+left out.
 
     from graph_detr4d_tpu_torch.configs import get_config
     cfg = get_config("detr4d_res50_deform_pe_testaug_2subset_12e",
@@ -151,3 +154,58 @@ def detr4d_450():
 @register("detr4d_res50_deform_pe_testaug_320_800")
 def detr4d_320():
     return _detr4d(img_size=(320, 800))
+
+
+@register("detr4d_res50_deform_pe_mp_testaug_2subset_12e")
+def detr4d_mp():
+    """Graph multi-point neighbours (Deform3DCrossAttnMP)."""
+    return _detr4d(attn_type="deform3d_mp")
+
+
+@register("detr4d_res50")
+def detr4d_res50_plain():
+    """Plain Detr3DHead (no 3D PE) with single-point DETR3D attention
+    (configs/detr4d/detr4d_res50.py:49,72)."""
+    return _detr4d(with_pe=False, attn_type="detr3d")
+
+
+@register("detr4d_res50_deform")
+def detr4d_res50_deform():
+    """Plain head + graph deformable sampling, no PE
+    (configs/detr4d/detr4d_res50_deform.py:51,74)."""
+    return _detr4d(with_pe=False)
+
+
+@register("detr4d_res50_mp")
+def detr4d_res50_mp():
+    """Plain head + multi-point graph neighbours
+    (configs/detr4d/detr4d_res50_mp.py:60,73)."""
+    return _detr4d(with_pe=False, attn_type="deform3d_mp")
+
+
+@register("detr3d_res50")
+def detr3d_res50():
+    """Single-frame DETR3D: 6 cams, single-point cross-attention
+    (configs/detr3d/detr3d_res50.py)."""
+    return ModelConfig(
+        head=HeadConfig(num_cams=6, with_detach=False, attn_type="detr3d"),
+        img_size=(640, 1600),
+    )
+
+
+@register("graph_detr3d_res50")
+def graph_detr3d_res50():
+    """Single-frame Graph-DETR3D: 6 cams with graph deformable sampling."""
+    return ModelConfig(
+        head=HeadConfig(num_cams=6, with_detach=False),
+        img_size=(640, 1600),
+    )
+
+
+@register("graph_detr3d_res101")
+def graph_detr3d_res101():
+    """Graph-DETR3D with a ResNet-101 backbone."""
+    cfg = graph_detr3d_res50()
+    return dataclasses.replace(
+        cfg, backbone=dataclasses.replace(cfg.backbone, depth=101)
+    )

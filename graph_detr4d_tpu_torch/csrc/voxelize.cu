@@ -30,11 +30,16 @@
 // atomics; consecutive points of one cell fold into one atomic. Reading
 // the cell's key first to skip atomics that cannot raise it was measured
 // slower in every layout tried (PERF.md), so every run issues its atomic.
-// pillar_scatter_max_backward (kernels D and E): the max's gradient, each
-// cell's gradient split evenly between the points that hold its max (D
-// counts them, E divides). Bytes again: features, ids and grad_out read,
-// the features' gradient written, with (B, H*W, C) winner counts between
-// the two passes.
+// pillar_scatter_max_backward (scatter_max_backward_kernel): the max's
+// gradient, each cell's gradient split evenly between the points that hold
+// its max. Bytes again: features read and their gradient written (154 MB,
+// ~0.046 ms), ids and grad_out read; one cooperative launch (no memset):
+// the (B, H*W, C) winner counts zeroed in the kernel and kept in L2, a
+// pass that counts and marks each point's wins (a bit a point and
+// column, 2.4 MB at 300,000 points, so that the gradient pass reads
+// neither the features nor the max again), then the gradient pass; two
+// columns a lane, so that a row is one 8-byte access a lane and a lane's
+// two counts one 64-bit atomic.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -48,7 +53,6 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
 
 __device__ __forceinline__ double warp_sum(double v) {
 #pragma unroll
@@ -406,126 +410,194 @@ int coresident_blocks(Kernel kernel, size_t smem, int cache[3]) {
 
 // Set in a cell's winner count when one of its values is NaN or +inf: its
 // max then was not finite, the forward wrote 0 there, and the cell passes
-// no gradient.
+// no gradient. A count stays below 2^31 (fewer points than that), so its
+// adds never reach the flag.
 constexpr unsigned kNonFinite = 0x80000000u;
 
-// The backward's layout: a warp takes 32 consecutive points, a lane per
-// channel (c = lane, lane + 32, ...). Lane t first finds point t's cell
-// row (one coalesced id load and one division per point), then the warp
-// goes through the points kPointUnroll at a time, their loads all issued
-// before any use: the gathers of a point's cell row are latency-bound.
-constexpr int kPointUnroll = 4;
+// Points a warp loads before using any (its batch). The kernel caps its
+// registers at 85 a thread so that an SM holds 3 blocks of 256 threads
+// (PERF.md has the batches and caps timed).
+constexpr int kBwdBatch = 8;
+static_assert(32 % kBwdBatch == 0, "a warp's 32 points go in whole batches");
 
-// Offset of the cell row of point p0 + lane in a (B, hw, C) grid: -1 for
-// the trash cell, -2 past the last point.
-__device__ __forceinline__ int64_t cell_row(const int* __restrict__ ids,
-                                            int64_t p0, int64_t n_pts, int P,
-                                            int C, int hw) {
-  const int cell = flat_cell(ids, p0, n_pts, P, hw);
-  return cell >= 0 ? static_cast<int64_t>(cell) * C : cell;
+// The backward's layout: a warp takes 32 consecutive points, as the
+// forward, and a point's row in groups of 64 columns, lane t taking the
+// pair col0 + 2t, col0 + 2t + 1 (PAIR: C even, so a pair is one 8-byte
+// load, one 8-byte store and one 64-bit atomic on its two counts; an odd
+// C, the tail of a row, goes one column at a time). A point's win bits of
+// a group are two words (bit t: lane t's first, resp. second column).
+template <bool PAIR>
+__device__ __forceinline__ float2 load_pair(const float* p, bool ok0, bool ok1) {
+  if (PAIR) return ok0 ? __ldcs(reinterpret_cast<const float2*>(p)) : make_float2(0.f, 0.f);
+  return make_float2(ok0 ? __ldcs(p) : 0.f, ok1 ? __ldcs(p + 1) : 0.f);
 }
 
-// Backward, pass 1 (kernel D): per (cell, channel), the number of points
-// whose value equals the forward's max (ties after relu are common: every
-// point of a cell that is 0 in a channel), or kNonFinite; and per point a
-// bit mask of the channels it won, so that pass 2 reads neither the
-// features nor the max again. A cell whose max is not finite holds 0 in
-// `out`, so a finite 0 there would count as a winner: the flag voids it (a
-// -inf value raises no flag: it makes the max -inf only if every value is
-// -inf, and then no finite value can win).
-__global__ void scatter_max_count_kernel(const float* __restrict__ feats,
-                                         const int* __restrict__ ids,
-                                         const float* __restrict__ out,
-                                         unsigned* __restrict__ wins,
-                                         unsigned* __restrict__ masks,
-                                         int64_t n_pts, int P, int C, int hw) {
-  const int lane = threadIdx.x & 31, words = (C + 31) / 32;
-  const int64_t step = static_cast<int64_t>(gridDim.x) * kWarps * 32;
-  for (int64_t p0 = (static_cast<int64_t>(blockIdx.x) * kWarps + (threadIdx.x >> 5)) * 32;
-       p0 < n_pts; p0 += step) {
-    const int64_t my_row = cell_row(ids, p0, n_pts, P, C, hw);
-    for (int t = 0; t < 32; t += kPointUnroll) {
-      int64_t row[kPointUnroll];
+// Count and mark, one group of 64 columns (col0) of the warp's 32 points
+// p0 .. p0 + 31 (cell: point p0 + lane's flat cell, -1 trash, -2 past the
+// end): per (cell, column) the points whose value equals the forward's
+// max (kNonFinite where one is NaN or +inf; a finite 0 in such a cell
+// would otherwise count: the forward wrote 0 there), consecutive points
+// of one cell folded into one atomic; per point its two mask words, which
+// lane p of the warp stores for point p0 + p, once, coalesced. A -inf
+// value raises no flag: it makes the max -inf only if every value is, and
+// then no finite value can win.
+template <bool PAIR>
+__device__ __forceinline__ void count_columns(
+    const float* __restrict__ feats, const float* __restrict__ out,
+    unsigned* counts, uint2* __restrict__ masks, int cell, int64_t p0, int C,
+    int col0, int groups, int group) {
+  const int lane = threadIdx.x & 31;
+  const int c0 = col0 + 2 * lane;
+  const bool ok0 = c0 < C, ok1 = c0 + 1 < C;
+  int run_cell = -1;
+  unsigned run0 = 0u, run1 = 0u, nf0 = 0u, nf1 = 0u;
+  uint2 mine = make_uint2(0u, 0u);
+  auto flush = [&]() {
+    if (run_cell < 0 || (run0 | run1 | nf0 | nf1) == 0u) return;
+    unsigned* dst = counts + static_cast<int64_t>(run_cell) * C + c0;
+    if (PAIR) {
+      unsigned long long* d2 = reinterpret_cast<unsigned long long*>(dst);
+      if (run0 | run1)
+        atomicAdd(d2, run0 | (static_cast<unsigned long long>(run1) << 32));
+      if (nf0 | nf1)
+        atomicOr(d2, nf0 | (static_cast<unsigned long long>(nf1) << 32));
+    } else {
+      if (run0) atomicAdd(dst, run0);
+      if (run1) atomicAdd(dst + 1, run1);
+      if (nf0) atomicOr(dst, nf0);
+      if (nf1) atomicOr(dst + 1, nf1);
+    }
+  };
+#pragma unroll 1
+  for (int k0 = 0; k0 < 32; k0 += kBwdBatch) {
+    int cells[kBwdBatch];
+    float2 v[kBwdBatch], o[kBwdBatch];
 #pragma unroll
-      for (int u = 0; u < kPointUnroll; ++u)
-        row[u] = __shfl_sync(0xffffffffu, my_row, t + u);
-      for (int w = 0; w < words; ++w) {
-        const int c = 32 * w + lane;
-        float v[kPointUnroll], o[kPointUnroll];
+    for (int u = 0; u < kBwdBatch; ++u) cells[u] = __shfl_sync(0xffffffffu, cell, k0 + u);
 #pragma unroll
-        for (int u = 0; u < kPointUnroll; ++u) {
-          const bool live = row[u] >= 0 && c < C;
-          v[u] = live ? feats[(p0 + t + u) * C + c] : 0.f;
-          o[u] = live ? out[row[u] + c] : 1.f;
+    for (int u = 0; u < kBwdBatch; ++u) {  // every load of the batch first
+      const bool live = cells[u] >= 0;
+      v[u] = load_pair<PAIR>(feats + (p0 + k0 + u) * C + c0, live && ok0, live && ok1);
+      const float* orow = out + static_cast<int64_t>(cells[u] < 0 ? 0 : cells[u]) * C + c0;
+      o[u] = live && ok0 ? (PAIR ? __ldg(reinterpret_cast<const float2*>(orow))
+                                 : make_float2(__ldg(orow), ok1 ? __ldg(orow + 1) : 0.f))
+                         : make_float2(1.f, 1.f);
+    }
+#pragma unroll
+    for (int u = 0; u < kBwdBatch; ++u) {
+      if (cells[u] != run_cell) {
+        flush();
+        run_cell = cells[u];
+        run0 = run1 = nf0 = nf1 = 0u;
+      }
+      bool win0 = false, win1 = false;
+      if (cells[u] >= 0) {
+        const float a = v[u].x, b = v[u].y;
+        if (ok0 && (isnan(a) || (isinf(a) && a > 0.f))) nf0 = kNonFinite;
+        if (ok1 && (isnan(b) || (isinf(b) && b > 0.f))) nf1 = kNonFinite;
+        win0 = ok0 && a == o[u].x;
+        win1 = ok1 && b == o[u].y;
+        run0 += win0;
+        run1 += win1;
+      }
+      const unsigned m0 = __ballot_sync(0xffffffffu, win0);
+      const unsigned m1 = __ballot_sync(0xffffffffu, win1);
+      if (lane == k0 + u) mine = make_uint2(m0, m1);
+    }
+  }
+  flush();
+  if (cell != -2) masks[(p0 + lane) * groups + group] = mine;
+}
+
+// The gradient of one group (as count_columns): grad_out[cell] / winners
+// where the point won its cell's max, else 0 (losers, trash points, cells
+// whose max was not finite), every element of the points' rows written.
+template <bool PAIR>
+__device__ __forceinline__ void grad_columns(
+    const unsigned* counts, const uint2* masks, const float* __restrict__ grad_out,
+    float* __restrict__ grad_feats, int cell, int64_t p0, int C, int col0,
+    int groups, int group) {
+  const int lane = threadIdx.x & 31;
+  const int c0 = col0 + 2 * lane;
+  const bool ok0 = c0 < C, ok1 = c0 + 1 < C;
+  const uint2 mine = cell != -2 ? __ldcg(masks + (p0 + lane) * groups + group)
+                                : make_uint2(0u, 0u);
+#pragma unroll 1
+  for (int k0 = 0; k0 < 32; k0 += kBwdBatch) {
+    int cells[kBwdBatch];
+    bool w0[kBwdBatch], w1[kBwdBatch];
+    uint2 k[kBwdBatch];
+    float2 g[kBwdBatch];
+#pragma unroll
+    for (int u = 0; u < kBwdBatch; ++u) {  // every gather of the batch first
+      cells[u] = __shfl_sync(0xffffffffu, cell, k0 + u);
+      w0[u] = (__shfl_sync(0xffffffffu, mine.x, k0 + u) >> lane) & 1u;
+      w1[u] = (__shfl_sync(0xffffffffu, mine.y, k0 + u) >> lane) & 1u;
+      k[u] = make_uint2(kNonFinite, kNonFinite);
+      g[u] = make_float2(0.f, 0.f);
+      if (w0[u] | w1[u]) {  // only a live point wins: its cell is >= 0
+        const int64_t at = static_cast<int64_t>(cells[u]) * C + c0;
+        if (PAIR) {
+          k[u] = __ldcg(reinterpret_cast<const uint2*>(counts + at));
+          g[u] = __ldg(reinterpret_cast<const float2*>(grad_out + at));
+        } else {
+          if (w0[u]) k[u].x = __ldcg(counts + at), g[u].x = __ldg(grad_out + at);
+          if (w1[u]) k[u].y = __ldcg(counts + at + 1), g[u].y = __ldg(grad_out + at + 1);
         }
+      }
+    }
 #pragma unroll
-        for (int u = 0; u < kPointUnroll; ++u) {
-          bool win = false;
-          if (row[u] >= 0 && c < C) {
-            if (isnan(v[u]) || (isinf(v[u]) && v[u] > 0.f)) {
-              atomicOr(wins + row[u] + c, kNonFinite);
-            } else if (v[u] == o[u]) {
-              atomicAdd(wins + row[u] + c, 1u);
-              win = true;
-            }
-          }
-          const unsigned m = __ballot_sync(0xffffffffu, win);
-          if (lane == 0 && row[u] != -2) masks[(p0 + t + u) * words + w] = m;
-        }
+    for (int u = 0; u < kBwdBatch; ++u) {
+      if (cells[u] == -2) continue;
+      const float r0 = w0[u] && !(k[u].x & kNonFinite) ? g[u].x / static_cast<float>(k[u].x) : 0.f;
+      const float r1 = w1[u] && !(k[u].y & kNonFinite) ? g[u].y / static_cast<float>(k[u].y) : 0.f;
+      float* dst = grad_feats + (p0 + k0 + u) * C + c0;
+      if (PAIR) {
+        if (ok0) __stcs(reinterpret_cast<float2*>(dst), make_float2(r0, r1));
+      } else {
+        if (ok0) __stcs(dst, r0);
+        if (ok1) __stcs(dst + 1, r1);
       }
     }
   }
 }
 
-// Backward, pass 2 (kernel E): grad_feats = grad_out[cell] / winners where
-// the point won its cell's max, else 0 (trash points, losers, cells whose
-// max was not finite): the vector-Jacobian product of segment_max, ties
-// split evenly, as jax.vjp of the JAX op and autograd of scatter_reduce_
-// 'amax' give it. Laid out as pass 1.
-__global__ void scatter_max_grad_kernel(const int* __restrict__ ids,
-                                        const unsigned* __restrict__ wins,
-                                        const unsigned* __restrict__ masks,
-                                        const float* __restrict__ grad_out,
-                                        float* __restrict__ grad_feats,
-                                        int64_t n_pts, int P, int C, int hw) {
-  const int lane = threadIdx.x & 31, words = (C + 31) / 32;
-  const int64_t step = static_cast<int64_t>(gridDim.x) * kWarps * 32;
-  for (int64_t p0 = (static_cast<int64_t>(blockIdx.x) * kWarps + (threadIdx.x >> 5)) * 32;
-       p0 < n_pts; p0 += step) {
-    const int64_t my_row = cell_row(ids, p0, n_pts, P, C, hw);
-    for (int t = 0; t < 32; t += kPointUnroll) {
-      int64_t row[kPointUnroll];
-#pragma unroll
-      for (int u = 0; u < kPointUnroll; ++u)
-        row[u] = __shfl_sync(0xffffffffu, my_row, t + u);
-      for (int w = 0; w < words; ++w) {
-        const int c = 32 * w + lane;
-        unsigned k[kPointUnroll];
-        float g[kPointUnroll];
-#pragma unroll
-        for (int u = 0; u < kPointUnroll; ++u) {
-          // only a live point wins: its row is >= 0
-          const bool won = row[u] >= 0 &&
-                           ((masks[(p0 + t + u) * words + w] >> lane) & 1u);
-          k[u] = won ? wins[row[u] + c] : kNonFinite;
-          g[u] = won ? grad_out[row[u] + c] : 0.f;
-        }
-#pragma unroll
-        for (int u = 0; u < kPointUnroll; ++u) {
-          if (row[u] != -2 && c < C) {
-            grad_feats[(p0 + t + u) * C + c] =
-                k[u] & kNonFinite ? 0.f : g[u] / static_cast<float>(k[u]);
-          }
-        }
-      }
-    }
+// The max-scatter's gradient in one cooperative launch, three phases
+// between grid-wide barriers: every winner count 0; count and mark (a
+// warp per 32 consecutive points, groups of 64 columns); the gradient
+// (the same warp, the same points). The vector-Jacobian product of
+// segment_max: ties split evenly, as jax.vjp of the JAX op gives it.
+template <bool PAIR>
+__global__ void __launch_bounds__(kThreads, 3) scatter_max_backward_kernel(
+    const float* __restrict__ feats,     // (B, P, C)
+    const int* __restrict__ ids,         // (B, P)
+    const float* __restrict__ out,       // (B, hw, C), the forward's result
+    const float* __restrict__ grad_out,  // (B, hw, C)
+    float* __restrict__ grad_feats,      // (B, P, C)
+    unsigned* counts,                    // (B, hw, C) scratch
+    uint2* masks,                        // (B * P, groups) scratch
+    int64_t n_pts, int64_t n_cells, int P, int C, int hw) {
+  cg::grid_group grid = cg::this_grid();
+  const int64_t tid = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
+  const int lane = threadIdx.x & 31, groups = (C + 63) / 64;
+  zero_keys(counts, n_cells, tid, stride);
+  grid.sync();
+  for (int64_t p0 = tid - lane; p0 < n_pts; p0 += stride) {
+    const int cell = flat_cell(ids, p0, n_pts, P, hw);
+    for (int g = 0; g < groups; ++g)
+      count_columns<PAIR>(feats, out, counts, masks, cell, p0, C, 64 * g, groups,
+                          g);
+  }
+  grid.sync();
+  for (int64_t p0 = tid - lane; p0 < n_pts; p0 += stride) {
+    const int cell = flat_cell(ids, p0, n_pts, P, hw);
+    for (int g = 0; g < groups; ++g)
+      grad_columns<PAIR>(counts, masks, grad_out, grad_feats, cell, p0, C, 64 * g,
+                         groups, g);
   }
 }
 
-unsigned blocks_for(int64_t n) {
-  const int64_t b = (n + kThreads - 1) / kThreads;
-  return static_cast<unsigned>(b < (int64_t{1} << 20) ? b : (int64_t{1} << 20));
-}
 
 }  // namespace
 
@@ -607,34 +679,47 @@ int pillar_scatter_max(const void* feats, const void* ids, void* out, int B,
 // Gradient of pillar_scatter_max for feats. feats (B, P, C) float32, ids
 // (B, P) int32, out (B, hw, C) float32 the forward's result for them,
 // grad_out (B, hw, C) float32; grad_feats (B, P, C) float32 is fully
-// written; scratch: B * hw * C + B * P * ceil(C / 32) uint32 (the winner
-// counts, zeroed here, then the winner masks). Returns the cudaError_t of
-// the launches.
+// written; scratch, 16-byte aligned: B * hw * C uint32 winner counts
+// (zeroed here), rounded up to an even count, then B * P * ceil(C / 64)
+// pairs of uint32 winner masks. One cooperative launch. Returns the
+// cudaError_t of the launch.
 int pillar_scatter_max_backward(const void* feats, const void* ids,
                                 const void* out, const void* grad_out,
                                 void* grad_feats, void* scratch, int B, int P,
                                 int C, int hw, void* stream) {
-  const int64_t n_pts = static_cast<int64_t>(B) * P;
-  const int64_t cells = static_cast<int64_t>(B) * hw * C;
+  int64_t n_pts = static_cast<int64_t>(B) * P;
+  int64_t cells = static_cast<int64_t>(B) * hw * C;
+  const bool pair = C % 2 == 0;
+  const uintptr_t align = pair ? 8 : 4;
   if (n_pts == 0 || C == 0 || cells == 0 ||
-      static_cast<int64_t>(B) * (hw + 1) > std::numeric_limits<int>::max())
+      n_pts >= std::numeric_limits<int>::max() ||
+      static_cast<int64_t>(B) * (hw + 1) > std::numeric_limits<int>::max() ||
+      reinterpret_cast<uintptr_t>(scratch) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(feats) % align != 0 ||
+      reinterpret_cast<uintptr_t>(out) % align != 0 ||
+      reinterpret_cast<uintptr_t>(grad_out) % align != 0 ||
+      reinterpret_cast<uintptr_t>(grad_feats) % align != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  unsigned* wins = static_cast<unsigned*>(scratch);
-  unsigned* masks = wins + cells;
-  cudaError_t err = cudaMemsetAsync(wins, 0, sizeof(unsigned) * cells, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const unsigned blocks = blocks_for(n_pts);  // a warp per 32 points
-  scatter_max_count_kernel<<<blocks, kThreads, 0, s>>>(
-      static_cast<const float*>(feats), static_cast<const int*>(ids),
-      static_cast<const float*>(out), wins, masks, n_pts, P, C, hw);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  scatter_max_grad_kernel<<<blocks, kThreads, 0, s>>>(
-      static_cast<const int*>(ids), wins, masks,
-      static_cast<const float*>(grad_out), static_cast<float*>(grad_feats),
-      n_pts, P, C, hw);
-  return static_cast<int>(cudaGetLastError());
+  const void* kernel = pair ? reinterpret_cast<const void*>(scatter_max_backward_kernel<true>)
+                            : reinterpret_cast<const void*>(scatter_max_backward_kernel<false>);
+  static int cache_pair[3] = {-1, -1, 0}, cache_odd[3] = {-1, -1, 0};
+  const int most = pair ? coresident_blocks(scatter_max_backward_kernel<true>, 0, cache_pair)
+                        : coresident_blocks(scatter_max_backward_kernel<false>, 0, cache_odd);
+  if (most == 0) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const int64_t work = std::max((n_pts + kThreads - 1) / kThreads,
+                                (cells / 4 + kThreads - 1) / kThreads);
+  const unsigned blocks = static_cast<unsigned>(
+      std::max<int64_t>(1, std::min<int64_t>(work, most)));
+  const float* f = static_cast<const float*>(feats);
+  const int* id = static_cast<const int*>(ids);
+  const float* o = static_cast<const float*>(out);
+  const float* g = static_cast<const float*>(grad_out);
+  float* gf = static_cast<float*>(grad_feats);
+  unsigned* counts = static_cast<unsigned*>(scratch);
+  uint2* masks = reinterpret_cast<uint2*>(counts + cells + cells % 2);
+  void* args[] = {&f, &id, &o, &g, &gf, &counts, &masks, &n_pts, &cells, &P, &C, &hw};
+  return static_cast<int>(cudaLaunchCooperativeKernel(
+      kernel, blocks, kThreads, args, 0, static_cast<cudaStream_t>(stream)));
 }
 
 }  // extern "C"

@@ -1,7 +1,9 @@
 """GraphDETR4D detector: grid mask -> backbone -> FPN -> head
 (counterpart of graph_detr4d_tpu/models/detector.py with a ResNet backbone
-and the `detr4d_pe` head). The grid mask and dropout apply only in
-training (detr3d.py:53-54), drawn from the generator the forward is given.
+and the `detr4d_pe` head, with or without its 3D position embedding and
+with any of the cross-attentions of models/transformer.py). The grid mask
+and dropout apply only in training (detr3d.py:53-54), drawn from the
+generator the forward is given.
 
 All cameras fold into the batch axis for the conv stack (detr3d.py:62-66),
 then unfold to (B, N, ...) for the head. The convs run NCHW tensors whose
@@ -18,6 +20,7 @@ from .fpn import FPN
 from .grid_mask import apply_grid_mask, grid_mask_params
 from .head import Detr3DHeadPE
 from .resnet import ResNet
+from .transformer import ATTN_TYPES
 
 
 def check_supported(cfg: ModelConfig):
@@ -26,8 +29,7 @@ def check_supported(cfg: ModelConfig):
     unsupported = {
         "head_type": cfg.head_type != "detr4d_pe",
         "backbone_type": cfg.backbone_type != "resnet",
-        "head.attn_type": h.attn_type != "deform3d",
-        "head.with_pe": not h.with_pe,
+        "head.attn_type": h.attn_type not in ATTN_TYPES,
         "head.with_fpe": not h.with_fpe,
         "head.fpe_type": h.fpe_type != "se",
         "head.cam_aware": h.cam_aware,
@@ -93,6 +95,22 @@ class GraphDETR4D(nn.Module):
     def forward_feats(self, feats, lidar2img: torch.Tensor, generator=None):
         """Head-only forward over precomputed camera features."""
         return self.pts_bbox_head(feats, lidar2img, generator)
+
+    def aug_forward(self, images_list, lidar2img):
+        """Test-time augmentation (graph_detr4d_tpu/models/detector.py:
+        170-204): one eval forward per copy in images_list, each with its
+        own calibration (lidar2img (B, N, 4, 4) shared by every copy, or a
+        list or (A, B, N, 4, 4) tensor of one per copy), then the mean of
+        the head outputs, which are query-aligned across copies. The
+        reference's aug_test averages features under copy 0's
+        calibration; the JAX method averages outputs, and so does this."""
+        if isinstance(lidar2img, (list, tuple)) or lidar2img.dim() == 5:
+            l2is = list(lidar2img)
+        else:
+            l2is = [lidar2img] * len(images_list)
+        outs = [self.forward(im, l2i) for im, l2i in zip(images_list, l2is)]
+        n = float(len(outs))
+        return {k: sum(o[k] for o in outs) / n for k in outs[0]}
 
     def forward(self, images: torch.Tensor, lidar2img: torch.Tensor,
                 train: bool = False, generator=None):

@@ -71,6 +71,8 @@ class Transformer(nn.Module):
                 pc_range=cfg.pc_range,
                 cam_capacity=cfg.cam_capacity,
                 dropout=cfg.dropout,
+                attn_type=cfg.attn_type,
+                num_neighbors=cfg.num_neighbors,
             )
             for _ in range(cfg.num_decoder_layers)
         ])
@@ -84,9 +86,10 @@ class Detr3DHeadPE(nn.Module):
         C = cfg.embed_dims
         self.query_embedding = nn.Embedding(cfg.num_query, 2 * C)
         self.transformer = Transformer(cfg)
-        self.position_encoder = two_layer_mlp(cfg.depth_num * 3, 4 * C, C)
-        self.adapt_pos3d = two_layer_mlp(cfg.pe_num_feats * 3, 4 * C, C)
-        self.fpe = SELayer(C)
+        if cfg.with_pe:  # the plain Detr3DHead (with_pe False) has none
+            self.position_encoder = two_layer_mlp(cfg.depth_num * 3, 4 * C, C)
+            self.adapt_pos3d = two_layer_mlp(cfg.pe_num_feats * 3, 4 * C, C)
+            self.fpe = SELayer(C)
         self.cls_branches = nn.ModuleList(
             cls_branch(C, cfg.num_classes, cfg.num_reg_fcs)
             for _ in range(cfg.num_decoder_layers)
@@ -142,16 +145,20 @@ class Detr3DHeadPE(nn.Module):
         feats_pe, shapes = [], []
         for feat in mlvl_feats:
             _, _, H, W, _ = feat.shape
-            pe = self.position_encoder(
-                self.position_embedding(feat, lidar2img).to(dtype)
-            )
-            pe = self.fpe(pe, feat)
-            # all-valid mask: inputs are always padded to the exact
-            # network size (:524-539)
-            mask = torch.zeros(B, N, H, W, device=feat.device)
-            sin = sine_positional_encoding_3d(mask, num_feats=cfg.pe_num_feats)
-            pe = pe + self.adapt_pos3d(sin.to(dtype))
-            feats_pe.append((feat + pe).reshape(B, N, H * W, -1))
+            if cfg.with_pe:
+                pe = self.position_encoder(
+                    self.position_embedding(feat, lidar2img).to(dtype)
+                )
+                pe = self.fpe(pe, feat)
+                # all-valid mask: inputs are always padded to the exact
+                # network size (:524-539)
+                mask = torch.zeros(B, N, H, W, device=feat.device)
+                sin = sine_positional_encoding_3d(mask,
+                                                  num_feats=cfg.pe_num_feats)
+                pe = pe + self.adapt_pos3d(sin.to(dtype))
+                feat = feat + pe
+            # with_pe False: raw FPN features (detr3d_head.py:16-166)
+            feats_pe.append(feat.reshape(B, N, H * W, -1))
             shapes.append((H, W))
         value = torch.cat(feats_pe, dim=2)  # (B, N, sum H*W, C)
 

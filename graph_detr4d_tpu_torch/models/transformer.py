@@ -18,7 +18,31 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from .attention import Deform3DCrossAttn
+from .attention_variants import (Deform3DCrossAttnMP, Detr3DCrossAtten,
+                                 Detr3DCrossAttenV2)
 from .layers import LayerNorm, Linear, dropout
+
+ATTN_TYPES = ("deform3d", "deform3d_mp", "detr3d", "detr3d_v2")
+
+
+def graph_neighbours(ref: torch.Tensor, k: int) -> torch.Tensor:
+    """The MP query graph: each query's k nearest other queries by squared
+    distance between reference points (self excluded by +1e9), (B, Q, k)
+    indices, nearest first. The JAX decoder's top_k of the negated
+    distances (transformer.py:123-132); the two may order exact ties
+    differently, which changes only the order of a sum over neighbours."""
+    d2 = ((ref[:, :, None, :] - ref[:, None, :, :]) ** 2).sum(-1)
+    eye = torch.eye(ref.shape[1], dtype=d2.dtype, device=d2.device)
+    return torch.topk(-(d2 + eye * 1e9), k, dim=-1).indices
+
+
+def graph_reference_points(ref: torch.Tensor, k: int) -> torch.Tensor:
+    """(B, Q * (1 + k), 3): the queries' reference points, then their k
+    graph neighbours' (`graph_neighbours`), neighbour-major (j * Q + q)."""
+    B, Q, _ = ref.shape
+    idx = graph_neighbours(ref, k)
+    nbrs = ref[torch.arange(B, device=ref.device)[:, None, None], idx]
+    return torch.cat([ref, nbrs.transpose(1, 2).reshape(B, k * Q, 3)], dim=1)
 
 
 class MultiheadAttention(nn.Module):
@@ -94,21 +118,29 @@ class DecoderLayer(nn.Module):
         pc_range: Tuple[float, ...],
         cam_capacity: float = 1.0,
         dropout: float = 0.1,
+        attn_type: str = "deform3d",
+        num_neighbors: int = 8,
     ):
         super().__init__()
+        if attn_type not in ATTN_TYPES:
+            raise ValueError(f"unknown attn_type {attn_type!r}")
+        self.attn_type, self.num_neighbors = attn_type, num_neighbors
+        common = dict(embed_dims=embed_dims, num_levels=num_levels,
+                      num_cams=num_cams, pc_range=pc_range, dropout=dropout)
+        if attn_type == "deform3d":
+            cross = Deform3DCrossAttn(num_heads=num_heads, num_points=num_points,
+                                      cam_capacity=cam_capacity, **common)
+        elif attn_type == "deform3d_mp":
+            cross = Deform3DCrossAttnMP(num_heads=num_heads,
+                                        num_points=num_points,
+                                        num_neighbors=num_neighbors, **common)
+        elif attn_type == "detr3d":
+            cross = Detr3DCrossAtten(num_points=1, **common)
+        else:
+            cross = Detr3DCrossAttenV2(num_heads=num_heads,
+                                       num_points=num_points, **common)
         self.attentions = nn.ModuleList([
-            SelfAttention(embed_dims, num_heads, dropout),
-            Deform3DCrossAttn(
-                embed_dims=embed_dims,
-                num_heads=num_heads,
-                num_levels=num_levels,
-                num_points=num_points,
-                num_cams=num_cams,
-                pc_range=pc_range,
-                cam_capacity=cam_capacity,
-                dropout=dropout,
-            ),
-        ])
+            SelfAttention(embed_dims, num_heads, dropout), cross])
         self.ffns = nn.ModuleList([FFN(embed_dims, ffn_dims, dropout)])
         self.norms = nn.ModuleList([LayerNorm(embed_dims) for _ in range(3)])
 
@@ -123,9 +155,13 @@ class DecoderLayer(nn.Module):
         img_shape: Tuple[int, int],
         generator=None,
     ):
-        """Returns (query, cam_overflow) — see Deform3DCrossAttn. Dropout
-        draws from `generator`; None (eval) turns it off."""
+        """Returns (query, cam_overflow) (see Deform3DCrossAttn; the other
+        cross-attentions compact nothing and report 0). Dropout draws from
+        `generator`; None (eval) turns it off."""
         query = self.norms[0](self.attentions[0](query, query_pos, generator))
+        if self.attn_type == "deform3d_mp":
+            reference_points = graph_reference_points(reference_points,
+                                                       self.num_neighbors)
         query, overflow = self.attentions[1](
             query, value, spatial_shapes, query_pos, reference_points,
             lidar2img, img_shape, generator,

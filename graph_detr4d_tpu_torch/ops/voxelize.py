@@ -18,8 +18,8 @@ Three launch sites, each with a plain PyTorch version for CPU tensors:
     as a dense (B, H, W, C) grid with empty cells 0 (the JAX op's
     `reduce="max"`, the only reduction a model path uses), differentiable
     in the features;
-  * `pillar_scatter_backward` (kernels D and E): that max's gradient, the
-    backward of `pillar_scatter`'s autograd Function.
+  * `pillar_scatter_backward` (one cooperative kernel): that max's
+    gradient, the backward of `pillar_scatter`'s autograd Function.
 
 Batched over a leading sample axis (the JAX op's vmap). On CUDA tensors
 `pillar_features` has no backward and raises when asked for one (the plain
@@ -260,21 +260,27 @@ def pillar_scatter(
     maximum is not finite, are 0.
     """
     _check_scatter(feats, ids)
-    if feats.device.type == "cpu":
-        return pillar_scatter_plain(feats, ids, grid_hw)
     return _PillarScatterFunction.apply(feats, ids, tuple(grid_hw))
 
 
 class _PillarScatterFunction(torch.autograd.Function):
+    """The max-scatter with `pillar_scatter_backward` as its gradient, on
+    either device (autograd through `pillar_scatter_plain` would give NaN
+    to the points of a cell whose max is NaN, where jax.vjp gives 0)."""
+
     @staticmethod
     def forward(ctx, feats, ids, grid_hw):
         global scatter_launches
         H, W = grid_hw
         B, P, C = feats.shape
+        ctx.grid_hw = grid_hw
+        if feats.device.type == "cpu":
+            out = pillar_scatter_plain(feats, ids, grid_hw)
+            ctx.save_for_backward(feats, ids, out)
+            return out
         feats, ids = feats.contiguous(), ids.contiguous()
         out = torch.empty(B, H, W, C, dtype=torch.float32, device=feats.device)
         ctx.save_for_backward(feats, ids, out)
-        ctx.grid_hw = grid_hw
         if out.numel() == 0:  # nothing to launch
             return out
         err = _lib().pillar_scatter_max(
@@ -295,19 +301,33 @@ class _PillarScatterFunction(torch.autograd.Function):
 
 
 def pillar_scatter_backward_plain(feats, ids, grad_out, grid_hw):
-    """The same function as `pillar_scatter_backward`: autograd through
-    `pillar_scatter_plain` (it recomputes the max)."""
-    with torch.enable_grad():
-        f = feats.detach().requires_grad_()
-        out = pillar_scatter_plain(f, ids, grid_hw)
-        return torch.autograd.grad(out, f, grad_out)[0]
+    """The same function as `pillar_scatter_backward` (it recomputes the
+    max): jax.vjp of the JAX op. Each (cell, channel)'s gradient goes to
+    the points whose value equals the cell's max, divided by their count
+    as autograd of `scatter_reduce_` 'amax' divides it; a cell whose max is
+    NaN or +inf (written 0), and the trash cell, pass none."""
+    H, W = grid_hw
+    B, P, C = feats.shape
+    n = H * W + 1
+    seg = _segments(ids, n)
+    f = feats.reshape(-1, C)
+    top = torch.full((B * n, C), float("-inf"), dtype=f.dtype, device=f.device)
+    top = top.scatter_reduce_(0, seg[:, None].expand(-1, C), f, "amax")[seg]
+    win = (f == top) & torch.isfinite(top)
+    count = torch.zeros(B * n, C, dtype=f.dtype, device=f.device)
+    count.index_add_(0, seg, win.to(f.dtype))
+    g = torch.cat([grad_out.reshape(B, H * W, C),
+                   grad_out.new_zeros(B, 1, C)], 1).reshape(B * n, C)
+    share = g[seg] / count[seg].clamp(min=1.0)
+    return torch.where(win, share, torch.zeros_like(share)).view(B, P, C)
 
 
 def pillar_scatter_backward(feats, ids, out, grad_out, grid_hw):
     """Gradient of `pillar_scatter` for feats (B, P, C) float32, given its
     result `out` for these inputs (B, H, W, C) and grad_out of that shape.
-    The kernels for CUDA tensors (a pass that counts each cell's winners
-    and marks each point's, then the gradient pass),
+    One cooperative kernel for CUDA tensors (the winner counts zeroed, a
+    pass that counts each cell's winners and marks each point's, then the
+    gradient pass),
     `pillar_scatter_backward_plain` for CPU tensors."""
     global scatter_backward_launches
     _check_scatter(feats, ids)
@@ -320,14 +340,19 @@ def pillar_scatter_backward(feats, ids, out, grad_out, grid_hw):
             raise ValueError("voxelize: all tensors must be on one device")
     if feats.device.type == "cpu":
         return pillar_scatter_backward_plain(feats, ids, grad_out, grid_hw)
-    feats, ids = feats.contiguous(), ids.contiguous()
-    out, grad_out = out.contiguous(), grad_out.contiguous()
+    # the kernel reads and writes a row two columns at a time: 8-byte
+    # aligned data (a view that starts at an odd element is copied)
+    feats, out, grad_out = (t.contiguous() if t.data_ptr() % 8 == 0 else t.clone(
+        memory_format=torch.contiguous_format) for t in (feats, out, grad_out))
+    ids = ids.contiguous()
     grad_feats = torch.empty_like(feats)  # every element written
     if grad_feats.numel() == 0 or out.numel() == 0:  # nothing to launch
         return grad_feats.zero_()
-    # the kernels' winner counts per (cell, channel) and masks per point
-    scratch = torch.empty(B * H * W * C + B * P * -(-C // 32), dtype=torch.int32,
-                          device=feats.device)
+    # the kernel's winner counts per (cell, channel), padded to an even
+    # count, then two mask words per point and group of 64 channels
+    cells = B * H * W * C
+    scratch = torch.empty(cells + cells % 2 + 2 * B * P * -(-C // 64),
+                          dtype=torch.int32, device=feats.device)
     err = _lib().pillar_scatter_max_backward(
         feats.data_ptr(), ids.data_ptr(), out.data_ptr(), grad_out.data_ptr(),
         grad_feats.data_ptr(), scratch.data_ptr(), B, P, C, H * W,

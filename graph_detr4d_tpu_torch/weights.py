@@ -30,6 +30,8 @@ import torch
 import torch.nn as nn
 
 from .models.attention import Deform3DCrossAttn, offset_bias_init
+from .models.attention_variants import (Deform3DCrossAttnMP, Detr3DCrossAtten,
+                                        Detr3DCrossAttenV2, v2_offset_bias)
 from .models.dgcnn import BEVDeformableCrossAttn, DGCNN3DHead, grid_offset_bias
 from .models.head import Detr3DHeadPE
 from .models.layers import FrozenBatchNorm, LayerNorm
@@ -124,17 +126,33 @@ def neck_state_dict(params):
 
 
 def cross_attn_state_dict(params):
-    """flax Deform3DCrossAttn subtree -> port Deform3DCrossAttn names."""
+    """flax cross-attention subtree -> port names, the variant told by its
+    keys as export_state_dict tells it (tools/convert_checkpoint.py:
+    690-714): Deform3DCrossAttn (camera gate, PE layers_i), its MP variant
+    (camera gate plus a neighbour branch; export_state_dict does not map
+    it: the neighbour weights, the fusion and the PE take the port
+    module's names), Detr3DCrossAttenV2 (2D offsets) or Detr3DCrossAtten."""
     w = _Writer(params)
-    w.lin(["cam_attention_weights"], "cam_attention_weights")
-    w.lin(["sampling_offsets"], "deform_sampling_offsets")
-    w.lin(["value_proj"], "value_proj")
+    if "cam_attention_weights" in params:
+        w.lin(["cam_attention_weights"], "cam_attention_weights")
+        w.lin(["sampling_offsets"], "deform_sampling_offsets")
+        w.lin(["value_proj"], "value_proj")
+    elif "sampling_offsets" in params:
+        w.lin(["sampling_offsets"], "sampling_offsets")
     w.lin(["attention_weights"], "attention_weights")
+    if "attention_weights_neighbor" in params:
+        w.lin(["attention_weights_neighbor"], "attention_weights_neighbor")
+        w.lin(["output_weight"], "output_weight")
     w.lin(["output_proj"], "output_proj")
-    w.lin(["position_encoder", "layers_0"], "position_encoder.0")
-    w.ln(["position_encoder", "layers_1"], "position_encoder.1")
-    w.lin(["position_encoder", "layers_3"], "position_encoder.3")
-    w.ln(["position_encoder", "layers_4"], "position_encoder.4")
+    # Deform3DCrossAttn names its PE sub-layers layers_{0,1,3,4}; the
+    # variants' PositionEncoderMLP is flax's Dense_i / LayerNorm_i
+    pe = params["position_encoder"]
+    names = (("layers_0", "layers_1", "layers_3", "layers_4")
+             if "layers_0" in pe else
+             ("Dense_0", "LayerNorm_0", "Dense_1", "LayerNorm_1"))
+    for (src, idx), kind in zip(zip(names, (0, 1, 3, 4)),
+                                (w.lin, w.ln, w.lin, w.ln)):
+        kind(["position_encoder", src], f"position_encoder.{idx}")
     return w.sd
 
 
@@ -166,13 +184,15 @@ def head_state_dict(params):
     w = _Writer(params)
     w.sd["query_embedding.weight"] = _arr(params, ["query_embedding"])
     w.lin(["reference_points"], "transformer.reference_points")
-    for src in ("position_encoder", "adapt_pos3d"):
-        for j, tidx in enumerate((0, 2)):
-            w.sd[f"{src}.{tidx}.weight"] = _arr(
-                params, [src, f"Dense_{j}", "kernel"]).T[:, :, None, None]
-            w.sd[f"{src}.{tidx}.bias"] = _arr(params, [src, f"Dense_{j}", "bias"])
-    w.conv(["fpe", "reduce"], "fpe.conv_reduce", bias=True)
-    w.conv(["fpe", "expand"], "fpe.conv_expand", bias=True)
+    if "position_encoder" in params:  # the plain head (with_pe False) has none
+        for src in ("position_encoder", "adapt_pos3d"):
+            for j, tidx in enumerate((0, 2)):
+                w.sd[f"{src}.{tidx}.weight"] = _arr(
+                    params, [src, f"Dense_{j}", "kernel"]).T[:, :, None, None]
+                w.sd[f"{src}.{tidx}.bias"] = _arr(
+                    params, [src, f"Dense_{j}", "bias"])
+        w.conv(["fpe", "reduce"], "fpe.conv_reduce", bias=True)
+        w.conv(["fpe", "expand"], "fpe.conv_expand", bias=True)
     lid = 0
     while f"decoder_layer{lid}" in params:
         c, r = ["cls_branch" + str(lid)], ["reg_branch" + str(lid)]
@@ -386,6 +406,26 @@ def init_weights(model: nn.Module, seed: int = 0):
                 lin.bias.zero_()
             m.deform_sampling_offsets.bias.copy_(torch.from_numpy(
                 offset_bias_init(m.num_heads, m.num_points)))
+        elif isinstance(m, Deform3DCrossAttnMP):
+            for lin in (m.value_proj, m.output_proj):
+                _xavier_uniform(lin.weight, g)
+            for lin in (m.cam_attention_weights, m.deform_sampling_offsets,
+                        m.attention_weights, m.attention_weights_neighbor):
+                _normal(lin.weight, 1.0 / math.sqrt(lin.in_features), g)
+                lin.bias.zero_()
+            m.deform_sampling_offsets.bias.copy_(torch.from_numpy(
+                offset_bias_init(m.num_heads, m.num_points)))
+        elif isinstance(m, (Detr3DCrossAtten, Detr3DCrossAttenV2)):
+            _xavier_uniform(m.output_proj.weight, g)
+            lins = [m.attention_weights]
+            if isinstance(m, Detr3DCrossAttenV2):
+                lins.append(m.sampling_offsets)
+            for lin in lins:
+                _normal(lin.weight, 1.0 / math.sqrt(lin.in_features), g)
+                lin.bias.zero_()
+            if isinstance(m, Detr3DCrossAttenV2):
+                m.sampling_offsets.bias.copy_(torch.from_numpy(v2_offset_bias(
+                    m.num_cams, m.num_heads, m.num_levels, m.num_points)))
         elif isinstance(m, Detr3DHeadPE):
             _normal(m.query_embedding.weight, 1.0, g)
             _xavier_uniform(m.transformer.reference_points.weight, g)

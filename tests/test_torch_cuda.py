@@ -980,17 +980,21 @@ def test_pillar_features_kernel_is_order_free_on_a_clustered_cloud(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["mixed", "relu", "negative"])
+@pytest.mark.parametrize("case", ["mixed", "relu", "negative", "negative_nan",
+                                  "c3", "c33"])
 def test_pillar_scatter_backward_kernel_matches_plain(cuda, case):
-    """K6's scatter backward against autograd of the plain max-scatter:
-    ties (relu's zeros, and three points planted on a crowded cell's max),
-    all-negative cells, the trash cell, and (case mixed) a NaN, a +inf and
-    a -inf in three cells (a cell whose max is not finite passes no
-    gradient). Then the same through pillar_scatter's autograd Function."""
+    """K6's scatter backward bit-equal to the plain backward (jax.vjp of
+    the JAX op): ties (relu's zeros, and three points planted on a crowded
+    cell's max), all-negative cells, the trash cell, and (cases mixed and
+    negative_nan) a NaN of either sign, a +inf and a -inf in three cells
+    (a cell whose max is NaN or +inf passes no gradient); 3 and 33
+    channels (the tail of the kernel's two columns a lane). Then the same
+    through pillar_scatter's autograd Function, one cooperative launch."""
     rng = np.random.RandomState(14)
+    C = {"c3": 3, "c33": 33}.get(case, 64)
     pts, mask = _cloud(rng, 2, 5000)
     ids, _ = vox_ops.pillar_features_plain(pts, mask, PC, (128, 128))
-    feats = rng.randn(2, 5000, 64).astype(np.float32)
+    feats = rng.randn(2, 5000, C).astype(np.float32)
     if case == "relu":
         feats = np.maximum(feats - 0.5, 0.0)
     elif case == "negative":
@@ -999,12 +1003,15 @@ def test_pillar_scatter_backward_kernel_matches_plain(cuda, case):
     members = torch.nonzero(ids[0] == torch.bincount(live).argmax())[:, 0].numpy()
     assert len(members) >= 50  # the crowded pillar
     tied = members[:3]
-    feats[0, tied, 5] = feats[0, members, 5].max() + 1.0
-    if case == "mixed":
-        feats[0, members[3], 7], feats[0, members[4], 8] = np.nan, np.inf
+    feats[0, tied, 1] = feats[0, members, 1].max() + 1.0
+    nonfinite = case in ("mixed", "negative_nan")
+    if nonfinite:
+        nan = np.copysign(np.float32(np.nan), -1.0 if case == "negative_nan" else 1.0)
+        feats[0, members[3], 7], feats[0, members[4], 8] = nan, np.inf
         feats[0, members[5], 9] = -np.inf
+        assert np.signbit(feats[0, members[3], 7]) == (case == "negative_nan")
     feats, ids = torch.from_numpy(feats).to(cuda), ids.to(cuda)
-    g = torch.randn(2, 128, 128, 64, generator=torch.Generator().manual_seed(0))
+    g = torch.randn(2, 128, 128, C, generator=torch.Generator().manual_seed(0))
     g = g.to(cuda)
     out = vox_ops.pillar_scatter(feats, ids, (128, 128))
     n0 = vox_ops.scatter_backward_launches
@@ -1012,22 +1019,18 @@ def test_pillar_scatter_backward_kernel_matches_plain(cuda, case):
     want = vox_ops.pillar_scatter_backward_plain(feats, ids, g, (128, 128))
     torch.cuda.synchronize()
     assert vox_ops.scatter_backward_launches == n0 + 1
-    # the NaN's cell passes no gradient; autograd's amax backward divides
-    # 0 by the 0 values that equal NaN there
-    nan_cell = torch.isnan(want)
-    assert nan_cell.any() == (case == "mixed")
-    assert (got[nan_cell] == 0).all()
-    want = want.masked_fill(nan_cell, 0.0)
-    assert (got - want).abs().max().item() <= 1e-6 * want.abs().max().item()
+    assert torch.isfinite(want).all()
+    assert torch.equal(got, want)
     assert (want[ids == 128 * 128] == 0).all()
     tied = torch.from_numpy(tied).to(cuda)
     cell = ids[0, tied[0]].long()
-    torch.testing.assert_close(want[0, tied, 5],
-                               (g[0].reshape(-1, 64)[cell, 5] / 3).expand(3),
+    torch.testing.assert_close(want[0, tied, 1],
+                               (g[0].reshape(-1, C)[cell, 1] / 3).expand(3),
                                rtol=1e-6, atol=0)
-    if case == "mixed":  # the +inf's cell passes none, the -inf's does
-        assert (want[0, torch.from_numpy(members).to(cuda), 8] == 0).all()
-        assert want[0, torch.from_numpy(members).to(cuda), 9].abs().sum() > 0
+    if nonfinite:  # the NaN's and the +inf's cells pass none, the -inf's does
+        in_cell = torch.from_numpy(members).to(cuda)
+        assert (want[0, in_cell, 7] == 0).all() and (want[0, in_cell, 8] == 0).all()
+        assert want[0, in_cell, 9].abs().sum() > 0
     f = feats.clone().requires_grad_()
     out = vox_ops.pillar_scatter(f, ids, (128, 128))
     assert out.grad_fn is not None
@@ -1035,6 +1038,9 @@ def test_pillar_scatter_backward_kernel_matches_plain(cuda, case):
     torch.cuda.synchronize()
     assert vox_ops.scatter_backward_launches == n0 + 2
     assert torch.equal(f.grad, got)
+    calls = _runtime_launches(
+        lambda: vox_ops.pillar_scatter_backward(feats, ids, out, g, (128, 128)))
+    assert calls == ["cudaLaunchCooperativeKernel"], calls
 
 
 @pytest.mark.cuda

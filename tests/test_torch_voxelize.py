@@ -218,6 +218,49 @@ def test_pillar_scatter_backward_matches_jax_vjp(shift):
         assert (out[0].reshape(H * W, C)[torch.from_numpy(~empty)][:, 2:] < 0).all()
 
 
+@pytest.mark.parametrize("nan_sign", [1.0, -1.0])
+def test_pillar_scatter_backward_nonfinite_matches_jax_vjp(nan_sign):
+    """The gradient where the max is not finite, against jax.vjp of the
+    jitted, vmapped JAX op: a NaN (either sign), a +inf and a -inf among
+    finite values of three cells, and a cell all -inf. The cells whose max
+    is NaN or +inf pass no gradient (0, where autograd through
+    scatter_reduce_ gave NaN to the NaN's cell), the -inf is passed over
+    and its cell's max gets its gradient, the all -inf cell none."""
+    pts, mask = _points(2)
+    want_ids, _, _ = _jax_features(pts[None], mask[None])
+    ids = want_ids[0].astype(np.int32)
+    H, W = GRID
+    counts = np.bincount(ids[ids < H * W], minlength=H * W)
+    cells = np.flatnonzero(counts >= 2)[:4]
+    rng = np.random.RandomState(6)
+    feats = rng.randn(1, pts.shape[0], 6).astype(np.float32)
+    nan = np.copysign(np.float32(np.nan), np.float32(nan_sign))
+    for cell, v in zip(cells[:3], (nan, np.float32(np.inf), np.float32(-np.inf))):
+        feats[0, np.flatnonzero(ids == cell)[0], 2] = v
+    feats[0, ids == cells[3]] = -np.inf
+    g = rng.randn(1, H, W, 6).astype(np.float32)
+
+    def scatter(f):
+        return jax.vmap(lambda a, i: jax_vox.pillar_scatter(
+            a, i, GRID, reduce="max"))(f, jnp.asarray(ids[None]))
+
+    want = np.asarray(jax.jit(lambda f, gg: jax.vjp(scatter, f)[1](gg)[0])(
+        jnp.asarray(feats), jnp.asarray(g)))
+    f = torch.from_numpy(feats).requires_grad_()
+    vox.pillar_scatter(f, torch.from_numpy(ids[None]), GRID).backward(
+        torch.from_numpy(g))
+    plain = vox.pillar_scatter_backward_plain(
+        torch.from_numpy(feats), torch.from_numpy(ids[None]), torch.from_numpy(g),
+        GRID)
+    for got in (f.grad, plain):
+        assert torch.isfinite(got).all()
+        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6)
+    in_cell = [ids == c for c in cells]
+    assert (want[0, in_cell[0], 2] == 0).all() and (want[0, in_cell[1], 2] == 0).all()
+    assert np.count_nonzero(want[0, in_cell[2], 2]) == 1
+    assert (want[0, in_cell[3]] == 0).all()
+
+
 def test_wrappers_validate_inputs():
     pts = torch.zeros(1, 4, 3)
     with pytest.raises(ValueError):
