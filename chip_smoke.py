@@ -85,6 +85,31 @@ IoU, and prints one JSON line per phase:
               and every layer's assignment identical (or, where rounding of
               the two routes' costs picks another optimum, the same summed
               cost within 1e-5).
+     data     the data pipeline, checkpoints and CLIs at full width: a
+              nuScenes-layout fixture (data/fixture.py: 4 samples, 6
+              current + 6 previous cameras of JPEGs at 900x1600, 5-40 GT
+              boxes) written with the installed encoder; tools.train.main
+              on the flagship (photometric, ida and rot aug, grid mask,
+              dropout, bf16) for 3 steps with checkpoints at 2 and 3, one
+              step profiled, then resumed to step 4: launches per step as
+              phase train's, the restored weights, AdamW, schedule and
+              generator bit-equal to the saved ones, the resumed step's
+              loss bit-equal to the in-memory trainer's on the same batch,
+              that step's update within 1e-2 of the in-memory step's in
+              norm over all weights and within 1e-1 in every tensor (over
+              that tensor's own update), and two restore faults planted
+              in the same step (AdamW's step count off by one; one small
+              tensor's moments zeroed) each breaking a bound;
+              tools.test.main from the checkpoint directory, from a
+              reference-layout .pth (answers identical) and with
+              --format-nusc / --out (K1 6, K2 9 a request, cam_overflow 0,
+              mAP / NDS printed without a limit), one --tta-resizes
+              1.0,0.95,1.05 request (K1 18, K2 27) whose copies'
+              calibrations equal _tta_ida's composition; the native
+              loader against the python path where it builds (mean
+              |difference| < 0.06); host ms a sample, H2D ms and bytes,
+              forward ms, steps and samples a second, the train CLI's
+              device idle share.
 
   7. serve_int8  the flagship with backbone.dcn_gather=int8 answers the
               same 4 requests from the same weights: time per request, peak
@@ -155,8 +180,11 @@ needs one CUDA device and the CUDA toolkit, and imports no JAX.
 
 import contextlib
 import dataclasses
+import gc
+import importlib.util
 import itertools
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -190,6 +218,12 @@ from graph_detr4d_tpu_torch.train.optim import clip_by_global_norm
 from graph_detr4d_tpu_torch.train.step import TrainStep
 from graph_detr4d_tpu_torch.train.trainer import Trainer
 from graph_detr4d_tpu_torch.weights import init_weights
+from graph_detr4d_tpu_torch import native as native_loader
+from graph_detr4d_tpu_torch.data import pipeline as data_pipeline
+from graph_detr4d_tpu_torch.data.fixture import write_nuscenes_fixture
+from graph_detr4d_tpu_torch.data.nuscenes import NuScenesSweepDataset
+from graph_detr4d_tpu_torch.tools import test as test_cli
+from graph_detr4d_tpu_torch.tools import train as train_cli
 
 CONFIG = "detr4d_res50_deform_pe_testaug_2subset_12e"
 REQUESTS = 4
@@ -253,6 +287,25 @@ VARIANTS = {"detr4d_res50": ("detr4d_res50", [], MSDA_CALLS),
 # each a near-tie: its own 8th and 9th nearest squared distances within
 # this relative gap
 MP_MAX_FLIPS, MP_TIE_RTOL = 8, 1e-4
+# phase data: a nuScenes-layout fixture at the source size, the train CLI
+# for 3 steps (checkpoint at 2) then resumed to 4, the test CLI over it.
+# The resumed step's update against the in-memory trainer's on the same
+# batch: ||w_r - w_m|| / ||w_m - w_before|| over all floating weights
+# within DATA_UPDATE_RTOL, and per tensor (that tensor's difference over
+# its own update; a tensor the step left as it was stays bit-equal)
+# within DATA_TENSOR_UPDATE_RTOL. The gradients differ only by the order
+# of float atomics (K1's backward grad_value among them): measured 4.3e-4
+# over all, 1.04e-2 in the worst tensor (NVIDIA H100 80GB HBM3, 700 W;
+# PERF.md). Two restore faults planted in the same resumed step must each
+# break a bound: AdamW's step count off by one (every tensor, ~6%), and
+# the moments of one small tensor, RESTORE_FAULT_TENSOR, zeroed.
+DATA_SAMPLES, DATA_SRC_HW = 4, (900, 1600)
+DATA_UPDATE_RTOL, DATA_TENSOR_UPDATE_RTOL = 1e-2, 1e-1
+RESTORE_FAULT_TENSOR = "pts_bbox_head.adapt_pos3d.0.bias"
+TTA_MULTS = (1.0, 0.95, 1.05)
+# native loader vs the python path: mean |difference| of the normalized
+# images (tests/test_pipeline.py:376)
+NATIVE_MEAN_ABS = 0.06
 
 
 def emit(record):
@@ -1551,7 +1604,7 @@ def phase_tta(engine, engine32):
         two = model(images[1], l2is[1])
         same = model.aug_forward([images[0], images[0]], l2is[0])
         mixed = model.aug_forward(list(images), l2is)
-        det = build_tta_eval_step(model, engine32.cfg)(images, l2is)
+        det, _ = build_tta_eval_step(model, engine32.cfg)(images, l2is)
     mean = {k: (one[k] + two[k]) / 2.0 for k in one}
     want = decode_batch(mean, max_num=c.max_num,
                         post_center_range=c.post_center_range,
@@ -1568,7 +1621,7 @@ def phase_tta(engine, engine32):
           "ms_per_request": times, "mean_ms": sum(times) / len(times),
           "peak_memory_bytes": peak, "launches": launches,
           "fp32_max_abs_err_per_layer": errs, "fp32_decoded": det_err,
-          "valid_detections": [int(r.valid.sum()) for r in results]})
+          "valid_detections": [int(det.valid.sum()) for det, _ in results]})
     want_launches = dict.fromkeys(launches, 0)
     want_launches.update(msda_forward=2 * MSDA_CALLS * REQUESTS,
                          deform_conv_forward=2 * DCN_CALLS * REQUESTS)
@@ -2478,6 +2531,354 @@ def phase_train_plain(cfg, sd):
                 f"costs differ by {e}")
 
 
+@contextlib.contextmanager
+def record_resume(states):
+    """Append a copy of the restored state to `states` whenever a Trainer
+    resumes."""
+    inner = Trainer.resume
+
+    def recording(self):
+        step = inner(self)
+        states.append(clone_tree(self.state()))
+        return step
+
+    Trainer.resume = recording
+    try:
+        yield
+    finally:
+        Trainer.resume = inner
+
+
+@contextlib.contextmanager
+def record_steps(calls):
+    """Append (a copy of the batch, the metrics) of every TrainStep.step
+    to `calls`."""
+    inner = TrainStep.step
+
+    def recording(self, batch):
+        copy = {k: v.clone() for k, v in batch.items()}
+        metrics = inner(self, batch)
+        calls.append((copy, metrics))
+        return metrics
+
+    TrainStep.step = recording
+    try:
+        yield
+    finally:
+        TrainStep.step = inner
+
+
+def clone_tree(tree):
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().clone()
+    if isinstance(tree, dict):
+        return {k: clone_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(clone_tree(v) for v in tree)
+    return tree
+
+
+def trees_equal(a, b, where=""):
+    """Names of the leaves where two state trees differ (tensors bitwise)."""
+    if isinstance(a, torch.Tensor):
+        same = (isinstance(b, torch.Tensor) and a.shape == b.shape
+                and torch.equal(a.cpu(), b.cpu()))
+        return [] if same else [where]
+    if isinstance(a, dict):
+        if set(a) != set(b):
+            return [where]
+        return [d for k in a for d in trees_equal(a[k], b[k], f"{where}.{k}")]
+    if isinstance(a, (list, tuple)):
+        if len(a) != len(b):
+            return [where]
+        return [d for i, (x, y) in enumerate(zip(a, b))
+                for d in trees_equal(x, y, f"{where}[{i}]")]
+    return [] if a == b else [where]
+
+
+def update_ratios(got, want, before):
+    """Per floating tensor, worst first: (||got - want|| / ||want -
+    before||, name, ||got - want||, ||want - before||); the ratio is 0
+    where got equals want and inf where only the update is 0."""
+    out = []
+    for k, w in want.items():
+        if not w.is_floating_point():
+            continue
+        diff = float((got[k].double() - w.double()).norm())
+        upd = float((w.double() - before[k].double()).norm())
+        ratio = diff / upd if upd else (0.0 if diff == 0 else float("inf"))
+        out.append((ratio, k, diff, upd))
+    return sorted(out, reverse=True)
+
+
+def update_bounds_broken(diffs):
+    """The bounds a resumed step's update_ratios break: 'all' (over all
+    weights) and 'tensor' (in some tensor); the ratio over all weights."""
+    num = sum(d * d for _, _, d, _ in diffs) ** 0.5
+    den = sum(u * u for _, _, _, u in diffs) ** 0.5
+    whole = num / den
+    broken = (["all"] if not whole <= DATA_UPDATE_RTOL else []) + (
+        ["tensor"] if not diffs[0][0] <= DATA_TENSOR_UPDATE_RTOL else [])
+    return broken, whole
+
+
+def step_with_restore_fault(trainer, saved, batch, fault):
+    """Load `saved` into the trainer, plant a restore fault in its AdamW
+    state, take one step on `batch`; returns the weights after it."""
+    ts = trainer.train_step
+    opt = clone_tree(saved["optimizer"])
+    if fault == "adamw_step_plus_one":
+        for st in opt["state"].values():
+            st["step"] = st["step"] + 1
+    elif fault == "one_tensor_moments_zeroed":
+        params = [p for g in ts.optimizer.param_groups for p in g["params"]]
+        target = dict(trainer.model.named_parameters())[RESTORE_FAULT_TENSOR]
+        st = opt["state"][next(i for i, p in enumerate(params) if p is target)]
+        st["exp_avg"].zero_()
+        st["exp_avg_sq"].zero_()
+    else:
+        raise ValueError(fault)
+    trainer.model.load_state_dict(saved["state_dict"], strict=True)
+    ts.optimizer.load_state_dict(opt)
+    ts.scheduler.load_state_dict(clone_tree(saved["scheduler"]))
+    ts.generator.set_state(saved["generators"]["train"].cpu())
+    ts.step(batch)
+    return clone_tree(trainer.model.state_dict())
+
+
+def read_log(work_dir):
+    with open(f"{work_dir}/train_log.jsonl") as f:
+        return [json.loads(line) for line in f]
+
+
+def tta_calibration_errors(ann_file, cfg):
+    """The TTA copies' lidar2img from build_batch against _tta_ida's
+    composition written out here (crop centred in x, from the bottom in
+    y, composed in float64): max |difference| per copy."""
+    s = NuScenesSweepDataset(ann_file, test_mode=True).sample(0)
+    H, W = cfg.img_size
+    b = data_pipeline.build_batch([s], cfg.img_size, src_hw=DATA_SRC_HW,
+                                  tta_resize_mults=TTA_MULTS)
+    p = data_pipeline.sample_ida_params(
+        np.random.RandomState(0), DATA_SRC_HW, cfg.img_size, training=False)
+    errs = []
+    for a, m in enumerate(TTA_MULTS):
+        r = p.resize * m
+        newW, newH = int(DATA_SRC_HW[1] * r), int(DATA_SRC_HW[0] * r)
+        cw, ch = int(max(0, newW - W) / 2), max(0, newH - H)
+        crop = p.crop if a == 0 else (cw, ch, cw + W, ch + H)
+        ida = data_pipeline.IdaAugParams(
+            resize=p.resize if a == 0 else r, crop=crop, flip=False).ida_mat()
+        ida4 = np.eye(4)
+        ida4[:2, :2], ida4[:2, 2] = ida[:2, :2], ida[:2, 2]
+        want = np.stack([(ida4 @ l).astype(np.float32) for l in s["lidar2img"]])
+        errs.append(float(np.abs(b["lidar2img"][a, 0] - want).max()))
+    return errs
+
+
+def native_vs_python(ann_file, cfg):
+    """The native loader's eval batch against the python path's: the route
+    that ran and the mean |difference| of the normalized images (None
+    where the loader did not build here, with the reason)."""
+    if not native_loader.available():
+        return {"route": "python (native loader unavailable: "
+                f"{native_loader.unavailable_reason()})", "mean_abs_diff": None}
+    s = NuScenesSweepDataset(ann_file, test_mode=True).sample(0)
+    py = data_pipeline.build_batch([s], cfg.img_size, src_hw=DATA_SRC_HW)
+    nat = data_pipeline.build_batch([s], cfg.img_size, src_hw=DATA_SRC_HW,
+                                    use_native=True)
+    return {"route": "native (libjpeg, C++ threads)",
+            "mean_abs_diff": float(np.abs(nat["images"] - py["images"]).mean())}
+
+
+def phase_data(cfg):
+    """The data pipeline, checkpoints and the train / test CLIs at the
+    flagship's full width, from JPEG frames at the source size."""
+    decoder = "cv2" if importlib.util.find_spec("cv2") else "PIL"
+    if importlib.util.find_spec(decoder) is None:
+        raise AssertionError("no JPEG decoder (cv2 or PIL) for the pipeline")
+    phase_t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ann, encoder = write_nuscenes_fixture(
+            f"{tmp}/nusc", DATA_SAMPLES, DATA_SRC_HW, seed=0)
+        fixture_s = time.perf_counter() - t0
+        wd = f"{tmp}/work"
+        common = ["--config", CONFIG, "--ann-file", ann, "--work-dir", wd,
+                  "--load-interval", "1", "--log-interval", "1",
+                  "--ckpt-every", "2", "--seed", "0"]
+        # train: 3 steps, a checkpoint at 2 and at the end, one profiled
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        first = train_cli.main(common + ["--total-steps", "3",
+                                         "--profile-steps", "1"])
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        train_launches = launch_counts()
+        log = read_log(wd)
+        prof = first.profile_summary
+        saved = clone_tree(first.state())
+        # resume to 4: the restored state, and the step it takes
+        restored, steps = [], []
+        with record_resume(restored), record_steps(steps):
+            second = train_cli.main(common + ["--total-steps", "4",
+                                              "--resume"])
+        (batch, resumed_metrics), = steps
+        # the in-memory trainer's step on the resumed run's batch
+        mem_metrics = first.train_step.step(batch)
+        resumed_loss = float(resumed_metrics["loss"])
+        mem_loss = float(mem_metrics["loss"])
+        # per tensor: the resumed step against the in-memory one, over
+        # that tensor's own update; then the same step with each restore
+        # fault planted
+        before, want = saved["state_dict"], first.model.state_dict()
+        update_diffs = update_ratios(second.model.state_dict(), want, before)
+        update_broken, update_rel = update_bounds_broken(update_diffs)
+        fault_diffs = {
+            fault: update_ratios(step_with_restore_fault(
+                second, saved, batch, fault), want, before)
+            for fault in ("adamw_step_plus_one", "one_tensor_moments_zeroed")}
+        fault_broken = {f: update_bounds_broken(d)
+                        for f, d in fault_diffs.items()}
+        differing = trees_equal(restored[0], saved) if restored else ["none"]
+        ckpts = sorted(os.listdir(f"{wd}/checkpoints"))
+        del first, second, saved, restored, steps, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # test: from the checkpoint dir, from a reference-layout .pth, and
+        # with the submission written
+        test_common = ["--config", CONFIG, "--ann-file", ann]
+        sd = test_cli.load_checkpoint(f"{wd}/checkpoints")
+        pth = f"{tmp}/reference_layout.pth"
+        torch.save({"state_dict": sd, "meta": {"step": 4}}, pth)
+        runs, test_launches = {}, {}
+        for name, extra in (
+                ("checkpoint_dir", ["--checkpoint", f"{wd}/checkpoints"]),
+                ("reference_pth", ["--checkpoint", pth]),
+                ("format_nusc", ["--checkpoint", pth, "--format-nusc",
+                                 f"{tmp}/nusc_out", "--out",
+                                 f"{tmp}/results.json"]),
+                ("tta", ["--checkpoint", pth, "--max-samples", "1",
+                         "--tta-resizes", ",".join(map(str, TTA_MULTS))])):
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            runs[name] = test_cli.main(test_common + extra)
+            torch.cuda.synchronize()
+            runs[name]["seconds"] = time.perf_counter() - t0
+            test_launches[name] = launch_counts()
+        with open(f"{tmp}/nusc_out/results_nusc.json") as f:
+            submission = json.load(f)
+        tta_errs = tta_calibration_errors(ann, cfg)
+        native = native_vs_python(ann, cfg)
+    gc.collect()
+
+    train_steps = [r for r in log if "loss" in r]
+    per_step = {k: v / 3 for k, v in train_launches.items()}
+    want_step = {**dict.fromkeys(train_launches, 0), **STEP_LAUNCHES}
+    test_run = runs["checkpoint_dir"]
+    timing = test_run["timing"]
+    per_request = {name: {k: v / len(runs[name]["results"])
+                          for k, v in c.items() if v}
+                   for name, c in test_launches.items()}
+    data_launches = {k: train_launches[k] + sum(c[k] for c in test_launches.values())
+                     for k in train_launches}
+    emit({
+        "phase": "data", "seconds": time.perf_counter() - phase_t0,
+        "config": CONFIG, "samples": DATA_SAMPLES,
+        "source_hw": DATA_SRC_HW, "cameras": cfg.head.num_cams,
+        "img_size": cfg.img_size, "jpeg_encoder": encoder,
+        "jpeg_decoder": decoder, "native_loader": native,
+        "fixture_seconds": fixture_s,
+        "train": {
+            "seconds_3_steps": train_s,
+            "loss": [r["loss"] for r in train_steps],
+            "iter_time_s": [r["iter_time"] for r in train_steps],
+            "steps_per_s": [1.0 / r["iter_time"] for r in train_steps],
+            "host_ms_per_sample": [1e3 * r["data_time"] for r in train_steps],
+            "h2d_ms": [r.get("h2d_ms") for r in train_steps],
+            "h2d_bytes": [r["h2d_bytes"] for r in train_steps],
+            "launches_per_step": per_step, "checkpoints": ckpts,
+            "resumed_loss": resumed_loss, "in_memory_loss": mem_loss,
+            "resumed_state_differing": differing,
+            "update_rel_diff": update_rel,
+            "update_rel_diff_worst": [list(w) for w in update_diffs[:8]],
+            "restore_faults_update_rel_diff": {
+                fault: {"all": fault_broken[fault][1],
+                        "broken": fault_broken[fault][0], "worst": list(d[0]),
+                        "least_of_updated": min(r for r, _, _, u in d if u),
+                        RESTORE_FAULT_TENSOR: next(
+                            r for r, k, *_ in d if k == RESTORE_FAULT_TENSOR)}
+                for fault, d in fault_diffs.items()},
+            "profiled_step": prof,
+        },
+        "test": {
+            name: {"seconds": r["seconds"], "mAP": r["metrics"]["mAP"],
+                   "NDS": r["metrics"]["NDS"], "cam_overflow": r["cam_overflow"],
+                   "launches_per_request": per_request[name]}
+            for name, r in runs.items()},
+        "test_timing": {
+            "host_ms_per_sample": timing["host_ms"],
+            "h2d_ms": timing.get("h2d_ms"), "h2d_bytes": timing["h2d_bytes"],
+            "forward_ms": timing.get("forward_ms"),
+            "samples_per_s": len(test_run["results"]) / test_run["seconds"]},
+        "tta_calibration_max_abs_err": tta_errs,
+        "submission_samples": len(submission["results"]),
+    })
+    if per_step != want_step:
+        raise AssertionError(f"data: train launches per step {per_step} != "
+                             f"{want_step}")
+    if len(train_steps) != 3 or not all(np.isfinite(r["loss"])
+                                        for r in train_steps):
+        raise AssertionError(f"data: train log {train_steps}")
+    if ckpts != ["step_00000002.pth", "step_00000003.pth", "step_00000004.pth"]:
+        raise AssertionError(f"data: checkpoints {ckpts}")
+    if differing:
+        raise AssertionError(f"data: restored state differs at {differing[:8]}")
+    if resumed_loss != mem_loss:
+        raise AssertionError(f"data: resumed loss {resumed_loss} != the "
+                             f"in-memory state's {mem_loss}")
+    if update_broken:
+        raise AssertionError(f"data: the resumed step's update differs from "
+                             f"the in-memory step's ({update_broken}): "
+                             f"{update_rel} over all, {update_diffs[:4]}")
+    for fault, (broken, whole) in fault_broken.items():
+        if not broken:
+            raise AssertionError(f"data: the check cannot see the restore "
+                                 f"fault {fault}: {whole} over all, "
+                                 f"{fault_diffs[fault][:4]}")
+    want_req = {"msda_forward": MSDA_CALLS, "deform_conv_forward": DCN_CALLS}
+    want_tta = {k: v * len(TTA_MULTS) for k, v in want_req.items()}
+    for name, r in runs.items():
+        want = want_tta if name == "tta" else want_req
+        if per_request[name] != {k: v for k, v in want.items() if v}:
+            raise AssertionError(f"data: test {name} launches per request "
+                                 f"{per_request[name]} != {want}")
+        if any(o != 0 for o in r["cam_overflow"]):
+            raise AssertionError(f"data: test {name} cam_overflow "
+                                 f"{r['cam_overflow']}")
+        if len(r["results"]) != (1 if name == "tta" else DATA_SAMPLES):
+            raise AssertionError(f"data: test {name} answered "
+                                 f"{len(r['results'])} samples")
+        for res in r["results"]:
+            if not all(np.isfinite(res[k]).all() for k in ("boxes", "scores")):
+                raise AssertionError(f"data: test {name} non-finite answer")
+    for name in ("reference_pth", "format_nusc"):
+        if runs[name]["results"] != test_run["results"]:
+            raise AssertionError(f"data: test {name} answers differ from the "
+                                 "checkpoint directory's")
+    if len(submission["results"]) != DATA_SAMPLES:
+        raise AssertionError(f"data: submission holds "
+                             f"{len(submission['results'])} samples")
+    if max(tta_errs) != 0.0:
+        raise AssertionError(f"data: TTA calibrations {tta_errs}")
+    if native["mean_abs_diff"] is not None and \
+            not native["mean_abs_diff"] < NATIVE_MEAN_ABS:
+        raise AssertionError(f"data: native loader differs by "
+                             f"{native['mean_abs_diff']}")
+    return data_launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2512,11 +2913,14 @@ def main():
         trainer, batch, train_launches, assignments, focal_inputs = phase_train(
             cfg, sd, work_dir)
         phase_train_breakdown(trainer, batch)
+        trainer.close()
         del trainer
     torch.cuda.empty_cache()
     kernels["hungarian"]["train_costs"] = kernel_hungarian_train(dev, assignments)
     kernels["focal_loss"]["train_inputs"] = kernel_focal_loss_train(focal_inputs)
     phase_train_plain(cfg, sd)
+    torch.cuda.empty_cache()
+    data_launches = phase_data(cfg)
     torch.cuda.empty_cache()
     lidar_sd = lidar_state_dict()
     lidar_engine, clouds, lidar_launches = phase_lidar(lidar_sd)
@@ -2528,7 +2932,7 @@ def main():
     lidar_grad_launches = phase_lidar_grad(lidar_sd, clouds[0], cfg)
 
     paths = {**serving, "serve_int8": int8_launches, "train": train_launches,
-             "lidar": lidar_launches, "iou": iou_launches,
+             "data": data_launches, "lidar": lidar_launches, "iou": iou_launches,
              "lidar_grad": lidar_grad_launches}
     serving_total = {k: sum(c[k] for c in serving.values())
                      for k in serve_launches}

@@ -4,10 +4,10 @@ The port's copy of the entries of `graph_detr4d_tpu/configs/__init__.py`
 whose every feature the port runs (`get_config`, `apply_overrides` and the
 `_detr4d` helper): the detr4d `deform_pe` family, the plain head
 (with_pe False), the MP, DETR3D and DETR3D-v2 cross-attentions and the
-single-frame 6-camera models. Names and values are the JAX registry's
-(tests/test_torch_weights.py holds them equal). Configs whose training
-pipeline switches (`resize_scales`, `*_aug`) the port does not run yet are
-left out.
+single-frame 6-camera models, with the train-pipeline variants (`*_aug`,
+`resize_scales`) that data/pipeline.py::build_batch runs. Names and
+values are the JAX registry's (tests/test_torch_weights.py and
+tests/test_torch_data.py hold them equal).
 
     from graph_detr4d_tpu_torch.configs import get_config
     cfg = get_config("detr4d_res50_deform_pe_testaug_2subset_12e",
@@ -209,3 +209,61 @@ def graph_detr3d_res101():
     return dataclasses.replace(
         cfg, backbone=dataclasses.replace(cfg.backbone, depth=101)
     )
+
+
+def _with_augs(cfg: ModelConfig, *, photo=True, ida=True, rot=True):
+    return dataclasses.replace(
+        cfg,
+        train=dataclasses.replace(
+            cfg.train, photometric=photo, ida_aug=ida, rot_aug=rot
+        ),
+    )
+
+
+@register("detr4d_res50_deform_ms")
+def detr4d_res50_deform_ms():
+    """Multi-scale training: random depth-scaled resizes
+    (RandomResizeImageMultiViewImage + ScaleAnnotations3D,
+    configs/detr4d/detr4d_res50_deform_ms.py:132-134)."""
+    cfg = _detr4d(with_pe=False)
+    return dataclasses.replace(
+        cfg,
+        train=dataclasses.replace(
+            cfg.train,
+            resize_scales=(
+                (400, 9999),
+                (784, 9999),
+                (848, 9999),
+                (912, 9999),
+                (976, 9999),
+                (1040, 9999),
+                (1104, 9999),
+            ),
+        ),
+    )
+
+
+@register("detr4d_res50_deform_aug_2subset_12e")
+def detr4d_deform_aug():
+    """photometric + ida crop/flip + BEV rot, the plain head
+    (detr4d_res50_deform_aug_2subset_12e.py:142-153)."""
+    return _with_augs(_detr4d(with_pe=False))
+
+
+@register("detr4d_res50_deform_pe_aug_2subset_12e")
+def detr4d_pe_aug():
+    return _with_augs(_detr4d())
+
+
+@register("detr4d_res50_deform_pe_rotaug_2subset_12e")
+def detr4d_pe_rotaug():
+    """photometric + BEV rot/scale, ida off
+    (detr4d_res50_deform_pe_rotaug_2subset_12e.py:142-148)."""
+    return _with_augs(_detr4d(), ida=False)
+
+
+@register("detr4d_res50_deform_pe_rotcropaug_2subset_12e")
+def detr4d_pe_rotcropaug():
+    """photometric + ida + BEV rot, all on
+    (detr4d_res50_deform_pe_rotcropaug_2subset_12e.py:143-148)."""
+    return _with_augs(_detr4d())

@@ -4,7 +4,11 @@ decoder layer. The JAX steps are jitted and, for build_eval_step, may be
 sharded over a device mesh; these run eagerly on the model's device.
 
     step = build_tta_eval_step(model, cfg)
-    det = step(images, lidar2img)  # images (A, B, N, H, W, 3) or A copies
+    det, cam_overflow = step(images, lidar2img)  # images (A, B, N, H, W, 3)
+
+Each step returns the detections and the head's `cam_overflow` (the
+in-view queries the per-camera compaction dropped; the JAX steps return
+the detections alone).
 
 Building the resized copies belongs to the data pipeline; callers pass
 them with their calibrations.
@@ -18,14 +22,15 @@ from ..core.coder import decode_batch
 
 def _decode(out, cfg: ModelConfig):
     c = cfg.coder
-    return decode_batch(out, max_num=c.max_num,
-                        post_center_range=c.post_center_range,
-                        score_threshold=c.score_threshold)
+    det = decode_batch(out, max_num=c.max_num,
+                       post_center_range=c.post_center_range,
+                       score_threshold=c.score_threshold)
+    return det, out["cam_overflow"]
 
 
 def build_eval_step(model, cfg: ModelConfig):
     """batch {'images' (B, N, H, W, 3), 'lidar2img' (B, N, 4, 4)} on the
-    model's device -> Detections."""
+    model's device -> (Detections, cam_overflow)."""
 
     @torch.inference_mode()
     def eval_step(batch):

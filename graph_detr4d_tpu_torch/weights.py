@@ -16,6 +16,9 @@ detector `models/dgcnn.py::ObjDGCNN`, under names that mirror the JAX tree
 checkpoint loads into it, nor into the JAX ObjDGCNN: their LayerNorms in
 place of BatchNorm (pillar and SECOND layers) change the parameters.
 
+`load_reference_checkpoint(path)` reads a `.pth` in that layout (an
+upstream checkpoint, or one the port saved) for `load_state_dict`.
+
 `init_weights(model, seed)` draws the port's random weights from a
 seeded `torch.Generator`: the JAX package's initialisers, with the
 zero-initialised projections perturbed so a random model exercises the
@@ -331,6 +334,23 @@ def to_torch(sd) -> "OrderedDict[str, torch.Tensor]":
         (k, torch.from_numpy(np.array(v, dtype=np.float32)))
         for k, v in sd.items()
     )
+
+
+def load_reference_checkpoint(path: str, model: nn.Module = None):
+    """The state_dict of a `.pth` in the reference layout: an mmdet3d
+    checkpoint ({'meta', 'state_dict', 'optimizer'}), a bare state_dict,
+    or one of the port's own checkpoints (train/checkpoint.py). As
+    tools/convert_checkpoint.py:743 reads it (`ckpt.get("state_dict",
+    ckpt)`), through torch.load(weights_only=True); BatchNorm's
+    `num_batches_tracked` counters and a `meta` entry are dropped. With
+    `model`, the weights are loaded into it with strict=True."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    sd = ckpt.get("state_dict", ckpt)
+    sd = OrderedDict((k, v) for k, v in sd.items()
+                     if k != "meta" and not k.endswith("num_batches_tracked"))
+    if model is not None:
+        model.load_state_dict(sd, strict=True)
+    return sd
 
 
 # ------------------------------------------------------------ random init

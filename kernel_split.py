@@ -251,6 +251,7 @@ if {"k4", "k5"} & set(names):
         costs, focal = [], []
         with cs.record_assignments(costs), cs.record_focal_inputs(focal):
             trainer.fit(1, log_interval=1)
+        trainer.close()
     (cost, nv, _), = costs
     (focal_args, focal_kw), = focal
     inputs["k4"] = (cost.cpu(), nv.cpu())

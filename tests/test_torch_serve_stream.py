@@ -164,8 +164,9 @@ def test_aug_forward_and_tta_step_match_jax(setup):
     jdet = jax_step.build_tta_eval_step(model, jcfg)(
         params["params"], params["batch_stats"], jnp.asarray(images),
         jnp.asarray(l2is), {})
-    tdet = port_step.build_tta_eval_step(port, tcfg)(
+    tdet, overflow = port_step.build_tta_eval_step(port, tcfg)(
         torch.from_numpy(images), torch.from_numpy(l2is))
+    assert float(overflow) == float(got["cam_overflow"])
     c = tcfg.coder
     assert_det_close(tdet, jdet)
     assert_det_close(decode_batch(got, max_num=c.max_num,
@@ -175,8 +176,9 @@ def test_aug_forward_and_tta_step_match_jax(setup):
     jdet = jax_step.build_eval_step(model, jcfg)(
         params["params"], params["batch_stats"],
         {k: jnp.asarray(x) for k, x in batch.items()})
-    tdet = port_step.build_eval_step(port, tcfg)(
+    tdet, overflow = port_step.build_eval_step(port, tcfg)(
         {k: torch.from_numpy(x) for k, x in batch.items()})
+    assert float(overflow) == float(one["cam_overflow"])
     assert_det_close(tdet, jdet)
 
 

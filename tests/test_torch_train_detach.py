@@ -53,6 +53,7 @@ def test_trainer_overfits_a_fixed_batch(tmp_path):
     trainer = Trainer(cfg, sd, iter([batch] * 4), str(tmp_path),
                       device="cpu")
     records = trainer.fit(4, log_interval=1)
+    trainer.close()
     losses = [r["loss"] for r in records]
     assert len(losses) == 4 and all(np.isfinite(losses))
     assert all(np.isfinite(r["grad_norm"]) for r in records)
