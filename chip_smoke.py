@@ -147,6 +147,40 @@ IoU, and prints one JSON line per phase:
               gradients (pfn, pfn_norm) and the global gradient norm
               within 5e-4 (train_plain's tolerances), pfn's weight gradient
               finite and nonzero.
+ 12. hdetr    H-DETR (h_detr4d_res50_deform_pe_testaug_2subset_12e: the
+              flagship plus a one2many group of 1,800 queries under a
+              block-diagonal self-attention mask), bf16: 2 requests through
+              serve.Engine (K1 6, K2 9 a request, cam_overflow 0 at K =
+              1,350 a camera); in fp32 its one2one outputs against the
+              flagship's given the same weights and the first 900 query
+              rows, within phase plain's bounds with the camera gate's
+              projection zeroed (with the seeded gate reported only: the
+              gate's (B, Q, N) -> (B, N, Q) view mixes queries); 1 + 2
+              Trainer steps with 40 GT (a step: K1 6 / 6, K2 9 / 9, K4 2,
+              K5 2: the one2one and the one2many set loss); one fp32 step
+              kernels vs plain as train_plain (phase hdetr_train_plain,
+              both groups' assignments); ms a request and a step, peaks.
+ 13. camaware the four camera-aware configs (DepthNet, the camconv gate,
+              scale_pred), bf16, on one batch of a fixture through the
+              pipeline (real intrinsics, ida_scale, and depth_factors from
+              scale_aware_resize): one request each (K1 6, K2 9,
+              cam_overflow 0), fp32 kernels vs plain on camaware_fpe and
+              camconvfpe (phase plain's bounds), one bf16 TrainStep step on
+              camaware_pe_aug and simpleda (finite; K1 6 / 6, K2 9 / 9, K4
+              1, K5 1), cam_coord_channels' ms and peak bytes at full
+              width, and the ResNet-18 student served once (K1 6, K2 0).
+ 14. http     the flagship exported by tools/export_model.py (float, and
+              --uint8-input --streaming), each verified on the card, served
+              in process by tools/serve.py on port 0: float /infer (K1 6,
+              K2 9 a request), uint8 /infer on the streaming artifact (K1
+              6, K2 18: the halves encoded separately), /infer_stream of 6
+              new cameras (K1 6, K2 9), /reset_stream; HTTP answers
+              bit-equal to in-process Engine.infer; the bench client at
+              concurrency 1 and 2 on each route (p50 / p90 / p99,
+              throughput, payload MB); concurrent answers bit-equal to
+              serial ones; a float body refused by the uint8 artifact
+              with 400 and the server serving on; /healthz's served equal
+              to the inference requests answered.
 Phase `kernels` also holds K3 (the fused int8-table conv, fp32 within
 1e-4 and bf16 within one bf16 step of the output's magnitude, both
 strides, the flagship's 7 int8 DCN shapes, with `gemm_ref_ms` as K2's),
@@ -189,6 +223,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -224,6 +259,10 @@ from graph_detr4d_tpu_torch.data.fixture import write_nuscenes_fixture
 from graph_detr4d_tpu_torch.data.nuscenes import NuScenesSweepDataset
 from graph_detr4d_tpu_torch.tools import test as test_cli
 from graph_detr4d_tpu_torch.tools import train as train_cli
+from graph_detr4d_tpu_torch.models.camera_aware import cam_coord_channels
+from graph_detr4d_tpu_torch.serve import extras_spec
+from graph_detr4d_tpu_torch.tools import export_model as export_cli
+from graph_detr4d_tpu_torch.tools import serve as serve_cli
 
 CONFIG = "detr4d_res50_deform_pe_testaug_2subset_12e"
 REQUESTS = 4
@@ -306,6 +345,25 @@ TTA_MULTS = (1.0, 0.95, 1.05)
 # native loader vs the python path: mean |difference| of the normalized
 # images (tests/test_pipeline.py:376)
 NATIVE_MEAN_ABS = 0.06
+# phase hdetr: the flagship plus H-DETR's one2many group of 1,800 queries
+# (K4 and K5 twice a step: the one2one and the one2many set loss)
+HDETR_CONFIG = "h_detr4d_res50_deform_pe_testaug_2subset_12e"
+HDETR_REQUESTS, HDETR_TRAIN_STEPS = 2, 2
+HDETR_STEP_LAUNCHES = {**STEP_LAUNCHES, "focal_loss": 2, "hungarian": 2}
+# phase camaware: the four camera-aware configs, each served once on a
+# fixture batch with its real intrinsics, ida scale and depth factors;
+# fp32 kernels vs plain on two, a bf16 train step on the other two; and
+# the ResNet-18 student (no DCN) served once
+CAMAWARE_CONFIGS = ("detr4d_res50_deform_camaware_pe_aug_2subset_12e",
+                    "detr4d_res50_deform_camaware_fpe_2subset_12e",
+                    "detr4d_res50_deform_camconvfpe_2subset_12e",
+                    "detr4d_res50_deform_simpleda_2subset_12e")
+CAMAWARE_PLAIN = CAMAWARE_CONFIGS[1:3]
+CAMAWARE_TRAIN = CAMAWARE_CONFIGS[0::3]
+R18_CONFIG = "detr4d_res18_deform_pe_testaug_320_2subset"
+# phase http: the flagship exported twice and served over HTTP in process
+HTTP_FLOAT_REQUESTS, HTTP_UINT8_REQUESTS, HTTP_STREAM_REQUESTS = 2, 4, 4
+HTTP_BENCH_REQUESTS = 8
 
 
 def emit(record):
@@ -1558,8 +1616,8 @@ def phase_stream(engine, cfg, sd, serve_ms):
     engine32 = Engine(cfg32, sd)
     outs, inner = [], engine32.model.forward_feats
 
-    def recording(feats, lidar2img, generator=None):
-        outs.append(inner(feats, lidar2img, generator))
+    def recording(feats, lidar2img, generator=None, **extras):
+        outs.append(inner(feats, lidar2img, generator, **extras))
         return outs[-1]
 
     engine32.model.forward_feats = recording
@@ -1692,21 +1750,25 @@ def reference_route(model, calls, replay=False):
             h.remove()
 
 
-def compare_routes(cfg, sd, graph=False, references=False):
+def compare_routes(cfg, sd, graph=False, references=False, batch=None,
+                   extras=None):
     """fp32, one forward through the kernels and one through their plain
     versions from the same weights; with `graph`, the plain route replays
     the kernel route's MP query graphs; with `references`, the reference
     points each decoder layer is given (and a third, free-running plain
-    route is compared too). Returns (per-layer errors, launch counts per
-    route, the graphs' near-tie gaps, cam_overflow per route, the free
-    route's per-layer errors or None)."""
+    route is compared too). `batch` (default synthetic_batch) and
+    `extras` (the model's depth_factors / intrinsics / ida_scale) are the
+    inputs. Returns (per-layer errors, launch counts per route, the
+    graphs' near-tie gaps, cam_overflow per route, the free route's
+    per-layer errors or None)."""
     cfg32 = dataclasses.replace(cfg, bf16=False)
     model = GraphDETR4D(cfg32)
     model.load_state_dict(sd, strict=True)
     model.eval()
-    batch = synthetic_batch(cfg32, seed=0)
+    batch = synthetic_batch(cfg32, seed=0) if batch is None else batch
     images = torch.from_numpy(batch["images"]).cuda()
     l2i = torch.from_numpy(batch["lidar2img"]).cuda()
+    kw = {k: torch.as_tensor(v).cuda() for k, v in (extras or {}).items()}
     routes = [("kernels", contextlib.nullcontext, False),
               ("plain", plain_kernels, True)]
     if references:
@@ -1721,7 +1783,7 @@ def compare_routes(cfg, sd, graph=False, references=False):
                     if references and replay is not None
                     else contextlib.nullcontext())
             with ctx(), gctx as route_gaps, rctx:
-                outs[route] = model(images, l2i)
+                outs[route] = model(images, l2i, **kw)
             if replay:
                 gaps = route_gaps
             counts[route] = {k: v for k, v in launch_counts().items() if v}
@@ -2482,9 +2544,28 @@ def assignment_cost(cost, num_valid, col4row):
     return total
 
 
-def phase_train_plain(cfg, sd):
+def gt_of_query(cost, col4row):
+    """(queries,) for one K4 problem, the GT box each query is assigned
+    (-1 for none), named by the first row whose cost row equals the
+    assigned row's: H-DETR's tiled copies of a box have identical rows, so
+    a swap of two copies names the same box."""
+    R, Q = cost.shape
+    _, inv = torch.unique(cost, dim=0, return_inverse=True)
+    first = torch.full((int(inv.max()) + 1,), R, dtype=torch.long,
+                       device=cost.device)
+    rows = torch.arange(R, device=cost.device)
+    first.scatter_reduce_(0, inv, rows, "amin")
+    out = torch.full((Q,), -1, dtype=torch.long, device=cost.device)
+    solved = col4row >= 0
+    out[col4row[solved].long()] = first[inv][solved]
+    return out
+
+
+def phase_train_plain(cfg, sd, phase="train_plain",
+                      step_launches=STEP_LAUNCHES):
     """One fp32 step (dropout 0, grid mask off) from the same weights
-    through the kernels, then through the plain versions."""
+    through the kernels, then through the plain versions. Every K4 call
+    of the step (H-DETR's one2one and one2many groups: two) is compared."""
     cfg32 = dataclasses.replace(
         cfg, bf16=False, head=dataclasses.replace(cfg.head, dropout=0.0),
         train=dataclasses.replace(cfg.train, use_grid_mask=False))
@@ -2506,29 +2587,43 @@ def phase_train_plain(cfg, sd):
     kern, plain = metrics["kernels"], metrics["plain"]
     rel = {k: abs(kern[k] - plain[k]) / max(abs(plain[k]), 1e-12)
            for k in kern}
-    (ck, nk, ak), = calls["kernels"]
-    (cp, npl, ap), = calls["plain"]
-    layers = ak.shape[0]
-    differ = [int((ak[i] != ap[i]).sum()) for i in range(layers)]
-    opt_k, opt_p = assignment_cost(ck, nk, ak), assignment_cost(cp, npl, ap)
-    cost_rel = [abs(a - b) / max(abs(b), 1e-12) for a, b in zip(opt_k, opt_p)]
-    emit({"phase": "train_plain", "dtype": "float32", "metrics": metrics,
+    differ, cost_rel, differ_gt = [], [], []
+    if len(calls["kernels"]) != len(calls["plain"]):
+        raise AssertionError(f"{phase}: K4 calls per route differ")
+    for (ck, nk, ak), (cp, npl, ap) in zip(calls["kernels"], calls["plain"]):
+        differ.append([int((ak[i] != ap[i]).sum()) for i in range(ak.shape[0])])
+        # H-DETR's one2many rows are the GT tiled k times: a swap of two
+        # copies of one box is an equal-cost optimum. Per query, the GT
+        # box it is given
+        differ_gt.append([int((gt_of_query(ck[i], ak[i])
+                               != gt_of_query(cp[i], ap[i])).sum())
+                          for i in range(ak.shape[0])])
+        opt_k, opt_p = assignment_cost(ck, nk, ak), assignment_cost(cp, npl, ap)
+        cost_rel.append([abs(a - b) / max(abs(b), 1e-12)
+                         for a, b in zip(opt_k, opt_p)])
+    one = len(differ) == 1  # the flagship's line keeps its shape
+    emit({"phase": phase, "dtype": "float32", "metrics": metrics,
           "rel_err": rel, "launches": counts,
-          "assignment_rows_differing_per_layer": differ,
-          "optimum_cost_rel_err_per_layer": cost_rel})
+          "assignment_rows_differing_per_layer": differ[0] if one else differ,
+          "optimum_cost_rel_err_per_layer": cost_rel[0] if one else cost_rel,
+          **({} if one else {
+              "queries_given_another_gt_box_per_layer": differ_gt})})
     want_plain = dict.fromkeys(counts["plain"], 0)
-    want_kernels = {**want_plain, **STEP_LAUNCHES}
+    want_kernels = {**want_plain, **step_launches}
     if counts != {"kernels": want_kernels, "plain": want_plain}:
-        raise AssertionError(f"launches per route {counts}")
+        raise AssertionError(f"{phase}: launches per route {counts}")
     for k, e in rel.items():
         tol = TRAIN_PLAIN_GRAD_NORM_RTOL if k == "grad_norm" else TRAIN_PLAIN_RTOL
         if not e <= tol:
-            raise AssertionError(f"train step kernels vs plain: {k} {e} > {tol}")
-    for i, (d, e) in enumerate(zip(differ, cost_rel)):
-        if d and not e <= 1e-5:
-            raise AssertionError(
-                f"layer {i}: {d} rows assigned differently and optimum "
-                f"costs differ by {e}")
+            raise AssertionError(f"{phase}: train step kernels vs plain: {k} "
+                                 f"{e} > {tol}")
+    for c, (dc, ec) in enumerate(zip(differ, cost_rel)):
+        for i, (d, e) in enumerate(zip(dc, ec)):
+            if d and not e <= 1e-5:
+                raise AssertionError(
+                    f"{phase}: K4 call {c} layer {i}: {d} rows assigned "
+                    f"differently and optimum costs differ by {e}")
+    return metrics
 
 
 @contextlib.contextmanager
@@ -2879,6 +2974,433 @@ def phase_data(cfg):
     return data_launches
 
 
+def add_counts(total, counts):
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+    return total
+
+
+def counts_since(before):
+    """Launches since the snapshot `before` (a launch_counts() dict)."""
+    return {k: v - before[k] for k, v in launch_counts().items()}
+
+
+def zero_camera_gate(sd):
+    """A copy of sd with every decoder layer's camera-gate projection 0,
+    the JAX init's value: each camera's gate is then 0.5 for every query."""
+    return {k: torch.zeros_like(v) if "cam_attention_weights" in k else v
+            for k, v in sd.items()}
+
+
+def hdetr_isolation(cfg, sd, batch):
+    """fp32: the H-DETR model's one2one outputs against the flagship's on
+    the same batch, the flagship given the same weights and the first
+    num_query rows of the query embedding. With the seeded random camera
+    gate the two differ: the gate's reference quirk (a (B, Q, N) view read
+    as (B, N, Q)) mixes queries, so a query's gate depends on how many
+    queries there are. With the gate zeroed (as the JAX init leaves it)
+    the group mask isolates the groups: held to phase plain's bounds.
+    Returns (errors with the random gate, errors with the zeroed gate,
+    cam_overflow per model)."""
+    flag = dataclasses.replace(get_config(CONFIG), bf16=False)
+    cfg32 = dataclasses.replace(cfg, bf16=False)
+    q1, key = cfg.head.num_query, "pts_bbox_head.query_embedding.weight"
+    images = torch.from_numpy(batch["images"]).cuda()
+    l2i = torch.from_numpy(batch["lidar2img"]).cuda()
+    errs, overflow = {}, {}
+    for gate in ("random", "zeroed"):
+        hsd = sd if gate == "random" else zero_camera_gate(sd)
+        fsd = {**hsd, key: hsd[key][:q1]}
+        outs = {}
+        for name, c, w in (("hdetr", cfg32, hsd), ("flagship", flag, fsd)):
+            model = GraphDETR4D(c)
+            model.load_state_dict(w, strict=True)
+            model.eval()
+            reset_launch_counts()
+            with torch.inference_mode():
+                outs[name] = model(images, l2i)
+            counts = {k: v for k, v in launch_counts().items() if v}
+            if counts != {"msda_forward": MSDA_CALLS,
+                          "deform_conv_forward": DCN_CALLS}:
+                raise AssertionError(f"hdetr isolation {name}: launches {counts}")
+            overflow[f"{gate}_{name}"] = float(outs[name]["cam_overflow"])
+            del model
+        errs[gate] = layer_errors(outs["hdetr"], outs["flagship"])
+        del outs
+        torch.cuda.empty_cache()
+    return errs["random"], errs["zeroed"], overflow
+
+
+def phase_hdetr():
+    """H-DETR (the flagship plus a one2many group of 1,800 queries) at full
+    width, bf16, seeded random weights: HDETR_REQUESTS requests through
+    serve.Engine (K1 6, K2 9, cam_overflow 0 at K = 1,350 a camera), the
+    fp32 one2one isolation check (hdetr_isolation), 1 + HDETR_TRAIN_STEPS
+    Trainer steps with NUM_GT boxes (a step: K1 6 / 6, K2 9 / 9, K4 2, K5
+    2), and one fp32 step through the kernels against the plain versions
+    (phase train_plain's bounds, both groups' assignments). Returns the
+    launches of the requests and the timed steps."""
+    t0 = time.perf_counter()
+    cfg = get_config(HDETR_CONFIG)
+    sd = random_state_dict(cfg)
+    batch = synthetic_batch(cfg, seed=0)
+    engine = Engine(cfg, sd)
+    times, results, launches, peak = timed_requests(
+        engine.infer, [(batch["images"], batch["lidar2img"])] * HDETR_REQUESTS)
+    del engine
+    torch.cuda.empty_cache()
+    check_answers("hdetr", results, cfg, launches,
+                  {"msda_forward": MSDA_CALLS, "deform_conv_forward": DCN_CALLS})
+    overflow = [r["cam_overflow"] for r in results]
+    if any(overflow):
+        raise AssertionError(f"hdetr: cam_overflow {overflow}")
+    random_gate, zeroed_gate, iso_overflow = hdetr_isolation(cfg, sd, batch)
+
+    with tempfile.TemporaryDirectory() as work_dir:
+        trainer = Trainer(cfg, sd, itertools.repeat(train_batch(cfg)),
+                          work_dir, seed=0)
+        trainer.fit(1, log_interval=1)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        step_ms, records = [], []
+        for step in range(2, HDETR_TRAIN_STEPS + 2):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            records += trainer.fit(step, log_interval=1)
+            end.record()
+            end.synchronize()
+            step_ms.append(start.elapsed_time(end))
+        train_launches = launch_counts()
+        train_peak = torch.cuda.max_memory_allocated()
+        trainer.close()
+        del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    per_step = {k: v / HDETR_TRAIN_STEPS for k, v in train_launches.items()}
+    emit({"phase": "hdetr", "config": HDETR_CONFIG,
+          "requests": HDETR_REQUESTS, "ms_per_request": times,
+          "mean_ms": sum(times) / len(times), "peak_memory_bytes": peak,
+          "cam_overflow": overflow,
+          "valid_detections": int(results[-1]["valid"].sum()),
+          "launches": launches,
+          "isolation_random_gate_max_abs_err_per_layer": random_gate,
+          "isolation_zeroed_gate_max_abs_err_per_layer": zeroed_gate,
+          "isolation_cam_overflow": iso_overflow,
+          "train_steps": HDETR_TRAIN_STEPS, "num_gt": NUM_GT,
+          "ms_per_step": step_ms, "mean_step_ms": sum(step_ms) / len(step_ms),
+          "train_peak_memory_bytes": train_peak,
+          "loss": [r["loss"] for r in records],
+          "o2m_loss_cls": [r["o2m.loss_cls"] for r in records],
+          "grad_norm": [r["grad_norm"] for r in records],
+          "train_launches_per_step": per_step})
+    if any(iso_overflow.values()):
+        raise AssertionError(f"hdetr isolation: cam_overflow {iso_overflow}")
+    check_layer_errors("hdetr one2one vs flagship (gate zeroed)", zeroed_gate)
+    want_step = {**dict.fromkeys(train_launches, 0), **HDETR_STEP_LAUNCHES}
+    if per_step != want_step:
+        raise AssertionError(f"hdetr: launches per step {per_step} != {want_step}")
+    for r in records:
+        if "o2m.loss_cls" not in r or not all(np.isfinite(v) for v in r.values()):
+            raise AssertionError(f"hdetr: train metrics {r}")
+    phase_train_plain(cfg, sd, phase="hdetr_train_plain",
+                      step_launches=HDETR_STEP_LAUNCHES)
+    torch.cuda.empty_cache()
+    emit({"phase": "hdetr_done", "seconds": time.perf_counter() - t0})
+    return add_counts(dict(launches), train_launches)
+
+
+def camaware_batch(cfg, tmp):
+    """One eval batch of a nuScenes-layout fixture (data/fixture.py, 6 +
+    6 JPEGs at DATA_SRC_HW) through the port's pipeline, with its real
+    intrinsics and ida_scale, and depth_factors from the pipeline's
+    scale-aware resize (data/pipeline.py::scale_aware_resize) of those
+    intrinsics at the batch's image scale."""
+    ann, _ = write_nuscenes_fixture(f"{tmp}/nusc", 1, DATA_SRC_HW, seed=1)
+    s = NuScenesSweepDataset(ann, test_mode=True,
+                             max_gt=cfg.loss.max_gt).sample(0, temporal=True)
+    b = data_pipeline.build_batch(
+        [s], cfg.img_size, training=False,
+        img_norm=(cfg.img_mean, cfg.img_std, cfg.img_bgr))
+    scale = float(b["ida_scale"][0, 0]) / np.sqrt(2.0)  # |ida00|
+    _, _, depth_factors, _ = data_pipeline.scale_aware_resize(
+        [np.zeros((8, 8, 3), np.uint8)], b["lidar2img"][0],
+        b["intrinsics"][0], scale)
+    b["depth_factors"] = depth_factors[:1]
+    return b
+
+
+def cam_coord_record(batch, img_hw):
+    """cam_coord_channels at the flagship's 4 FPN levels of one request:
+    CUDA-event ms, its peak bytes above the baseline, and the bytes of the
+    image-size grid JAX builds before its resize."""
+    k = torch.as_tensor(batch["intrinsics"]).cuda()
+    args = (k[..., 0, 0], k[..., 1, 1], k[..., 0, 2], k[..., 1, 2])
+
+    def run():
+        return [cam_coord_channels(h, w, *img_hw, *args)
+                for h, w in MSDA_LEVELS]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = run()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    B, N = k.shape[:2]
+    return {"ms": cuda_ms(run, 20), "peak_bytes": peak,
+            "output_bytes": sum(o.numel() * 4 for o in out),
+            "jax_full_grid_bytes_per_level": B * N * img_hw[0] * img_hw[1]
+            * out[0].shape[-1] * 4}
+
+
+def phase_camaware():
+    """The camera-aware configs at full width, bf16, seeded random weights
+    each, on one fixture batch (camaware_batch): one request each (K1 6,
+    K2 9, cam_overflow 0); fp32 kernels vs plain on CAMAWARE_PLAIN (phase
+    plain's bounds); one bf16 TrainStep step on CAMAWARE_TRAIN (loss
+    finite; K1 6 / 6, K2 9 / 9, K4 1, K5 1); cam_coord_channels' ms and
+    peak bytes; and the ResNet-18 student served once (K1 6, K2 0).
+    Returns the launches of the requests and the train steps."""
+    t0 = time.perf_counter()
+    total = dict.fromkeys(launch_counts(), 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        batch = camaware_batch(get_config(CAMAWARE_CONFIGS[0]), tmp)
+    ident = np.eye(4, dtype=np.float32)
+    if np.allclose(batch["intrinsics"], ident) or np.allclose(
+            batch["ida_scale"], 1.0) or int(batch["gt_valid"].sum()) == 0:
+        raise AssertionError("camaware: identity extras or no GT in the batch")
+    records = {}
+    for name in CAMAWARE_CONFIGS:
+        cfg = get_config(name)
+        sd = random_state_dict(cfg)
+        extras = {n: batch[n] for n, _ in extras_spec(cfg, 1)}
+        engine = Engine(cfg, sd)
+        times, results, launches, peak = timed_requests(
+            engine.infer, [(batch["images"], batch["lidar2img"],
+                            list(extras.values()))])
+        del engine
+        torch.cuda.empty_cache()
+        check_answers(name, results, cfg, launches,
+                      {"msda_forward": MSDA_CALLS,
+                       "deform_conv_forward": DCN_CALLS})
+        if results[0]["cam_overflow"]:
+            raise AssertionError(f"{name}: cam_overflow "
+                                 f"{results[0]['cam_overflow']}")
+        add_counts(total, launches)
+        rec = {"extras": list(extras), "ms_per_request": times,
+               "peak_memory_bytes": peak, "launches": launches,
+               "valid_detections": int(results[0]["valid"].sum())}
+        if name in CAMAWARE_PLAIN:
+            # every extra the model reads: the camconv gate takes the
+            # intrinsics in process, though an artifact of that config
+            # (as the JAX export's) has no intrinsics input. The plain
+            # route replays the kernel route's reference points, as phase
+            # variants does: on this batch a free-running route's own
+            # refinement fed its rounding back to 1.28e-3 in layer 5's
+            # logits (PERF.md); the free-running route is held to
+            # FREE_RUNNING_ATOL
+            errs, counts, _, ov, free = compare_routes(
+                cfg, sd, references=True, batch=batch, extras={
+                    k: batch[k] for k in ("intrinsics", "ida_scale",
+                                          "depth_factors")})
+            rec.update(plain_max_abs_err_per_layer=errs, plain_launches=counts,
+                       plain_cam_overflow=ov,
+                       free_running_max_abs_err_per_layer=free)
+            if counts != {"kernels": {"msda_forward": MSDA_CALLS,
+                                      "deform_conv_forward": DCN_CALLS},
+                          "plain": {}}:
+                raise AssertionError(f"{name}: launches per route {counts}")
+            check_layer_errors(name, errs)
+            check_free_running(name, free)
+        if name in CAMAWARE_TRAIN:
+            model = GraphDETR4D(cfg)
+            model.load_state_dict(sd, strict=True)
+            step = TrainStep(model, cfg, seed=0)
+            dev = {k: torch.as_tensor(v).cuda() for k, v in batch.items()}
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
+            start = time.perf_counter()
+            m = {k: float(v) for k, v in step.step(dev).items()}
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            rec.update(train_loss=m["loss"], train_grad_norm=m["grad_norm"],
+                       train_step_s=time.perf_counter() - start,
+                       train_peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                       train_launches=counts)
+            del model, step, dev
+            torch.cuda.empty_cache()
+            add_counts(total, counts)
+            if counts != {**dict.fromkeys(counts, 0), **STEP_LAUNCHES}:
+                raise AssertionError(f"{name}: train launches {counts}")
+            if not all(np.isfinite(v) for v in m.values()):
+                raise AssertionError(f"{name}: train metrics {m}")
+        records[name] = rec
+    coord = cam_coord_record(batch, get_config(CAMAWARE_CONFIGS[2]).img_size)
+
+    cfg = get_config(R18_CONFIG)
+    sd = random_state_dict(cfg)
+    r18 = synthetic_batch(cfg, seed=0)
+    engine = Engine(cfg, sd)
+    times, results, launches, peak = timed_requests(
+        engine.infer, [(r18["images"], r18["lidar2img"])])
+    del engine
+    torch.cuda.empty_cache()
+    check_answers(R18_CONFIG, results, cfg, launches,
+                  {"msda_forward": MSDA_CALLS})
+    add_counts(total, launches)
+    records[R18_CONFIG] = {"ms_per_request": times, "peak_memory_bytes": peak,
+                           "launches": launches,
+                           "cam_overflow": results[0]["cam_overflow"]}
+    emit({"phase": "camaware", "configs": records,
+          "batch_intrinsics_fx": batch["intrinsics"][0, :, 0, 0].tolist(),
+          "batch_ida_scale": batch["ida_scale"][0].tolist(),
+          "batch_depth_factors": batch["depth_factors"].tolist(),
+          "cam_coord_channels": coord,
+          "seconds": time.perf_counter() - t0})
+    return total
+
+
+def http_json(det):
+    """An in-process answer as the server's JSON (json round trip)."""
+    return json.loads(json.dumps(serve_cli.detections_json(det)))
+
+
+def phase_http(cfg, sd):
+    """The flagship exported twice by tools/export_model.py (default float
+    input; --uint8-input --streaming), both verified on the card, served
+    in process by tools/serve.py on port 0 (--ready-file): float /infer
+    requests (K1 6, K2 9 a request), uint8 /infer requests on the
+    streaming artifact (K1 6, K2 18: its halves are encoded separately),
+    /infer_stream requests of 6 new cameras (K1 6, K2 9) and
+    /reset_stream; answers bit-equal to in-process Engine.infer; the
+    bench client at concurrency 1 and 2 on each route; concurrent answers
+    bit-equal to serial ones; a float body refused by the uint8 artifact
+    with 400, the server serving on; /healthz's served equal to the
+    requests answered. Returns the launches of every HTTP request."""
+    t0 = time.perf_counter()
+    nf = cfg.head.num_frame_cams
+    u8cfg = dataclasses.replace(cfg, device_normalize=True)
+    floats = [synthetic_batch(cfg, seed=s) for s in range(HTTP_FLOAT_REQUESTS)]
+    u8s = [synthetic_batch(u8cfg, seed=s) for s in range(HTTP_UINT8_REQUESTS)]
+    with tempfile.TemporaryDirectory() as tmp:
+        pth = f"{tmp}/weights.pth"
+        torch.save({"state_dict": sd}, pth)
+        dirs, export_s = {}, {}
+        for name, flags in (("float", []),
+                            ("uint8_stream", ["--uint8-input", "--streaming"])):
+            dirs[name] = f"{tmp}/{name}"
+            start = time.perf_counter()
+            export_cli.main(["--config", CONFIG, "--checkpoint", pth,
+                             "--out", dirs[name], *flags])
+            export_s[name] = time.perf_counter() - start
+        servers, urls, ready_ports = {}, {}, {}
+        for name, d in dirs.items():
+            ready = f"{tmp}/{name}.ready"
+            srv, engine, thread = serve_cli.serve_in_thread(
+                ["--artifact", d, "--port", "0", "--ready-file", ready])
+            servers[name] = (srv, engine, thread)
+            urls[name] = f"http://127.0.0.1:{srv.server_address[1]}"
+            with open(ready) as f:
+                ready_ports[name] = int(f.read())
+            if ready_ports[name] != srv.server_address[1]:
+                raise AssertionError(f"http: ready file {ready_ports[name]}")
+        answered = dict.fromkeys(dirs, 0)
+
+        def post(name, route, body, want=200):
+            status, answer = serve_cli.post(urls[name] + route, body)
+            if status != want:
+                raise AssertionError(f"http {name}{route}: {status} {answer}")
+            answered[name] += status == 200 and route.startswith("/infer")
+            return answer
+
+        def body(b, n_cams=None):
+            images = b["images"] if n_cams is None else b["images"][:, :n_cams]
+            return serve_cli.npz_body(images=images, lidar2img=b["lidar2img"])
+
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        per_route, ms = {}, {}
+        for route, name, reqs, n_cams, path in (
+                ("float_infer", "float", floats, None, "/infer"),
+                ("uint8_infer", "uint8_stream", u8s, None, "/infer"),
+                ("stream", "uint8_stream", u8s, nf, "/infer_stream?stream=car")):
+            before, answers, ms[route] = launch_counts(), [], []
+            for b in reqs:
+                data = body(b, n_cams)
+                start = time.perf_counter()
+                answers.append(post(name, path, data))
+                ms[route].append(1e3 * (time.perf_counter() - start))
+            per_route[route] = (answers, counts_since(before))
+        reset_answer = post("uint8_stream", "/reset_stream?stream=car", b"")
+        bench = {}
+        for route, name, extra in (("float_infer", "float", []),
+                                   ("uint8_infer", "uint8_stream", []),
+                                   ("stream", "uint8_stream", ["--stream"])):
+            for conc in (1, 2):
+                bench[f"{route}_c{conc}"] = serve_cli.main(
+                    ["--bench", urls[name], "--requests",
+                     str(HTTP_BENCH_REQUESTS), "--concurrency", str(conc),
+                     *extra])
+                answered[name] += HTTP_BENCH_REQUESTS
+        bodies = [body(b) for b in floats]
+        with ThreadPoolExecutor(2) as pool:
+            parallel = list(pool.map(lambda d: post("float", "/infer", d),
+                                     bodies * 2))
+        refused = post("uint8_stream", "/infer", bodies[0], want=400)
+        after_refusal = post("uint8_stream", "/infer", body(u8s[0]))
+        launches = launch_counts()
+        health = {name: serve_cli.get(url + "/healthz")[1]
+                  for name, url in urls.items()}
+        # in process, on the servers' own engines, after the counted traffic
+        direct = {
+            "float_infer": [http_json(servers["float"][1].infer(
+                b["images"], b["lidar2img"])) for b in floats],
+            "uint8_infer": [http_json(servers["uint8_stream"][1].infer(
+                b["images"], b["lidar2img"])) for b in u8s]}
+        for srv, engine, thread in servers.values():
+            srv.shutdown()
+            thread.join(60)
+        del servers, engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    want = {"float_infer": {"msda_forward": MSDA_CALLS,
+                            "deform_conv_forward": DCN_CALLS},
+            "uint8_infer": {"msda_forward": MSDA_CALLS,
+                            "deform_conv_forward": 2 * DCN_CALLS},
+            "stream": {"msda_forward": MSDA_CALLS,
+                       "deform_conv_forward": DCN_CALLS}}
+    emit({"phase": "http", "config": CONFIG, "export_s": export_s,
+          "ready_ports": ready_ports, "ms_per_request": ms,
+          "launches_per_route": {r: c for r, (_, c) in per_route.items()},
+          "bench": bench, "healthz": health, "answered": answered,
+          "reset_stream": reset_answer, "refused_float_body": refused,
+          "seconds": time.perf_counter() - t0})
+    for route, (answers, counts) in per_route.items():
+        n = len(answers)
+        w = {**dict.fromkeys(counts, 0),
+             **{k: v * n for k, v in want[route].items()}}
+        if counts != w:
+            raise AssertionError(f"http {route}: launches {counts} != {w}")
+        for a in answers:
+            d, = a["detections"]
+            if not (d["scores"] and np.isfinite(d["bboxes"]).all()):
+                raise AssertionError(f"http {route}: empty or non-finite answer")
+        if route in direct and answers != direct[route]:
+            raise AssertionError(f"http {route}: HTTP answers differ from "
+                                 "in-process Engine.infer")
+    if parallel != per_route["float_infer"][0] * 2:
+        raise AssertionError("http: concurrent answers differ from serial ones")
+    if reset_answer != {"reset": True} or not after_refusal["detections"]:
+        raise AssertionError(f"http: reset {reset_answer}")
+    served = {name: h["served"] for name, h in health.items()}
+    if served != answered:
+        raise AssertionError(f"http: /healthz served {served} != {answered}")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2930,10 +3452,17 @@ def main():
     phase_lidar_plain(lidar_sd, clouds[0])
     torch.cuda.empty_cache()
     lidar_grad_launches = phase_lidar_grad(lidar_sd, clouds[0], cfg)
+    torch.cuda.empty_cache()
+    hdetr_launches = phase_hdetr()
+    torch.cuda.empty_cache()
+    camaware_launches = phase_camaware()
+    torch.cuda.empty_cache()
+    http_launches = phase_http(cfg, sd)
 
     paths = {**serving, "serve_int8": int8_launches, "train": train_launches,
              "data": data_launches, "lidar": lidar_launches, "iou": iou_launches,
-             "lidar_grad": lidar_grad_launches}
+             "lidar_grad": lidar_grad_launches, "hdetr": hdetr_launches,
+             "camaware": camaware_launches, "http": http_launches}
     serving_total = {k: sum(c[k] for c in serving.values())
                      for k in serve_launches}
     table = []

@@ -3,9 +3,11 @@
 The port's copy of the entries of `graph_detr4d_tpu/configs/__init__.py`
 whose every feature the port runs (`get_config`, `apply_overrides` and the
 `_detr4d` helper): the detr4d `deform_pe` family, the plain head
-(with_pe False), the MP, DETR3D and DETR3D-v2 cross-attentions and the
-single-frame 6-camera models, with the train-pipeline variants (`*_aug`,
-`resize_scales`) that data/pipeline.py::build_batch runs. Names and
+(with_pe False), the MP, DETR3D and DETR3D-v2 cross-attentions, the
+single-frame 6-camera models, H-DETR's hybrid matching, the camera-aware
+heads (DepthNet, the camconv gate, scale_pred) and the ResNet-18 student,
+with the train-pipeline variants (`*_aug`, `resize_scales`) that
+data/pipeline.py::build_batch runs. Names and
 values are the JAX registry's (tests/test_torch_weights.py and
 tests/test_torch_data.py hold them equal).
 
@@ -20,7 +22,7 @@ import types
 import typing
 from typing import Callable, Dict, Optional, Sequence
 
-from .config import HeadConfig, ModelConfig
+from .config import BackboneConfig, HeadConfig, ModelConfig, NeckConfig
 
 _REGISTRY: Dict[str, Callable[[], ModelConfig]] = {}
 
@@ -267,3 +269,49 @@ def detr4d_pe_rotcropaug():
     """photometric + ida + BEV rot, all on
     (detr4d_res50_deform_pe_rotcropaug_2subset_12e.py:143-148)."""
     return _with_augs(_detr4d())
+
+
+@register("detr4d_res50_deform_camaware_pe_aug_2subset_12e")
+def detr4d_camaware():
+    """BEVDepth-style DepthNet modulation (Detr3DHeadPECAM). As in the JAX
+    registry, the train augmentations keep their defaults."""
+    return _detr4d(cam_aware=True)
+
+
+@register("detr4d_res50_deform_camaware_fpe_2subset_12e")
+def detr4d_camaware_fpe():
+    return _detr4d(cam_aware=True, with_fpe=True)
+
+
+@register("detr4d_res50_deform_simpleda_2subset_12e")
+def detr4d_scale_aware():
+    """Scale-aware depth-factor variant (scale_pred=True,
+    RandomResizeMultiViewImage_SimpleDA pipeline)."""
+    return _detr4d(scale_pred=True)
+
+
+@register("detr4d_res50_deform_camconvfpe_2subset_12e")
+def detr4d_camconvfpe():
+    """SE gate with camera-intrinsic coordinate channels
+    (SELayerCAMConvV1, detr3d_head_pe.py:277-295)."""
+    return _detr4d(fpe_type="camconv")
+
+
+@register("h_detr4d_res50_deform_pe_testaug_2subset_12e")
+def h_detr4d():
+    """H-DETR hybrid one2one + one2many matching
+    (h_detr3d_head_pe.py:40-693)."""
+    return _detr4d(
+        num_query_one2many=1800, k_one2many=6, lambda_one2many=2.0
+    )
+
+
+@register("detr4d_res18_deform_pe_testaug_320_2subset")
+def detr4d_r18():
+    """The ResNet-18 distill student at 320x800, no DCN."""
+    cfg = _detr4d(img_size=(320, 800))
+    return dataclasses.replace(
+        cfg,
+        backbone=BackboneConfig(depth=18, use_dcn=False),
+        neck=NeckConfig(in_channels=(64, 128, 256, 512)),
+    )

@@ -8,6 +8,9 @@ decoder layer, logged as d{i}.loss_cls / d{i}.loss_bbox. The layers are
 computed together, as the JAX package vmaps them: one K4 launch matches
 every layer and image, one K5 launch gives every layer's focal loss.
 
+`hybrid_detr3d_loss` adds H-DETR's one2many set loss (a second K4 and K5
+launch) over the GT tiled k_one2many times.
+
 The reference's two `reduce_mean` sync points (the JAX package's
 `lax.pmean`) are the identity on one GPU; multi-GPU training is not
 ported yet.
@@ -94,5 +97,36 @@ def detr3d_loss(
         metrics[f"{tag}loss_cls"] = lcs[lid]
         metrics[f"{tag}loss_bbox"] = lbs[lid]
     metrics["num_pos"] = nposs[-1]
+    metrics["loss"] = total
+    return total, metrics
+
+
+def hybrid_detr3d_loss(
+    preds: dict,
+    gt_bboxes: torch.Tensor,
+    gt_labels: torch.Tensor,
+    gt_valid: torch.Tensor,
+    loss_cfg: LossConfig,
+    head_cfg: HeadConfig,
+):
+    """H-DETR's hybrid loss (the JAX `hybrid_detr3d_loss`,
+    h_detr3d_head_pe.py:616-668): the one2one set loss plus
+    lambda_one2many times the one2many group's set loss against the GT
+    tiled k_one2many times (g0..g(G-1), g0.., as jnp.tile: validity is not
+    a prefix). Metrics `o2m.<key>` hold the one2many loss terms already
+    scaled by lambda."""
+    total, metrics = detr3d_loss(preds, gt_bboxes, gt_labels, gt_valid,
+                                 loss_cfg, head_cfg)
+    k = head_cfg.k_one2many
+    o2m_preds = {"all_cls_scores": preds["all_cls_scores_one2many"],
+                 "all_bbox_preds": preds["all_bbox_preds_one2many"]}
+    o2m_total, o2m_metrics = detr3d_loss(
+        o2m_preds, gt_bboxes.repeat(1, k, 1), gt_labels.repeat(1, k),
+        gt_valid.repeat(1, k), loss_cfg, head_cfg)
+    lam = head_cfg.lambda_one2many
+    total = total + lam * o2m_total
+    for key, v in o2m_metrics.items():
+        if key.endswith(("loss_cls", "loss_bbox")):
+            metrics[f"o2m.{key}"] = lam * v
     metrics["loss"] = total
     return total, metrics

@@ -15,6 +15,10 @@ projects/mmdet3d_plugin/models/utils/deform3d_cross_attn.py:33-339):
 With `cam_capacity` < 1 each camera samples only its K = ceil(Q *
 cam_capacity) queries that have any in-view sample; the rest contribute
 exactly zero. The compaction is an index list that K1 reads directly.
+
+With `depth_encode` the positional MLP also sees rho = sqrt(x^2 + y^2) of
+the sigmoid-space reference point, appended before inverse_sigmoid
+(deform3d_cross_attn.py:331-334; Linear(4, C) at :105).
 """
 
 import math
@@ -54,6 +58,7 @@ class Deform3DCrossAttn(nn.Module):
         pc_range: Tuple[float, ...] = (-51.2, -51.2, -5.0, 51.2, 51.2, 3.0),
         cam_capacity: float = 1.0,
         dropout: float = 0.1,
+        depth_encode: bool = False,
     ):
         super().__init__()
         C = embed_dims
@@ -62,12 +67,13 @@ class Deform3DCrossAttn(nn.Module):
         self.num_points, self.num_cams = num_points, num_cams
         self.pc_range = tuple(pc_range)
         self.cam_capacity = cam_capacity
+        self.depth_encode = depth_encode
         self.cam_attention_weights = Linear(C, num_cams)
         self.deform_sampling_offsets = Linear(C, num_heads * num_points * 3)
         self.attention_weights = Linear(C, num_heads * num_levels * num_points)
         self.value_proj = Linear(C, C)
         self.output_proj = Linear(C, C)
-        self.position_encoder = ln_mlp(3, C)
+        self.position_encoder = ln_mlp(4 if depth_encode else 3, C)
 
     def forward(
         self,
@@ -149,6 +155,10 @@ class Deform3DCrossAttn(nn.Module):
         out = dropout(self.output_proj(out.to(query.dtype)), self.dropout,
                       generator)
 
-        pe = inverse_sigmoid(reference_points.float())
+        ref_n = reference_points.float()
+        if self.depth_encode:
+            rho = torch.sqrt(ref_n[..., 0:1] ** 2 + ref_n[..., 1:2] ** 2)
+            ref_n = torch.cat([ref_n, rho], dim=-1)
+        pe = inverse_sigmoid(ref_n)
         pos_feat = self.position_encoder(pe.to(query.dtype))
         return out + residual + pos_feat, overflow

@@ -1,7 +1,8 @@
 """GraphDETR4D detector: grid mask -> backbone -> FPN -> head
 (counterpart of graph_detr4d_tpu/models/detector.py with a ResNet backbone
-and the `detr4d_pe` head, with or without its 3D position embedding and
-with any of the cross-attentions of models/transformer.py). The grid mask
+and the `detr4d_pe` head, with or without its 3D position embedding, with
+any of the cross-attentions of models/transformer.py, H-DETR's one2many
+query group and the camera-aware options of models/head.py). The grid mask
 and dropout apply only in training (detr3d.py:53-54), drawn from the
 generator the forward is given.
 
@@ -23,6 +24,17 @@ from .resnet import ResNet
 from .transformer import ATTN_TYPES
 
 
+# the batch entries a model takes besides images and lidar2img: scale_pred's
+# depth_factors and the camera-aware head's intrinsics and ida_scale
+MODEL_EXTRAS = ("depth_factors", "intrinsics", "ida_scale")
+
+
+def model_extras(batch: dict) -> dict:
+    """The MODEL_EXTRAS a batch carries, as keyword arguments of
+    GraphDETR4D.forward (the JAX steps' batch.get)."""
+    return {k: batch[k] for k in MODEL_EXTRAS if batch.get(k) is not None}
+
+
 def check_supported(cfg: ModelConfig):
     """Raise for the config features this slice of the port does not run."""
     h = cfg.head
@@ -30,12 +42,7 @@ def check_supported(cfg: ModelConfig):
         "head_type": cfg.head_type != "detr4d_pe",
         "backbone_type": cfg.backbone_type != "resnet",
         "head.attn_type": h.attn_type not in ATTN_TYPES,
-        "head.with_fpe": not h.with_fpe,
-        "head.fpe_type": h.fpe_type != "se",
-        "head.cam_aware": h.cam_aware,
-        "head.num_query_one2many": h.num_query_one2many > 0,
-        "head.depth_encode": h.depth_encode,
-        "head.scale_pred": h.scale_pred,
+        "head.fpe_type": h.fpe_type not in ("se", "camconv"),
         "neck.cp": cfg.neck.cp,
         "neck.num_outs": cfg.neck.num_outs == 0,
     }
@@ -92,36 +99,48 @@ class GraphDETR4D(nn.Module):
             for f in feats
         ]
 
-    def forward_feats(self, feats, lidar2img: torch.Tensor, generator=None):
-        """Head-only forward over precomputed camera features."""
-        return self.pts_bbox_head(feats, lidar2img, generator)
+    def forward_feats(self, feats, lidar2img: torch.Tensor, generator=None,
+                      depth_factors=None, intrinsics=None, ida_scale=None):
+        """Head-only forward over precomputed camera features. The extras
+        (depth_factors (B,), intrinsics (B, N, 4, 4), ida_scale (B, N))
+        reach the heads that read them: scale_pred and the camera-aware
+        head."""
+        return self.pts_bbox_head(feats, lidar2img, generator,
+                                  depth_factors=depth_factors,
+                                  intrinsics=intrinsics, ida_scale=ida_scale)
 
-    def aug_forward(self, images_list, lidar2img):
+    def aug_forward(self, images_list, lidar2img, **extras):
         """Test-time augmentation (graph_detr4d_tpu/models/detector.py:
         170-204): one eval forward per copy in images_list, each with its
         own calibration (lidar2img (B, N, 4, 4) shared by every copy, or a
         list or (A, B, N, 4, 4) tensor of one per copy), then the mean of
         the head outputs, which are query-aligned across copies. The
         reference's aug_test averages features under copy 0's
-        calibration; the JAX method averages outputs, and so does this."""
+        calibration; the JAX method averages outputs, and so does this.
+        `extras` (depth_factors, intrinsics, ida_scale) go to every copy."""
         if isinstance(lidar2img, (list, tuple)) or lidar2img.dim() == 5:
             l2is = list(lidar2img)
         else:
             l2is = [lidar2img] * len(images_list)
-        outs = [self.forward(im, l2i) for im, l2i in zip(images_list, l2is)]
+        outs = [self.forward(im, l2i, **extras)
+                for im, l2i in zip(images_list, l2is)]
         n = float(len(outs))
         return {k: sum(o[k] for o in outs) / n for k in outs[0]}
 
     def forward(self, images: torch.Tensor, lidar2img: torch.Tensor,
-                train: bool = False, generator=None):
+                train: bool = False, generator=None, depth_factors=None,
+                intrinsics=None, ida_scale=None):
         """images (B, N, H, W, 3) normalized (raw pixels with
         cfg.device_normalize); lidar2img (B, N, 4, 4). train=True draws the
         grid mask and dropout from `generator`, a torch.Generator on the
-        model's device; eval ignores it."""
+        model's device; eval ignores it. depth_factors, intrinsics and
+        ida_scale: see forward_feats."""
         if not train:
             generator = None
         elif generator is None:
             raise ValueError("train=True needs a generator for the grid "
                              "mask and dropout")
         return self.forward_feats(self.extract_feats(images, generator),
-                                  lidar2img, generator)
+                                  lidar2img, generator,
+                                  depth_factors=depth_factors,
+                                  intrinsics=intrinsics, ida_scale=ida_scale)

@@ -14,6 +14,19 @@ projects/mmdet3d_plugin/models/dense_heads/detr3d_head_pe.py):
 With `with_detach`, level 0 of the past frame's cameras is cut from the
 gradient (:512-516). Public tensors keep the JAX layouts: features L x
 (B, N, H, W, C), outputs (layers, B, Q, .).
+
+Options of the head family:
+  * H-DETR hybrid matching (`num_query_one2many` > 0,
+    h_detr3d_head_pe.py:300-304, 361-364): a second query group of
+    num_query_one2many rows, isolated from the one2one group by a
+    block-diagonal self-attention mask, decoded with it and returned as
+    the `_one2many` twins of the outputs. As the JAX head, eval runs both
+    groups (the one2one outputs are the same either way).
+  * camera-aware (`cam_aware`, Detr3DHeadPECAM): one DepthNet modulates
+    every level by each camera's intrinsics and augmentation scale;
+    `fpe_type='camconv'` swaps the SE gate on the PE for SELayerCAMConv.
+  * `scale_pred`: the decoded centres are multiplied by `depth_factors`
+    (:592-595) when the caller passes them.
 """
 
 from typing import Sequence, Tuple
@@ -24,6 +37,7 @@ import torch.nn as nn
 from ..config import HeadConfig
 from ..geometry.projection import inv4x4
 from ..utils.math import inverse_sigmoid
+from .camera_aware import DepthNet, SELayerCAMConv
 from .layers import LayerNorm, Linear, SELayer, two_layer_mlp
 from .positional import lid_depth_bins, sine_positional_encoding_3d
 from .transformer import DecoderLayer
@@ -73,6 +87,7 @@ class Transformer(nn.Module):
                 dropout=cfg.dropout,
                 attn_type=cfg.attn_type,
                 num_neighbors=cfg.num_neighbors,
+                depth_encode=cfg.depth_encode,
             )
             for _ in range(cfg.num_decoder_layers)
         ])
@@ -84,12 +99,17 @@ class Detr3DHeadPE(nn.Module):
         self.cfg = cfg
         self.img_shape = tuple(img_shape)
         C = cfg.embed_dims
-        self.query_embedding = nn.Embedding(cfg.num_query, 2 * C)
+        self.query_embedding = nn.Embedding(
+            cfg.num_query + cfg.num_query_one2many, 2 * C)
         self.transformer = Transformer(cfg)
+        if cfg.cam_aware:
+            self.depth_net = DepthNet(C, C)
         if cfg.with_pe:  # the plain Detr3DHead (with_pe False) has none
             self.position_encoder = two_layer_mlp(cfg.depth_num * 3, 4 * C, C)
             self.adapt_pos3d = two_layer_mlp(cfg.pe_num_feats * 3, 4 * C, C)
-            self.fpe = SELayer(C)
+            if cfg.with_fpe:
+                self.fpe = (SELayerCAMConv(C, self.img_shape)
+                            if cfg.fpe_type == "camconv" else SELayer(C))
         self.cls_branches = nn.ModuleList(
             cls_branch(C, cfg.num_classes, cfg.num_reg_fcs)
             for _ in range(cfg.num_decoder_layers)
@@ -126,16 +146,40 @@ class Detr3DHeadPE(nn.Module):
         p3d = inverse_sigmoid((p3d - lo) / (hi - lo))
         return p3d.reshape(B, N, H, W, D * 3)
 
-    def forward(self, mlvl_feats, lidar2img, generator=None):
+    def self_attn_mask(self, device):
+        """H-DETR's (Q, Q) block-diagonal group mask, True = attend; None
+        without a one2many group."""
+        cfg = self.cfg
+        if cfg.num_query_one2many <= 0:
+            return None
+        g = torch.arange(cfg.num_query + cfg.num_query_one2many,
+                         device=device) >= cfg.num_query
+        return g[:, None] == g[None, :]
+
+    def forward(self, mlvl_feats, lidar2img, generator=None,
+                depth_factors=None, intrinsics=None, ida_scale=None):
         """mlvl_feats: L x (B, N, H, W, C) in the compute dtype;
         lidar2img (B, N, 4, 4); generator: dropout's random source in
-        training, None in eval. Returns {'all_cls_scores' (layers, B, Q,
-        classes), 'all_bbox_preds' (layers, B, Q, code), 'cam_overflow'}.
+        training, None in eval; depth_factors (B,) for scale_pred;
+        intrinsics (B, N, 4, 4) and ida_scale (B, N) for the camera-aware
+        head (absent: the identity and ones, as the JAX head). Returns
+        {'all_cls_scores' (layers, B, Q, classes), 'all_bbox_preds'
+        (layers, B, Q, code), 'cam_overflow'}, and with a one2many group
+        'all_cls_scores_one2many' / 'all_bbox_preds_one2many'.
         """
         cfg = self.cfg
         dtype = mlvl_feats[0].dtype
         B, N = mlvl_feats[0].shape[:2]
+        dev = mlvl_feats[0].device
         lidar2img = lidar2img.float()
+        if cfg.cam_aware:
+            # detr3d_head_pe_camaware.py:315-319, every level
+            if intrinsics is None:
+                intrinsics = torch.eye(4, device=dev).expand(B, N, 4, 4)
+            if ida_scale is None:
+                ida_scale = torch.ones(B, N, device=dev)
+            mlvl_feats = [self.depth_net(f, intrinsics, ida_scale)
+                          for f in mlvl_feats]
         nf = cfg.num_frame_cams
         if cfg.with_detach and N > nf and mlvl_feats[0].requires_grad:
             f0 = mlvl_feats[0]
@@ -149,7 +193,9 @@ class Detr3DHeadPE(nn.Module):
                 pe = self.position_encoder(
                     self.position_embedding(feat, lidar2img).to(dtype)
                 )
-                pe = self.fpe(pe, feat)
+                if cfg.with_fpe:
+                    pe = (self.fpe(pe, feat, intrinsics)
+                          if cfg.fpe_type == "camconv" else self.fpe(pe, feat))
                 # all-valid mask: inputs are always padded to the exact
                 # network size (:524-539)
                 mask = torch.zeros(B, N, H, W, device=feat.device)
@@ -171,11 +217,14 @@ class Detr3DHeadPE(nn.Module):
         )
 
         pc = cfg.pc_range
+        attn_mask = self.self_attn_mask(dev)
+        df = (None if not cfg.scale_pred or depth_factors is None
+              else depth_factors.float()[:, None, None])
         cls_scores, bbox_preds, overflow = [], [], 0.0
         for lid, layer in enumerate(self.transformer.decoder.layers):
             query, ov = layer(query, query_pos, value, shapes,
                               reference_points, lidar2img, self.img_shape,
-                              generator)
+                              generator, attn_mask)
             overflow = overflow + ov
             score = self.cls_branches[lid](query)
             tmp = self.reg_branches[lid](query).float()
@@ -186,14 +235,23 @@ class Detr3DHeadPE(nn.Module):
             cx = xy[..., 0:1] * (pc[3] - pc[0]) + pc[0]
             cy = xy[..., 1:2] * (pc[4] - pc[1]) + pc[1]
             cz = z * (pc[5] - pc[2]) + pc[2]
+            if df is not None:
+                cx, cy, cz = cx * df, cy * df, cz * df
             bbox_preds.append(
                 torch.cat([cx, cy, tmp[..., 2:4], cz, tmp[..., 5:]], dim=-1)
             )
             cls_scores.append(score.float())
             # iterative refinement (detr3d_transformer.py:201-214)
             reference_points = torch.cat([xy, z], dim=-1).detach()
+        all_cls, all_bbox = torch.stack(cls_scores), torch.stack(bbox_preds)
+        if attn_mask is None:
+            return {"all_cls_scores": all_cls, "all_bbox_preds": all_bbox,
+                    "cam_overflow": overflow}
+        q1 = cfg.num_query  # the groups split (h_detr3d_head_pe.py:361-364)
         return {
-            "all_cls_scores": torch.stack(cls_scores),
-            "all_bbox_preds": torch.stack(bbox_preds),
+            "all_cls_scores": all_cls[:, :, :q1],
+            "all_bbox_preds": all_bbox[:, :, :q1],
+            "all_cls_scores_one2many": all_cls[:, :, q1:],
+            "all_bbox_preds_one2many": all_bbox[:, :, q1:],
             "cam_overflow": overflow,
         }

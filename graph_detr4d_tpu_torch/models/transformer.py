@@ -48,7 +48,10 @@ def graph_reference_points(ref: torch.Tensor, k: int) -> torch.Tensor:
 class MultiheadAttention(nn.Module):
     """Batch-first multi-head attention with nn.MultiheadAttention's
     parameters (packed in_proj, out_proj), as plain matmuls and a softmax
-    in fp32."""
+    in fp32. An optional (Q, T) bool mask (True = attend; flax
+    MultiHeadDotProductAttention's `mask`) fills the logits it leaves out
+    with -inf before the softmax: every row attends to some key, so those
+    weights are exact zeros, as flax's finfo.min fill gives."""
 
     def __init__(self, embed_dims: int, num_heads: int, dropout: float = 0.1):
         super().__init__()
@@ -58,7 +61,7 @@ class MultiheadAttention(nn.Module):
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * embed_dims))
         self.out_proj = Linear(embed_dims, embed_dims)
 
-    def forward(self, query, key, value, generator=None):
+    def forward(self, query, key, value, generator=None, mask=None):
         B, Q, C = query.shape
         h = self.num_heads
         w = self.in_proj_weight.to(query.dtype)
@@ -70,7 +73,10 @@ class MultiheadAttention(nn.Module):
 
         q = heads(query, 0) / (C // h) ** 0.5
         k, v = heads(key, 1), heads(value, 2)
-        weights = torch.softmax((q @ k.transpose(-1, -2)).float(), dim=-1)
+        logits = (q @ k.transpose(-1, -2)).float()
+        if mask is not None:
+            logits = logits.masked_fill(~mask, float("-inf"))
+        weights = torch.softmax(logits, dim=-1)
         weights = dropout(weights, self.dropout, generator,
                           shape=weights.shape[-2:])
         out = (weights.to(v.dtype) @ v).transpose(1, 2).reshape(B, Q, C)
@@ -86,9 +92,9 @@ class SelfAttention(nn.Module):
         self.dropout = dropout
         self.attn = MultiheadAttention(embed_dims, num_heads, dropout)
 
-    def forward(self, query, query_pos, generator=None):
+    def forward(self, query, query_pos, generator=None, mask=None):
         q = query + query_pos
-        out = self.attn(q, q, query, generator)
+        out = self.attn(q, q, query, generator, mask)
         return query + dropout(out, self.dropout, generator)
 
 
@@ -120,6 +126,7 @@ class DecoderLayer(nn.Module):
         dropout: float = 0.1,
         attn_type: str = "deform3d",
         num_neighbors: int = 8,
+        depth_encode: bool = False,
     ):
         super().__init__()
         if attn_type not in ATTN_TYPES:
@@ -129,7 +136,8 @@ class DecoderLayer(nn.Module):
                       num_cams=num_cams, pc_range=pc_range, dropout=dropout)
         if attn_type == "deform3d":
             cross = Deform3DCrossAttn(num_heads=num_heads, num_points=num_points,
-                                      cam_capacity=cam_capacity, **common)
+                                      cam_capacity=cam_capacity,
+                                      depth_encode=depth_encode, **common)
         elif attn_type == "deform3d_mp":
             cross = Deform3DCrossAttnMP(num_heads=num_heads,
                                         num_points=num_points,
@@ -154,11 +162,14 @@ class DecoderLayer(nn.Module):
         lidar2img: torch.Tensor,
         img_shape: Tuple[int, int],
         generator=None,
+        self_attn_mask=None,
     ):
         """Returns (query, cam_overflow) (see Deform3DCrossAttn; the other
         cross-attentions compact nothing and report 0). Dropout draws from
-        `generator`; None (eval) turns it off."""
-        query = self.norms[0](self.attentions[0](query, query_pos, generator))
+        `generator`; None (eval) turns it off. self_attn_mask: (Q, Q) bool,
+        True = attend (H-DETR's group mask), or None."""
+        query = self.norms[0](self.attentions[0](query, query_pos, generator,
+                                                 self_attn_mask))
         if self.attn_type == "deform3d_mp":
             reference_points = graph_reference_points(reference_points,
                                                        self.num_neighbors)

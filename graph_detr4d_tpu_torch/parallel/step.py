@@ -5,6 +5,7 @@ sharded over a device mesh; these run eagerly on the model's device.
 
     step = build_tta_eval_step(model, cfg)
     det, cam_overflow = step(images, lidar2img)  # images (A, B, N, H, W, 3)
+    det, cam_overflow = step(images, lidar2img, {"intrinsics": k, ...})
 
 Each step returns the detections and the head's `cam_overflow` (the
 in-view queries the per-camera compaction dropped; the JAX steps return
@@ -18,6 +19,7 @@ import torch
 
 from ..config import ModelConfig
 from ..core.coder import decode_batch
+from ..models.detector import model_extras
 
 
 def _decode(out, cfg: ModelConfig):
@@ -29,12 +31,14 @@ def _decode(out, cfg: ModelConfig):
 
 
 def build_eval_step(model, cfg: ModelConfig):
-    """batch {'images' (B, N, H, W, 3), 'lidar2img' (B, N, 4, 4)} on the
+    """batch {'images' (B, N, H, W, 3), 'lidar2img' (B, N, 4, 4), and the
+    model extras it carries (depth_factors, intrinsics, ida_scale)} on the
     model's device -> (Detections, cam_overflow)."""
 
     @torch.inference_mode()
     def eval_step(batch):
-        return _decode(model(batch["images"], batch["lidar2img"]), cfg)
+        return _decode(model(batch["images"], batch["lidar2img"],
+                             **model_extras(batch)), cfg)
 
     return eval_step
 
@@ -45,10 +49,12 @@ def build_tta_eval_step(model, cfg: ModelConfig):
     calibration (lidar2img (B, N, 4, 4) shared, or one per copy), the head
     outputs averaged, then decoded. (The JAX step's docstring says features
     are averaged under copy 0's calibration; the code it runs, and this,
-    average outputs.)"""
+    average outputs.) `extras`: a dict of the model extras (depth_factors,
+    intrinsics, ida_scale), shared by the copies, as the JAX step's."""
 
     @torch.inference_mode()
-    def tta_step(images, lidar2img):
-        return _decode(model.aug_forward(list(images), lidar2img), cfg)
+    def tta_step(images, lidar2img, extras=None):
+        return _decode(model.aug_forward(list(images), lidar2img,
+                                         **model_extras(extras or {})), cfg)
 
     return tta_step

@@ -1,10 +1,12 @@
-"""In-process inference engine (counterpart of tools/serve.py::Engine's
-infer, infer_stream and reset_stream, without HTTP).
+"""Inference engines (counterpart of tools/serve.py::Engine: infer,
+infer_stream, reset_stream, the lock and the served counter; the HTTP
+front end is tools/serve.py, the artifact tools/export_model.py).
 
     from graph_detr4d_tpu_torch.serve import Engine
     engine = Engine("detr4d_res50_deform_pe_testaug_2subset_12e", state_dict)
     det = engine.infer(images, lidar2img)   # numpy in, numpy out
     det = engine.infer_stream(new_frame, lidar2img, stream="car-7")
+    engine = Engine.from_artifact("work_dirs/export")  # an exported artifact
 
 `state_dict` uses the reference's names: a published mmdet3d checkpoint,
 `weights.state_dict_from_jax(...)` of JAX weights, or a port model's own.
@@ -16,6 +18,10 @@ The LiDAR detector (models/dgcnn.py::ObjDGCNN) answers the same way:
     det = engine.infer(points, mask)        # (B, P, 5) float32, (B, P)
 """
 
+import contextlib
+import json
+import os
+import threading
 from collections import OrderedDict
 
 import numpy as np
@@ -28,42 +34,131 @@ from .models.detector import GraphDETR4D
 from .models.dgcnn import ObjDGCNN
 from .utils.device import resolve_device
 
+MANIFEST, WEIGHTS = "manifest.json", "weights.pth"
+
+
+def extras_spec(cfg, batch_size: int):
+    """[(name, shape)] of the extra serving inputs a config needs, in
+    artifact order (tools/export_model.py::_extras_spec): the camera-aware
+    head's intrinsics and ida_scale, scale_pred's depth_factors. (PETRv2's
+    mean_time_stamp waits for that head.)"""
+    B, N = batch_size, cfg.head.num_cams
+    spec = []
+    if cfg.head.cam_aware:
+        spec.append(("intrinsics", (B, N, 4, 4)))
+        spec.append(("ida_scale", (B, N)))
+    if cfg.head.scale_pred:
+        spec.append(("depth_factors", (B,)))
+    return spec
+
+
+def synth_extra(name, shape):
+    """Placeholder value for an extra input (warm-up, bench, verify), as
+    tools/serve.py::synth_extra makes it."""
+    if name == "intrinsics":
+        v = np.tile(np.eye(4, dtype=np.float32), tuple(shape[:-2]) + (1, 1))
+        v[..., 0, 0] = v[..., 1, 1] = 1000.0
+        v[..., 0, 2], v[..., 1, 2] = 400.0, 225.0
+        return v
+    return np.ones(shape, np.float32)
+
+
+def artifact_config(manifest: dict):
+    """The ModelConfig an artifact was exported from: its named config (or
+    tiny_test_config for 'tiny') with its --cfg-options, and raw-pixel
+    ingest (device_normalize) as img_norm.on_device says."""
+    import dataclasses
+
+    from .config import tiny_test_config
+    from .configs import apply_overrides
+
+    opts = manifest.get("cfg_options") or []
+    if manifest["config"] == "tiny":
+        cfg = apply_overrides(tiny_test_config(), opts)
+    else:
+        cfg = get_config(manifest["config"], opts)
+    return dataclasses.replace(
+        cfg, device_normalize=bool(manifest["img_norm"]["on_device"]))
+
 
 class Engine:
     """A GraphDETR4D on one device, warmed up, answering requests.
 
-    infer(images (B, N, H, W, 3), lidar2img (B, N, 4, 4)) returns the
-    NMS-free decode of the final decoder layer as numpy: 'bboxes'
+    infer(images (B, N, H, W, 3), lidar2img (B, N, 4, 4), extras) returns
+    the NMS-free decode of the final decoder layer as numpy: 'bboxes'
     (B, max_num, 9), 'scores', 'labels', 'valid' (B, max_num), plus
     'cam_overflow', the in-view queries the per-camera compaction dropped
-    (0 means it was exact).
+    (0 means it was exact). `extras`: the config's extra inputs
+    (`extras_spec`: intrinsics, ida_scale, depth_factors), in that order.
 
-    infer_stream(images, lidar2img, stream) answers a request of a video
-    stream from its new frame only (the temporal configs: num_cams = 2 x
-    num_frame_cams): the backbone runs on the new frame's cameras, and the
-    previous frame's features come from the stream's cache, which keeps
-    each stream's last `extract_feats` list on the device, the
+    infer_stream(images, lidar2img, extras, stream) answers a request of a
+    video stream from its new frame only (the temporal configs: num_cams
+    = 2 x num_frame_cams): the backbone runs on the new frame's cameras,
+    and the previous frame's features come from the stream's cache, which
+    keeps each stream's last `extract_feats` list on the device, the
     `max_streams` most recently used streams, the oldest evicted first.
+
+    One lock serializes the device calls and the cache's mutations, so
+    server threads may share an Engine; the host-to-device copy of a
+    request happens before it, outside the lock, and the device-to-host
+    read after it. `served` counts the answered requests. An Engine made
+    from a streaming artifact (`from_artifact`) answers infer by encoding
+    the two frame halves separately, then running the head, as the JAX
+    engine runs its two programs.
     """
 
-    def __init__(self, config, state_dict, device="cuda", max_streams=16):
-        """config: a name from configs.py or a ModelConfig."""
+    def __init__(self, config, state_dict, device="cuda", max_streams=16,
+                 manifest=None):
+        """config: a name from configs.py or a ModelConfig; manifest: the
+        artifact's, when the Engine serves one."""
         self.device = resolve_device(device)
         self.cfg = get_config(config) if isinstance(config, str) else config
         self.model = GraphDETR4D(self.cfg, device=self.device)
         self.model.load_state_dict(state_dict, strict=True)
         self.model.eval()
+        self.manifest = manifest
+        self.streaming = (manifest or {}).get("streaming")
+        B = manifest["batch_size"] if manifest else 1
+        self.extras_spec = (
+            [(n, tuple(manifest["inputs"][n][0])) for n in manifest["extras"]]
+            if manifest else extras_spec(self.cfg, B))
         self.max_streams = max_streams
         self._streams = OrderedDict()  # stream id -> features, LRU order
+        self._lock = threading.Lock()
+        self.served = 0
         # warm-up: cuDNN / cuBLAS heuristics, kernel build and load
         h = self.cfg.head
         N, nf, (H, W) = h.num_cams, h.num_frame_cams, self.cfg.img_size
-        l2i = np.tile(np.eye(4, dtype=np.float32), (1, N, 1, 1))
-        self.infer(np.zeros((1, N, H, W, 3), np.float32), l2i)
+        img_dtype = np.uint8 if self.cfg.device_normalize else np.float32
+        l2i = np.tile(np.eye(4, dtype=np.float32), (B, N, 1, 1))
+        extras = [synth_extra(n, s) for n, s in self.extras_spec]
+        self.infer(np.zeros((B, N, H, W, 3), img_dtype), l2i, extras)
         if N == 2 * nf:  # the backbone at one frame's cameras
-            self.infer_stream(np.zeros((1, nf, H, W, 3), np.float32), l2i,
-                              stream=None)
+            self.infer_stream(np.zeros((B, nf, H, W, 3), img_dtype), l2i,
+                              extras, stream=None)
             self._streams.clear()
+        self.served = 0  # the warm-up is not a request (JAX counts it)
+
+    @classmethod
+    def from_artifact(cls, artifact_dir, device="cuda", max_streams=16):
+        """An Engine serving an artifact of tools/export_model.py: its
+        manifest.json rebuilds the config, weights.pth (a reference-layout
+        state_dict, read with weights_only) holds the weights."""
+        with open(os.path.join(artifact_dir, MANIFEST)) as f:
+            manifest = json.load(f)
+        sd = torch.load(os.path.join(artifact_dir, WEIGHTS),
+                        map_location="cpu", weights_only=True)
+        return cls(artifact_config(manifest), sd, device=device,
+                   max_streams=max_streams, manifest=manifest)
+
+    def _device_calls(self):
+        """The lock, and on a card its device as the thread's current one
+        (the current device is per thread)."""
+        stack = contextlib.ExitStack()
+        stack.enter_context(self._lock)
+        if self.device.type == "cuda":
+            stack.enter_context(torch.cuda.device(self.device))
+        return stack
 
     def _answer(self, out) -> dict:
         c = self.cfg.coder
@@ -73,21 +168,46 @@ class Engine:
             post_center_range=c.post_center_range,
             score_threshold=c.score_threshold,
         )
+        return det, out["cam_overflow"]
+
+    @staticmethod
+    def _to_host(answer) -> dict:
+        det, overflow = answer
         result = {k: v.cpu().numpy() for k, v in det._asdict().items()}
-        result["cam_overflow"] = float(out["cam_overflow"])
+        result["cam_overflow"] = float(overflow)
         return result
 
-    def _inputs(self, images, lidar2img):
+    def _inputs(self, images, lidar2img, extras):
+        kw = {name: torch.as_tensor(np.asarray(v, np.float32)).to(self.device)
+              for (name, _), v in zip(self.extras_spec, extras)}
         return (torch.as_tensor(images).to(self.device),
-                torch.as_tensor(lidar2img, dtype=torch.float32).to(self.device))
+                torch.as_tensor(lidar2img, dtype=torch.float32).to(self.device),
+                kw)
+
+    def _halves(self, images):
+        """extract_feats of the current and the previous frame's cameras
+        of a full rig, encoded separately, joined along the camera axis."""
+        nf = self.cfg.head.num_frame_cams
+        cur = self.model.extract_feats(images[:, :nf])
+        prev = self.model.extract_feats(images[:, nf:])
+        return [torch.cat([c, p], dim=1) for c, p in zip(cur, prev)]
 
     @torch.inference_mode()
-    def infer(self, images, lidar2img) -> dict:
-        images, lidar2img = self._inputs(images, lidar2img)
-        return self._answer(self.model(images, lidar2img))
+    def infer(self, images, lidar2img, extras=()) -> dict:
+        images, lidar2img, kw = self._inputs(images, lidar2img, extras)
+        with self._device_calls():
+            if self.streaming:
+                out = self.model.forward_feats(self._halves(images),
+                                               lidar2img, **kw)
+            else:
+                out = self.model(images, lidar2img, **kw)
+            answer = self._answer(out)
+            self.served += 1
+        return self._to_host(answer)
 
     @torch.inference_mode()
-    def infer_stream(self, images, lidar2img, stream="default") -> dict:
+    def infer_stream(self, images, lidar2img, extras=(),
+                     stream="default") -> dict:
         """images (B, num_frame_cams, H, W, 3): the new frame only;
         lidar2img (B, num_cams, 4, 4): the current cameras first, then the
         cached frame's, mapped into the current lidar frame. On a stream's
@@ -99,20 +219,25 @@ class Engine:
             raise ValueError(f"infer_stream needs a temporal config (num_cams "
                              f"{h.num_cams} = 2 x num_frame_cams "
                              f"{h.num_frame_cams})")
-        images, lidar2img = self._inputs(images, lidar2img)
-        cur = self.model.extract_feats(images)
-        prev = self._streams.get(stream, cur)
-        out = self.model.forward_feats(
-            [torch.cat([c, p], dim=1) for c, p in zip(cur, prev)], lidar2img)
-        self._streams[stream] = cur
-        self._streams.move_to_end(stream)
-        while len(self._streams) > self.max_streams:
-            self._streams.popitem(last=False)
-        return self._answer(out)
+        images, lidar2img, kw = self._inputs(images, lidar2img, extras)
+        with self._device_calls():
+            cur = self.model.extract_feats(images)
+            prev = self._streams.get(stream, cur)
+            out = self.model.forward_feats(
+                [torch.cat([c, p], dim=1) for c, p in zip(cur, prev)],
+                lidar2img, **kw)
+            self._streams[stream] = cur
+            self._streams.move_to_end(stream)
+            while len(self._streams) > self.max_streams:
+                self._streams.popitem(last=False)
+            answer = self._answer(out)
+            self.served += 1
+        return self._to_host(answer)
 
     def reset_stream(self, stream="default") -> bool:
         """Drop a stream's cached frame; whether it had one."""
-        return self._streams.pop(stream, None) is not None
+        with self._lock:
+            return self._streams.pop(stream, None) is not None
 
 
 class LidarEngine:

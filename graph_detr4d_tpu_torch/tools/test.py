@@ -29,6 +29,7 @@ import os
 import numpy as np
 import torch
 
+from ..models.detector import model_extras
 from .train import build_config, refuse_cam_parallel
 
 
@@ -90,9 +91,12 @@ def load_checkpoint(path: str):
 
 
 def _model_inputs(batch):
-    # the inputs the port's models take; PETRv2's mean_time_stamp and the
-    # camera-aware intrinsics wait for those heads (ROADMAP Queue 1 item 5)
-    return {"images": batch["images"], "lidar2img": batch["lidar2img"]}
+    # the inputs the port's models take: images, lidar2img and the model
+    # extras the batch carries (the camera-aware intrinsics and ida_scale,
+    # scale_pred's depth_factors); PETRv2's mean_time_stamp waits for that
+    # head (ROADMAP Queue 1)
+    return {"images": batch["images"], "lidar2img": batch["lidar2img"],
+            **model_extras(batch)}
 
 
 def run_eval(model, cfg, items) -> dict:
@@ -127,7 +131,8 @@ def run_eval(model, cfg, items) -> dict:
         dev, copy_events, pinned = to_device(host, device)
         ev = list(copy_events) if cuda else []
         if dev["images"].dim() == 6:  # (A, B, N, H, W, 3): TTA copies
-            det, cam_overflow = tta_step(dev["images"], dev["lidar2img"])
+            det, cam_overflow = tta_step(dev["images"], dev["lidar2img"],
+                                         model_extras(dev))
         else:
             det, cam_overflow = eval_step(dev)
         ev += [event()] if cuda else []

@@ -13,7 +13,8 @@ device: reading them is the caller's sync.
 import torch
 
 from ..config import ModelConfig
-from ..core.losses import detr3d_loss
+from ..core.losses import detr3d_loss, hybrid_detr3d_loss
+from ..models.detector import model_extras
 from .optim import build_optimizer, clip_by_global_norm
 
 
@@ -25,10 +26,11 @@ class TrainStep:
         if cfg.head.fix_offset:
             raise NotImplementedError(
                 "graph_detr4d_tpu_torch does not train head.fix_offset yet")
-        if cfg.head.num_query_one2many > 0:
-            raise NotImplementedError(
-                "graph_detr4d_tpu_torch does not train the hybrid loss yet")
         self.model, self.cfg = model, cfg
+        # H-DETR heads emit a one2many group with its own set loss
+        # (h_detr3d_head_pe.py:616-668)
+        self.loss_fn = (hybrid_detr3d_loss if cfg.head.num_query_one2many > 0
+                        else detr3d_loss)
         self.params = list(model.parameters())
         self.optimizer, self.scheduler = build_optimizer(model, cfg.train)
         device = self.params[0].device
@@ -37,12 +39,14 @@ class TrainStep:
     def step(self, batch: dict) -> dict:
         """batch: images (B, N, H, W, 3), lidar2img (B, N, 4, 4), gt_bboxes
         (B, G, 9), gt_labels (B, G), gt_valid (B, G), on the model's
-        device. Returns the loss metrics and `grad_norm` (before clipping)."""
+        device, and where the batch has them depth_factors, intrinsics and
+        ida_scale (models/detector.py::MODEL_EXTRAS). Returns the loss metrics and `grad_norm`
+        (before clipping)."""
         for p in self.params:
             p.grad = None
         out = self.model(batch["images"], batch["lidar2img"], train=True,
-                         generator=self.generator)
-        total, metrics = detr3d_loss(
+                         generator=self.generator, **model_extras(batch))
+        total, metrics = self.loss_fn(
             out, batch["gt_bboxes"], batch["gt_labels"], batch["gt_valid"],
             self.cfg.loss, self.cfg.head,
         )

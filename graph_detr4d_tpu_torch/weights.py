@@ -159,20 +159,28 @@ def cross_attn_state_dict(params):
     return w.sd
 
 
+def mha_state_dict(params):
+    """flax MultiHeadDotProductAttention subtree -> port MultiheadAttention
+    names (the packed in_proj and out_proj)."""
+    qkv, qkvb = [], []
+    for name in ("query", "key", "value"):
+        k = _arr(params, [name, "kernel"])  # (C, heads, hd)
+        qkv.append(k.reshape(k.shape[0], -1).T)
+        qkvb.append(_arr(params, [name, "bias"]).reshape(-1))
+    ko = _arr(params, ["out", "kernel"])  # (heads, hd, C)
+    return OrderedDict([
+        ("in_proj_weight", np.concatenate(qkv, 0)),
+        ("in_proj_bias", np.concatenate(qkvb, 0)),
+        ("out_proj.weight", ko.reshape(-1, ko.shape[-1]).T),
+        ("out_proj.bias", _arr(params, ["out", "bias"])),
+    ])
+
+
 def decoder_layer_state_dict(params):
     """flax DecoderLayer subtree -> port DecoderLayer names."""
     w = _Writer(params)
-    qkv, qkvb = [], []
-    for name in ("query", "key", "value"):
-        k = _arr(params, ["self_attn", name, "kernel"])  # (C, heads, hd)
-        qkv.append(k.reshape(k.shape[0], -1).T)
-        qkvb.append(_arr(params, ["self_attn", name, "bias"]).reshape(-1))
-    w.sd["attentions.0.attn.in_proj_weight"] = np.concatenate(qkv, 0)
-    w.sd["attentions.0.attn.in_proj_bias"] = np.concatenate(qkvb, 0)
-    ko = _arr(params, ["self_attn", "out", "kernel"])  # (heads, hd, C)
-    w.sd["attentions.0.attn.out_proj.weight"] = ko.reshape(-1, ko.shape[-1]).T
-    w.sd["attentions.0.attn.out_proj.bias"] = _arr(
-        params, ["self_attn", "out", "bias"])
+    w.sd.update(_prefixed("attentions.0.attn.",
+                          mha_state_dict(params["self_attn"])))
     w.sd.update(_prefixed("attentions.1.",
                           cross_attn_state_dict(params["cross_attn"])))
     w.lin(["ffn", "Dense_0"], "ffns.0.layers.0.0")
@@ -182,11 +190,43 @@ def decoder_layer_state_dict(params):
     return w.sd
 
 
-def head_state_dict(params):
-    """flax Detr3DHeadPE subtree -> port Detr3DHeadPE names."""
+def depth_net_state_dict(params, stats):
+    """flax DepthNet subtree -> the reference's names
+    (detr3d_head_pe_camaware.py:59-105), as convert_state_dict reads them."""
+    w = _Writer(params, stats)
+    w.conv(["reduce_conv"], "reduce_conv.0", bias=True)
+    w.bn(["reduce_bn"], "reduce_conv.1")
+    w.lin(["mlp", "Dense_0"], "mlp.fc1")
+    w.lin(["mlp", "Dense_1"], "mlp.fc2")
+    w.conv(["se", "reduce"], "se.conv_reduce", bias=True)
+    w.conv(["se", "expand"], "se.conv_expand", bias=True)
+    return w.sd
+
+
+def se_camconv_state_dict(params):
+    """flax SELayerCAMConv subtree -> port names (the JAX tools map none)."""
     w = _Writer(params)
+    w.conv(["conv_reduce", "conv"], "conv_reduce.conv", bias=True)
+    w.conv(["conv_expand"], "conv_expand", bias=True)
+    return w.sd
+
+
+def head_state_dict(params, stats=None):
+    """flax Detr3DHeadPE subtree (and its batch_stats, which hold the
+    camera-aware DepthNet's BN) -> port Detr3DHeadPE names.
+
+    The query embedding keeps every row (H-DETR's one2one then one2many
+    groups). DepthNet takes the reference's names, as
+    tools/convert_checkpoint.py::convert_state_dict reads them
+    (`depth_net.reduce_conv.0` / `.1`, `mlp.fc1` / `fc2`, `se.conv_*`); the
+    camconv gate, which the JAX tools do not map, takes the port module's
+    (`fpe.conv_reduce.conv`, `fpe.conv_expand`)."""
+    w = _Writer(params, stats)
     w.sd["query_embedding.weight"] = _arr(params, ["query_embedding"])
     w.lin(["reference_points"], "transformer.reference_points")
+    if "depth_net" in params:
+        w.sd.update(_prefixed("depth_net.", depth_net_state_dict(
+            params["depth_net"], stats["depth_net"])))
     if "position_encoder" in params:  # the plain head (with_pe False) has none
         for src in ("position_encoder", "adapt_pos3d"):
             for j, tidx in enumerate((0, 2)):
@@ -194,6 +234,9 @@ def head_state_dict(params):
                     params, [src, f"Dense_{j}", "kernel"]).T[:, :, None, None]
                 w.sd[f"{src}.{tidx}.bias"] = _arr(
                     params, [src, f"Dense_{j}", "bias"])
+    if "conv_reduce" in params.get("fpe", {}):  # fpe_type 'camconv'
+        w.sd.update(_prefixed("fpe.", se_camconv_state_dict(params["fpe"])))
+    elif "fpe" in params:  # with_fpe False calls no gate: flax made none
         w.conv(["fpe", "reduce"], "fpe.conv_reduce", bias=True)
         w.conv(["fpe", "expand"], "fpe.conv_expand", bias=True)
     lid = 0
@@ -221,7 +264,8 @@ def state_dict_from_jax(variables) -> "OrderedDict[str, torch.Tensor]":
     sd.update(_prefixed("img_backbone.", backbone_state_dict(
         params["backbone"], stats["backbone"])))
     sd.update(_prefixed("img_neck.", neck_state_dict(params["neck"])))
-    sd.update(_prefixed("pts_bbox_head.", head_state_dict(params["head"])))
+    sd.update(_prefixed("pts_bbox_head.", head_state_dict(
+        params["head"], stats.get("head"))))
     return to_torch(sd)
 
 
@@ -342,12 +386,16 @@ def load_reference_checkpoint(path: str, model: nn.Module = None):
     or one of the port's own checkpoints (train/checkpoint.py). As
     tools/convert_checkpoint.py:743 reads it (`ckpt.get("state_dict",
     ckpt)`), through torch.load(weights_only=True); BatchNorm's
-    `num_batches_tracked` counters and a `meta` entry are dropped. With
-    `model`, the weights are loaded into it with strict=True."""
+    `num_batches_tracked` counters, a `meta` entry and the camera-aware
+    DepthNet's `context_conv` (computed and never used by the reference's
+    forward, detr3d_head_pe_camaware.py:84-85; convert_state_dict skips it
+    too) are dropped. With `model`, the weights are loaded into it with
+    strict=True."""
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     sd = ckpt.get("state_dict", ckpt)
     sd = OrderedDict((k, v) for k, v in sd.items()
-                     if k != "meta" and not k.endswith("num_batches_tracked"))
+                     if k != "meta" and not k.endswith("num_batches_tracked")
+                     and ".depth_net.context_conv." not in k)
     if model is not None:
         model.load_state_dict(sd, strict=True)
     return sd

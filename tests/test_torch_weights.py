@@ -56,7 +56,9 @@ def _random_variables(cfg, seed=0):
         lambda s: rng.randn(*s.shape).astype(np.float32), shapes)
 
 
-@pytest.mark.parametrize("name", ["slice", FLAGSHIP])
+@pytest.mark.parametrize("name", [
+    "slice", FLAGSHIP, "h_detr4d_res50_deform_pe_testaug_2subset_12e",
+    "detr4d_res18_deform_pe_testaug_320_2subset"])
 def test_state_dict_from_jax_equals_export_and_loads_strict(name):
     if name == "slice":
         jcfg, tcfg = slice_config(jax_config), slice_config(port_config)
