@@ -181,6 +181,33 @@ IoU, and prints one JSON line per phase:
               serial ones; a float body refused by the uint8 artifact
               with 400 and the server serving on; /healthz's served equal
               to the inference requests answered.
+ 15. backbones  VoVNet V-99-eSE under the flagship's head
+              (detr4d_vovnet_deform, 12 x 640x1600), bf16: 3 requests (K1
+              6, K2 0: no DCN; cam_overflow 0), its backbone and neck
+              profiled (device busy share, kernels launched, top kernels),
+              fp32 kernels vs plain with the kernel route's reference
+              points replayed (phase plain's bounds; free running within
+              1e-2), one train step (K1 6 / 6, K4 1, K5 1); detr4d_vovnet
+              (the plain head, DETR3D attention) one request; the
+              MobileNetV2 student (12 x 320x800) one request and one step.
+ 16. distill  teacher -> student distillation (train/distill_step.py),
+              bf16: 3 steps of mixdistill_r50_r18_cls_reg_img (R50-DCN
+              teacher, R18 student, 12 x 320x800; instance, MixDistill and
+              vanilla feature distillation, reweight_score, top-k 64),
+              each split into teacher forward, student forward and loss,
+              backward and AdamW (a step: K1 18 / 12, K2 9 / 0, K4 2, K5
+              1; cam_overflow 0 for the student's and the guided decode's
+              queries); one fp32 step kernels vs plain (losses 1e-5
+              relative, grad_norm 5e-4, assignments identical or at an
+              equal optimum cost within 1e-5); K4 on that step's soft
+              matching, 12 problems of 64 x 900, and on one 900 x 900
+              problem of the same step with every teacher row, identical
+              to the plain version, kernel and plain ms; one step of
+              mixdistill_r50_m2_cls_reg_img (the MobileNetV2 student) and
+              of detr4d_r50_distill_r50_1x (R50 -> R50 at 640x1600, K2's
+              backward on the student: K1 12 / 6, K2 18 / 9, K4 2, K5 1);
+              tools.distill_train.main --synthetic --steps 2, then
+              tools.distill_test.main on the checkpoint it saved.
 Phase `kernels` also holds K3 (the fused int8-table conv, fp32 within
 1e-4 and bf16 within one bf16 step of the output's magnitude, both
 strides, the flagship's 7 int8 DCN shapes, with `gemm_ref_ms` as K2's),
@@ -263,6 +290,11 @@ from graph_detr4d_tpu_torch.models.camera_aware import cam_coord_channels
 from graph_detr4d_tpu_torch.serve import extras_spec
 from graph_detr4d_tpu_torch.tools import export_model as export_cli
 from graph_detr4d_tpu_torch.tools import serve as serve_cli
+from graph_detr4d_tpu_torch.configs import get_distill_config
+from graph_detr4d_tpu_torch.distill.distiller import Distiller
+from graph_detr4d_tpu_torch.tools import distill_test as distill_test_cli
+from graph_detr4d_tpu_torch.tools import distill_train as distill_train_cli
+from graph_detr4d_tpu_torch.train.distill_step import DistillStep
 
 CONFIG = "detr4d_res50_deform_pe_testaug_2subset_12e"
 REQUESTS = 4
@@ -364,6 +396,36 @@ R18_CONFIG = "detr4d_res18_deform_pe_testaug_320_2subset"
 # phase http: the flagship exported twice and served over HTTP in process
 HTTP_FLOAT_REQUESTS, HTTP_UINT8_REQUESTS, HTTP_STREAM_REQUESTS = 2, 4, 4
 HTTP_BENCH_REQUESTS = 8
+# phase backbones: VoVNet V-99-eSE under the flagship's head (served,
+# fp32 kernels vs plain, a train step), the plain-head VoVNet config and
+# the MobileNetV2 student (served, a train step); VoVNet and MobileNetV2
+# have no DCN, so K2 is bypassed
+VOVNET_CONFIG = "detr4d_vovnet_deform"
+VOVNET_PLAIN_HEAD_CONFIG = "detr4d_vovnet"
+M2_CONFIG = "detr4d_m2_deform_pe_testaug_320_fullset"
+BACKBONE_REQUESTS = 3
+NO_DCN_STEP_LAUNCHES = {**STEP_LAUNCHES, "deform_conv_forward": 0,
+                        "deform_conv_backward": 0}
+# phase distill: MixDistill R50-DCN -> R18 with vanilla feature distill
+# (3 timed steps, a fp32 kernels-vs-plain step), then one step of the
+# MobileNetV2 student's bundle and of R50 -> R50 at 640x1600, and the
+# distill CLIs chained
+DISTILL_BUNDLE = "mixdistill_r50_r18_cls_reg_img"
+DISTILL_M2_BUNDLE = "mixdistill_r50_m2_cls_reg_img"
+DISTILL_R50_BUNDLE = "detr4d_r50_distill_r50_1x"
+DISTILL_CLI_BUNDLE = "mixdistill_r50_r18_cls_reg_2subset"
+DISTILL_STEPS = 3
+# launches a distill step: the teacher's forward (K1 6, K2 9), the
+# student's forward (K1 6, and 6 more for the MixDistill decode) and its
+# backward, K4 for the GT matching and one launch for every distill
+# matching (the student's and the guided decode's together), K5 once
+MIX_STEP_LAUNCHES = {"msda_forward": 18, "msda_backward": 12,
+                     "deform_conv_forward": 9, "deform_conv_backward": 0,
+                     "focal_loss": 1, "hungarian": 2}
+R50_DISTILL_STEP_LAUNCHES = {"msda_forward": 12, "msda_backward": 6,
+                             "deform_conv_forward": 18,
+                             "deform_conv_backward": 9, "focal_loss": 1,
+                             "hungarian": 2}
 
 
 def emit(record):
@@ -2300,6 +2362,28 @@ def phase_iou(engine, cloud):
     return launches
 
 
+def profiled_span(fn, top=8):
+    """One call of fn (after a warm-up call) under torch.profiler: its
+    span between CUDA events, the device busy ms and idle share in it,
+    the device kernels launched and the `top` ones by device time."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+    span_ms = start.elapsed_time(end)
+    events = device_events(prof)
+    busy_ms = sum(dev_us(e) for e in events) / 1e3
+    return {"span_ms": span_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": 1.0 - busy_ms / span_ms,
+            "device_kernels": sum(e.count for e in events),
+            "top_device_ms": [[e.key[:60], dev_us(e) / 1e3, e.count] for e in
+                              sorted(events, key=dev_us, reverse=True)[:top]]}
+
+
 def phase_breakdown(engine, batch):
     """Where one request's time goes: its stages between CUDA events, and
     a torch.profiler trace of one request (device busy share of the
@@ -2323,24 +2407,16 @@ def phase_breakdown(engine, batch):
     names = ("h2d", "backbone_neck", "head", "decode_d2h")
     stages = {n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(names)}
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        start.record()
-        engine.infer(batch["images"], batch["lidar2img"])
-        end.record()
-        end.synchronize()
-    span_ms = start.elapsed_time(end)
-    events = device_events(prof)
-    busy_ms = sum(dev_us(e) for e in events) / 1e3
-    top = sorted(events, key=dev_us, reverse=True)[:12]
+    prof = profiled_span(
+        lambda: engine.infer(batch["images"], batch["lidar2img"]), top=12)
     emit({"phase": "breakdown", "stages_ms": stages,
-          "profiled_request_ms": span_ms, "device_busy_ms": busy_ms,
-          "device_idle_share": 1.0 - busy_ms / span_ms,
-          "top_device_ms": [[e.key[:60], dev_us(e) / 1e3, e.count]
-                            for e in top]})
-    if busy_ms > span_ms:  # device time counted twice somewhere
-        raise AssertionError(
-            f"device busy {busy_ms} ms exceeds the request's {span_ms} ms")
+          "profiled_request_ms": prof["span_ms"],
+          "device_busy_ms": prof["device_busy_ms"],
+          "device_idle_share": prof["device_idle_share"],
+          "top_device_ms": prof["top_device_ms"]})
+    if prof["device_busy_ms"] > prof["span_ms"]:  # counted twice somewhere
+        raise AssertionError(f"device busy {prof['device_busy_ms']} ms exceeds "
+                             f"the request's {prof['span_ms']} ms")
 
 
 KERNEL_ROUTES = ((msda_ops, "msda_forward", "msda_forward_plain"),
@@ -3401,6 +3477,373 @@ def phase_http(cfg, sd):
     return launches
 
 
+def timed_train_steps(step_fn, batch, steps, warmup=True):
+    """A warm-up call of step_fn(batch) (unless the caller made one), then
+    `steps` calls timed by CUDA events, with the launches and the peak
+    memory counted from just before them. Returns (ms per step, float
+    metrics per step, launches, peak bytes)."""
+    if warmup:
+        step_fn(batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    times, metrics = [], []
+    for _ in range(steps):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        m = step_fn(batch)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+        metrics.append({k: float(v) for k, v in m.items()})
+    return times, metrics, launch_counts(), torch.cuda.max_memory_allocated()
+
+
+def check_step_launches(name, launches, steps, want_per_step):
+    want = {**dict.fromkeys(launches, 0),
+            **{k: v * steps for k, v in want_per_step.items()}}
+    if launches != want:
+        raise AssertionError(f"{name}: launches {launches} != {want}")
+
+
+def check_finite_metrics(name, metrics):
+    for m in metrics:
+        if not all(np.isfinite(v) for v in m.values()):
+            raise AssertionError(f"{name}: non-finite metrics {m}")
+
+
+def phase_backbones():
+    """VoVNet V-99-eSE and MobileNetV2 at full width, bf16, seeded random
+    weights: detr4d_vovnet_deform (12 x 640x1600, the flagship's head)
+    answers BACKBONE_REQUESTS requests (K1 6, K2 0, cam_overflow 0), its
+    fp32 kernels vs plain as phase variants (the reference points
+    replayed; free running within FREE_RUNNING_ATOL), its backbone and
+    neck profiled (device busy share, kernels launched, top kernels), one
+    timed TrainStep step (K1 6 / 6, K4 1, K5 1); detr4d_vovnet (the plain
+    head, DETR3D attention) answers one request; the MobileNetV2 student
+    (12 x 320x800) one request and one train step. Returns the summed
+    launches."""
+    t0 = time.perf_counter()
+    total = dict.fromkeys(launch_counts(), 0)
+    records = {}
+    for name, requests, plain, train in (
+            (VOVNET_CONFIG, BACKBONE_REQUESTS, True, True),
+            (VOVNET_PLAIN_HEAD_CONFIG, 1, False, False),
+            (M2_CONFIG, 1, False, True)):
+        cfg = get_config(name)
+        sd = random_state_dict(cfg)
+        batch = synthetic_batch(cfg, seed=0)
+        engine = Engine(cfg, sd)
+        times, results, launches, peak = timed_requests(
+            engine.infer, [(batch["images"], batch["lidar2img"])] * requests)
+        check_answers(name, results, cfg, launches,
+                      {"msda_forward": MSDA_CALLS})
+        overflow = [r["cam_overflow"] for r in results]
+        if any(overflow):
+            raise AssertionError(f"{name}: cam_overflow {overflow}")
+        add_counts(total, launches)
+        rec = {"backbone": cfg.vovnet_spec if cfg.backbone_type == "vovnet"
+               else cfg.backbone_type, "img_size": list(cfg.img_size),
+               "ms_per_request": times, "mean_ms": sum(times) / len(times),
+               "peak_memory_bytes": peak, "cam_overflow": overflow,
+               "launches": launches,
+               "valid_detections": int(results[-1]["valid"].sum())}
+        if plain:
+            images = torch.as_tensor(batch["images"]).cuda()
+            model = engine.model
+
+            def backbone_neck():
+                with torch.inference_mode():
+                    model.extract_feats(images)
+
+            rec["backbone_neck_profile"] = profiled_span(backbone_neck)
+        del engine
+        torch.cuda.empty_cache()
+        if plain:
+            errs, counts, _, ov, free = compare_routes(cfg, sd, references=True)
+            rec.update(plain_max_abs_err_per_layer=errs, plain_launches=counts,
+                       plain_cam_overflow=ov,
+                       free_running_max_abs_err_per_layer=free)
+            if counts != {"kernels": {"msda_forward": MSDA_CALLS}, "plain": {}}:
+                raise AssertionError(f"{name}: launches per route {counts}")
+            check_layer_errors(name, errs)
+            check_free_running(name, free)
+        if train:
+            model = GraphDETR4D(cfg)
+            model.load_state_dict(sd, strict=True)
+            step = TrainStep(model, cfg, seed=0)
+            dev = {k: torch.as_tensor(v).cuda()
+                   for k, v in train_batch(cfg).items()}
+            ms, metrics, counts, tpeak = timed_train_steps(step.step, dev, 1)
+            del model, step, dev
+            torch.cuda.empty_cache()
+            check_step_launches(name, counts, 1, NO_DCN_STEP_LAUNCHES)
+            check_finite_metrics(name, metrics)
+            add_counts(total, counts)
+            rec.update(train_ms=ms, train_loss=metrics[0]["loss"],
+                       train_grad_norm=metrics[0]["grad_norm"],
+                       train_peak_memory_bytes=tpeak, train_launches=counts)
+        records[name] = rec
+    emit({"phase": "backbones", "configs": records,
+          "seconds": time.perf_counter() - t0})
+    return total
+
+
+def distill_models(bundle, fix=lambda c: c):
+    """(teacher, Distiller, student config, DistillConfig) of a bundle on
+    the card with seeded random weights (the teacher seed 0, the
+    Distiller seed 1, as the distill CLI draws them); `fix` maps each
+    model config to the one to build."""
+    t_cfg, s_cfg = fix(bundle.teacher), fix(bundle.student)
+    teacher = GraphDETR4D(t_cfg, device="cpu")
+    init_weights(teacher, 0)
+    dist = Distiller(s_cfg, t_cfg.neck.out_channels, device="cpu")
+    init_weights(dist, 1)
+    return (teacher.cuda(), dist.cuda(), s_cfg,
+            distill_train_cli.distill_config(bundle))
+
+
+def backbone_name(cfg):
+    return {"vovnet": cfg.vovnet_spec, "mobilenetv2": "MobileNetV2"}.get(
+        cfg.backbone_type, f"ResNet-{cfg.backbone.depth}")
+
+
+def distill_batch(bundle, cfg=None):
+    """The step's batch, made from the teacher's config as the distill
+    CLI makes it, NUM_GT boxes, on the card."""
+    b = synthetic_batch(cfg or bundle.teacher, seed=0, num_gt=NUM_GT)
+    return {k: torch.as_tensor(v).cuda() for k, v in b.items()}
+
+
+def distill_split_step(step, batch, split):
+    """One DistillStep step with its phases between CUDA events: teacher
+    forward, student forward and loss, backward and AdamW (ms appended to
+    `split`); also the student's and the guided decode's cam_overflow."""
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    ev[0].record()
+    t_feats, t_outs = step.teacher_forward(batch)
+    ev[1].record()
+    total, metrics, s_outs = step.student_loss(batch, t_feats, t_outs)
+    ev[2].record()
+    metrics["grad_norm"] = step.update(total)
+    ev[3].record()
+    ev[3].synchronize()
+    split.append({n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(
+        ("teacher_forward", "student_forward_loss", "backward_adamw"))})
+    metrics["cam_overflow"] = torch.as_tensor(s_outs["cam_overflow"])
+    if "cam_overflow_guided" in s_outs:
+        metrics["cam_overflow_guided"] = torch.as_tensor(
+            s_outs["cam_overflow_guided"])
+    return {k: v.detach() for k, v in metrics.items()}
+
+
+def distill_plain(bundle):
+    """One fp32 distill step (dropout 0, grid mask off) from the same
+    weights through the kernels, then through the plain versions: every
+    loss within TRAIN_PLAIN_RTOL, grad_norm within
+    TRAIN_PLAIN_GRAD_NORM_RTOL, and each K4 call's assignments identical
+    or, where the two routes' rounding picks another optimum, at the same
+    summed cost within 1e-5 (phase train_plain's rule), the differing rows
+    counted."""
+    def fp32(c):
+        return dataclasses.replace(
+            c, bf16=False, head=dataclasses.replace(c.head, dropout=0.0),
+            train=dataclasses.replace(c.train, use_grid_mask=False))
+
+    batch = distill_batch(bundle, fp32(bundle.teacher))
+    metrics, counts, calls = {}, {}, {}
+    for route, ctx in (("kernels", contextlib.nullcontext),
+                       ("plain", plain_kernels)):
+        teacher, dist, s_cfg, dcfg = distill_models(bundle, fp32)
+        step = DistillStep(teacher, dist, s_cfg, dcfg, seed=0)
+        calls[route] = []
+        reset_launch_counts()
+        with ctx(), record_assignments(calls[route]):
+            m = step.step(batch)
+        counts[route] = launch_counts()
+        metrics[route] = {k: float(v) for k, v in m.items()}
+        del teacher, dist, step
+        torch.cuda.empty_cache()
+    kern, plain = metrics["kernels"], metrics["plain"]
+    rel = {k: abs(kern[k] - plain[k]) / max(abs(plain[k]), 1e-12)
+           for k in kern}
+    differ, cost_rel = [], []
+    if len(calls["kernels"]) != len(calls["plain"]):
+        raise AssertionError("distill_plain: K4 calls per route differ")
+    for (ck, nk, ak), (cp, npl, ap) in zip(calls["kernels"], calls["plain"]):
+        nk = torch.full((ck.shape[0],), ck.shape[1]) if nk is None else nk
+        npl = torch.full((cp.shape[0],), cp.shape[1]) if npl is None else npl
+        differ.append([int((ak[i] != ap[i]).sum()) for i in range(ak.shape[0])])
+        opt_k, opt_p = assignment_cost(ck, nk, ak), assignment_cost(cp, npl, ap)
+        cost_rel.append([abs(a - b) / max(abs(b), 1e-12)
+                         for a, b in zip(opt_k, opt_p)])
+    rec = {"dtype": "float32", "metrics": metrics, "rel_err": rel,
+           "launches": counts,
+           "k4_shapes": [list(c.shape) for c, _, _ in calls["kernels"]],
+           "assignment_rows_differing": differ,
+           "optimum_cost_rel_err": cost_rel}
+    want_plain = dict.fromkeys(counts["plain"], 0)
+    if counts != {"kernels": {**want_plain, **MIX_STEP_LAUNCHES},
+                  "plain": want_plain}:
+        raise AssertionError(f"distill_plain: launches per route {counts}")
+    for k, e in rel.items():
+        tol = TRAIN_PLAIN_GRAD_NORM_RTOL if k == "grad_norm" else TRAIN_PLAIN_RTOL
+        if not e <= tol:
+            raise AssertionError(f"distill_plain: {k} {e} > {tol}")
+    for c, (dc, ec) in enumerate(zip(differ, cost_rel)):
+        for i, (d, e) in enumerate(zip(dc, ec)):
+            if d and not e <= 1e-5:
+                raise AssertionError(
+                    f"distill_plain: K4 call {c} problem {i}: {d} rows "
+                    f"assigned differently and optimum costs differ by {e}")
+    return rec
+
+
+def kernel_hungarian_distill(dev, calls, square):
+    """K4 at the distill shapes against its plain version (identical
+    assignments): the step's own soft matching, (B x 6 stages x 2,
+    student and guided decode) problems of 64 teacher rows by 900 student
+    queries, and one 900 x 900 problem of the same step with every
+    teacher row (--teacher-top-k 0). Kernel ms (CUDA events) and plain
+    ms (one call)."""
+    out = {}
+    for label, cost in (("top_k", calls), ("all_rows", square)):
+        nv = torch.full((cost.shape[0],), cost.shape[1], dtype=torch.int32,
+                        device=dev)
+        rec = hungarian_record(cost.to(dev), nv)
+        t0 = time.perf_counter()
+        lsa_ops.hungarian_assignment_plain(cost.to(dev), nv)
+        torch.cuda.synchronize()
+        rec["plain_ms"] = 1e3 * (time.perf_counter() - t0)
+        rec["shape"] = list(cost.shape)
+        rec.pop("device_ms_per_call")
+        out[label] = rec
+        emit({"phase": "kernels", "kernel": f"hungarian_distill_{label}", **rec})
+        if rec["mismatches"]:
+            raise AssertionError(f"hungarian at the distill shape {label}: {rec}")
+    return out
+
+
+def distill_step_record(name, bundle, steps, want_per_step):
+    """`steps` timed steps of a bundle (after a warm-up), bf16, split into
+    their phases; launches, peak, metrics, cam_overflow of the student's
+    and the guided decode's queries (must be 0). Returns (record,
+    launches, the warm-up step's K4 calls)."""
+    teacher, dist, s_cfg, dcfg = distill_models(bundle)
+    step = DistillStep(teacher, dist, s_cfg, dcfg, seed=0)
+    batch = distill_batch(bundle)
+    split, warm_calls = [], []
+    with record_assignments(warm_calls):
+        distill_split_step(step, batch, split)
+    ms, metrics, launches, peak = timed_train_steps(
+        lambda b: distill_split_step(step, b, split), batch, steps,
+        warmup=False)
+    check_step_launches(name, launches, steps, want_per_step)
+    check_finite_metrics(name, metrics)
+    overflow = [(m["cam_overflow"], m.get("cam_overflow_guided", 0.0))
+                for m in metrics]
+    if any(a or b for a, b in overflow):
+        raise AssertionError(f"{name}: cam_overflow (student, guided) {overflow}")
+    split = split[1:]
+    mean_split = {k: sum(s[k] for s in split) / len(split) for k in split[0]}
+    rec = {"teacher": backbone_name(bundle.teacher),
+           "student": backbone_name(bundle.student),
+           "img_size": list(bundle.student.img_size), "mix": dcfg.mix,
+           "feat": dcfg.use_feat_distill, "reweight_score": dcfg.reweight_score,
+           "teacher_top_k": dcfg.teacher_top_k, "ms_per_step": ms,
+           "mean_ms": sum(ms) / len(ms), "split_ms": mean_split,
+           "teacher_share": mean_split["teacher_forward"] / sum(
+               mean_split.values()),
+           "peak_memory_bytes": peak, "launches_per_step": {
+               k: v / steps for k, v in launches.items()},
+           "metrics": metrics, "cam_overflow_student_guided": overflow}
+    square = None
+    if name == DISTILL_BUNDLE:
+        # the same step's soft matching with every teacher row
+        every = []
+        with torch.no_grad(), record_assignments(every):
+            full = DistillStep(teacher, dist, s_cfg, dataclasses.replace(
+                dcfg, teacher_top_k=None), seed=0)
+            t_feats, t_outs = full.teacher_forward(batch)
+            full.student_loss(batch, t_feats, t_outs)
+        square = next(c for c, _, _ in every if c.shape[1] == c.shape[2])[:1]
+    del teacher, dist, step, batch
+    torch.cuda.empty_cache()
+    distill_calls = next(c for c, nv, _ in warm_calls if nv is None)
+    return rec, launches, distill_calls, square
+
+
+def distill_clis():
+    """tools.distill_train.main --synthetic --steps 2 on DISTILL_CLI_BUNDLE
+    (K1 18 / 12, K2 9, K4 2, K5 1 a step), then tools.distill_test.main on
+    the student checkpoint it saved (2 synthetic samples: K1 6 each, K2 0).
+    Returns (record, launches)."""
+    with tempfile.TemporaryDirectory() as wd:
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        _, records = distill_train_cli.main(
+            ["--config", DISTILL_CLI_BUNDLE, "--synthetic", "--steps", "2",
+             "--log-interval", "1", "--work-dir", wd])
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        train_launches = launch_counts()
+        check_step_launches("distill_train CLI", train_launches, 2,
+                            {**MIX_STEP_LAUNCHES})
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out = distill_test_cli.main(
+            ["--config", DISTILL_CLI_BUNDLE, "--checkpoint",
+             os.path.join(wd, "checkpoints"), "--max-samples", "2"])
+        test_s = time.perf_counter() - t0
+        test_launches = launch_counts()
+    check_step_launches("distill_test CLI", test_launches, 2,
+                        {"msda_forward": MSDA_CALLS})
+    check_finite_metrics("distill_train CLI", records)
+    if any(out["cam_overflow"]) or len(out["results"]) != 2:
+        raise AssertionError(f"distill_test CLI: {out['cam_overflow']}")
+    rec = {"train_s": train_s, "train_records": records,
+           "train_launches": train_launches, "test_s": test_s,
+           "test_metrics": {k: v for k, v in out["metrics"].items()
+                            if not isinstance(v, dict)},
+           "test_launches": test_launches}
+    return rec, add_counts(dict(train_launches), test_launches)
+
+
+def phase_distill(dev):
+    """Teacher -> student distillation at full width, seeded random
+    weights, bf16: DISTILL_STEPS timed steps of DISTILL_BUNDLE
+    (MixDistill R50-DCN -> R18 at 12 x 320x800, vanilla feature
+    distillation, reweight_score, top-k 64) split into teacher forward,
+    student forward and loss, backward and AdamW (launches a step
+    MIX_STEP_LAUNCHES, cam_overflow 0 for the student's and the guided
+    decode's queries); distill_plain on it; K4 at its distill shapes
+    against the plain version (kernel_hungarian_distill); one step of
+    the MobileNetV2 student's bundle and of R50 -> R50 at 640x1600 (K2
+    backward on the student); the distill CLIs chained. Returns
+    (launches, K4's distill records)."""
+    t0 = time.perf_counter()
+    total = dict.fromkeys(launch_counts(), 0)
+    records = {}
+    for name, steps, want in (
+            (DISTILL_BUNDLE, DISTILL_STEPS, MIX_STEP_LAUNCHES),
+            (DISTILL_M2_BUNDLE, 1, MIX_STEP_LAUNCHES),
+            (DISTILL_R50_BUNDLE, 1, R50_DISTILL_STEP_LAUNCHES)):
+        bundle = get_distill_config(name)
+        rec, launches, calls, square = distill_step_record(name, bundle,
+                                                           steps, want)
+        add_counts(total, launches)
+        if name == DISTILL_BUNDLE:
+            hungarian = kernel_hungarian_distill(dev, calls, square)
+            rec["distill_plain"] = distill_plain(bundle)
+        records[name] = rec
+        torch.cuda.empty_cache()
+    records["clis"], cli_launches = distill_clis()
+    add_counts(total, cli_launches)
+    emit({"phase": "distill", "bundles": records,
+          "seconds": time.perf_counter() - t0})
+    return total, hungarian
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3458,11 +3901,16 @@ def main():
     camaware_launches = phase_camaware()
     torch.cuda.empty_cache()
     http_launches = phase_http(cfg, sd)
+    torch.cuda.empty_cache()
+    backbone_launches = phase_backbones()
+    torch.cuda.empty_cache()
+    distill_launches, kernels["hungarian"]["distill"] = phase_distill(dev)
 
     paths = {**serving, "serve_int8": int8_launches, "train": train_launches,
              "data": data_launches, "lidar": lidar_launches, "iou": iou_launches,
              "lidar_grad": lidar_grad_launches, "hdetr": hdetr_launches,
-             "camaware": camaware_launches, "http": http_launches}
+             "camaware": camaware_launches, "http": http_launches,
+             "backbones": backbone_launches, "distill": distill_launches}
     serving_total = {k: sum(c[k] for c in serving.values())
                      for k in serve_launches}
     table = []
@@ -3488,7 +3936,9 @@ def main():
          "graph_detr4d_tpu/ops/hungarian.py:95", train_launches,
          "one call on uniform random costs, 6 problems of 128 x 900 with "
          "num_valid 0-128 (train_costs_ms: the train step's own costs, 40 "
-         "valid rows of 128)"),
+         "valid rows of 128; distill_ms: a distill step's soft matching, "
+         "12 problems of 64 x 900; distill_all_rows_ms: one of 900 x 900 "
+         "from the same step)"),
         ("deform_conv_int8_forward",
          "graph_detr4d_tpu_torch/csrc/deform_conv_int8.cu",
          "graph_detr4d_tpu/ops/deform_conv.py:259", int8_launches,
@@ -3534,6 +3984,12 @@ def main():
             row["gemm_ref_ms"] = k["gemm_ref_ms"]
         if "pytorch_backward_ms" in k:
             row["pytorch_backward_ms"] = k["pytorch_backward_ms"]
+        if "distill" in k:  # K4 at the distill shapes, kernel and plain
+            for label, rec in k["distill"].items():
+                tag = "distill" if label == "top_k" else f"distill_{label}"
+                for key in ("shape", "ms", "plain_ms", "bound_ms",
+                            "longest_steps"):
+                    row[f"{tag}_{key}"] = rec[key]
         if "train_costs" in k:
             row["train_costs_ms"] = k["train_costs"]["ms"]
             row["longest_steps"] = k["longest_steps"]

@@ -5,15 +5,20 @@ whose every feature the port runs (`get_config`, `apply_overrides` and the
 `_detr4d` helper): the detr4d `deform_pe` family, the plain head
 (with_pe False), the MP, DETR3D and DETR3D-v2 cross-attentions, the
 single-frame 6-camera models, H-DETR's hybrid matching, the camera-aware
-heads (DepthNet, the camconv gate, scale_pred) and the ResNet-18 student,
-with the train-pipeline variants (`*_aug`, `resize_scales`) that
-data/pipeline.py::build_batch runs. Names and
-values are the JAX registry's (tests/test_torch_weights.py and
+heads (DepthNet, the camconv gate, scale_pred), the VoVNet detectors and
+the ResNet-18 and MobileNetV2 students, with the train-pipeline variants
+(`*_aug`, `resize_scales`) that data/pipeline.py::build_batch runs. Names
+and values are the JAX registry's (tests/test_torch_weights.py and
 tests/test_torch_data.py hold them equal).
+
+Also the distillation bundles (`get_distill_config`, `DistillBundle`, the
+18 `register_distill` entries of the JAX registry), held equal to JAX's
+field for field by tests/test_torch_distill_cli.py.
 
     from graph_detr4d_tpu_torch.configs import get_config
     cfg = get_config("detr4d_res50_deform_pe_testaug_2subset_12e",
                      overrides=["head.num_query=600"])
+    bundle = get_distill_config("mixdistill_r50_r18_cls_reg_img")
 """
 
 import ast
@@ -314,4 +319,266 @@ def detr4d_r18():
         cfg,
         backbone=BackboneConfig(depth=18, use_dcn=False),
         neck=NeckConfig(in_channels=(64, 128, 256, 512)),
+    )
+
+
+@register("detr4d_vovnet")
+def detr4d_vovnet_plain():
+    """VoVNet backbone, plain head, single-point attention
+    (configs/detr4d/detr4d_vovnet.py)."""
+    cfg = _detr4d(with_pe=False, attn_type="detr3d")
+    return dataclasses.replace(
+        cfg,
+        backbone_type="vovnet",
+        neck=NeckConfig(in_channels=(256, 512, 768, 1024)),
+    )
+
+
+@register("detr4d_vovnet_deform")
+def detr4d_vovnet():
+    """The flagship's head on VoVNet V-99-eSE."""
+    cfg = _detr4d()
+    return dataclasses.replace(
+        cfg,
+        backbone_type="vovnet",
+        neck=NeckConfig(in_channels=(256, 512, 768, 1024)),
+    )
+
+
+@register("detr4d_m2_deform_pe_testaug_320_fullset")
+def detr4d_m2():
+    """MobileNetV2 student (configs/detr4d/detr4d_m2_..._fullset.py:51)."""
+    cfg = _detr4d(img_size=(320, 800))
+    return dataclasses.replace(
+        cfg,
+        backbone_type="mobilenetv2",
+        backbone=BackboneConfig(out_indices=(2, 4, 7)),
+        neck=NeckConfig(in_channels=(32, 96, 1280), start_level=0),
+    )
+
+
+# ------------------------------------------------------------- distill
+@dataclasses.dataclass(frozen=True)
+class DistillBundle:
+    """Teacher and student configs and the distill loss switches, the
+    semantic content of the reference's projects/distill_cfg/*: the
+    cls / reg / img / reweight / mix switch matrix."""
+
+    teacher: ModelConfig
+    student: ModelConfig
+    distill_cls: bool = True
+    distill_reg: bool = True
+    distill_feat: bool = False
+    feat_mode: str = "vanilla"  # 'vanilla' | 'attention'
+    reweight_score: bool = False
+    mix: bool = False  # MixDistill teacher-query guided decode
+    # loss weights; None derives them from the booleans (cls 1.0, reg
+    # 0.25, feat 1.0); the named ablations set the reference's literals
+    cls_weight: Optional[float] = None
+    reg_weight: Optional[float] = None
+    feat_weight: Optional[float] = None
+
+    @property
+    def effective_cls_weight(self) -> float:
+        if self.cls_weight is not None:
+            return self.cls_weight
+        return 1.0 if self.distill_cls else 0.0
+
+    @property
+    def effective_reg_weight(self) -> float:
+        if self.reg_weight is not None:
+            return self.reg_weight
+        return 0.25 if self.distill_reg else 0.0
+
+    @property
+    def effective_feat_weight(self) -> float:
+        return 1.0 if self.feat_weight is None else self.feat_weight
+
+    # the soft-GT rows: the top-K teacher queries by max sigmoid score;
+    # None takes all of them (distill_train's --teacher-top-k overrides)
+    teacher_top_k: Optional[int] = 64
+
+
+_DISTILL: Dict[str, Callable[[], DistillBundle]] = {}
+
+
+def register_distill(name: str):
+    def deco(fn):
+        _DISTILL[name] = fn
+        return fn
+
+    return deco
+
+
+def list_distill_configs():
+    return sorted(_DISTILL)
+
+
+def _pin_distill_safe_msda(cfg: ModelConfig) -> ModelConfig:
+    """The JAX registry pins both models of a bundle to msda_impl
+    'gather4', a TPU sampling layout; the port ignores the field and keeps
+    the pin so that its bundles equal JAX's field for field."""
+    return dataclasses.replace(
+        cfg, head=dataclasses.replace(cfg.head, msda_impl="gather4")
+    )
+
+
+def get_distill_config(name: str) -> DistillBundle:
+    if name not in _DISTILL:
+        raise KeyError(
+            f"unknown distill config {name!r}; available: "
+            f"{', '.join(list_distill_configs())}"
+        )
+    b = _DISTILL[name]()
+    return dataclasses.replace(
+        b,
+        teacher=_pin_distill_safe_msda(b.teacher),
+        student=_pin_distill_safe_msda(b.student),
+    )
+
+
+def _r50_r18(**kw):
+    return DistillBundle(
+        teacher=get_config("detr4d_res50_deform_pe_testaug_320_800"),
+        student=get_config("detr4d_res18_deform_pe_testaug_320_2subset"),
+        **kw,
+    )
+
+
+@register_distill("distill_r50_r18_cls_2subset")
+def d_cls():
+    return _r50_r18(distill_cls=True, distill_reg=False)
+
+
+@register_distill("distill_r50_r18_cls_reg_2subset")
+def d_cls_reg():
+    # the reference's literal weights: cls 1.0, reg 1.0
+    # (distill_r50_r18_cls_reg_2subset.py:12)
+    return _r50_r18(reg_weight=1.0)
+
+
+@register_distill("distill_r50_r18_reg_2subset")
+def d_reg():
+    """reg-only instance distill (distill_r50_r18_reg_2subset.py:12)."""
+    return _r50_r18(distill_cls=False, reg_weight=1.0)
+
+
+@register_distill("distill_r50_r18_cls_reweight_2subset")
+def d_cls_rw():
+    """cls-only with reweight_score, which touches only the reg term
+    (detr3d_head_pe.py:907-911): inert here, kept for the name."""
+    return _r50_r18(distill_reg=False, reweight_score=True)
+
+
+@register_distill("distill_r50_r18_reg_reweight_2subset")
+def d_reg_rw():
+    # reg L1 0.25 with reweight_score (distill_r50_r18_reg_reweight_2subset.py:17-19)
+    return _r50_r18(distill_cls=False, reweight_score=True)
+
+
+@register_distill("distill_r50_r18_img_2subset")
+def d_img():
+    # feature distill, weight 1.0 (distill_r50_r18_img_2subset.py:18)
+    return _r50_r18(distill_cls=False, distill_reg=False, distill_feat=True)
+
+
+@register_distill("distill_r50_r18_img001_2subset")
+def d_img001():
+    """vanilla feature distill at weight 0.01
+    (distill_r50_r18_img001_2subset_ceph.py:17-18)."""
+    return _r50_r18(
+        distill_cls=False,
+        distill_reg=False,
+        distill_feat=True,
+        feat_weight=0.01,
+    )
+
+
+@register_distill("distill_r50_r18_img_att_2subset")
+def d_img_att():
+    # attention feature distill, weight 1e-3 (distill_r50_r18_img_att_2subset.py:19)
+    return _r50_r18(
+        distill_cls=False,
+        distill_reg=False,
+        distill_feat=True,
+        feat_mode="attention",
+        feat_weight=1e-3,
+    )
+
+
+@register_distill("distill_r50_r18_img_att_5e3_2subset")
+def d_img_att_5e3():
+    """attention feature distill at weight 5e-3
+    (distill_r50_r18_img_att_5e3_2subset.py:16)."""
+    return _r50_r18(
+        distill_cls=False,
+        distill_reg=False,
+        distill_feat=True,
+        feat_mode="attention",
+        feat_weight=5e-3,
+    )
+
+
+@register_distill("distill_r50_r18_none_2subset")
+def d_none():
+    """No distill loss: the student baseline under the distill runner
+    (distill_r50_r18_none_2subset_ceph.py)."""
+    return _r50_r18(distill_cls=False, distill_reg=False, distill_feat=False)
+
+
+# MixDistill defaults reweight_score=True (mix_distill.py:23); the *_wore
+# ablations (without reweight) set it False
+@register_distill("mixdistill_r50_r18_cls_2subset")
+def md_cls():
+    return _r50_r18(mix=True, distill_reg=False, reweight_score=True)
+
+
+@register_distill("mixdistill_r50_r18_cls_wore_2subset")
+def md_cls_wore():
+    return _r50_r18(mix=True, distill_reg=False, reweight_score=False)
+
+
+@register_distill("mixdistill_r50_r18_reg_2subset")
+def md_reg():
+    return _r50_r18(mix=True, distill_cls=False, reweight_score=True)
+
+
+@register_distill("mixdistill_r50_r18_reg_wore_2subset")
+def md_reg_wore():
+    return _r50_r18(mix=True, distill_cls=False, reweight_score=False)
+
+
+@register_distill("mixdistill_r50_r18_cls_reg_2subset")
+def md_cls_reg():
+    return _r50_r18(mix=True, reweight_score=True)
+
+
+@register_distill("mixdistill_r50_r18_cls_reg_img")
+def md_cls_reg_img():
+    # vanilla feature distill, weight 0.1 (mixdistill_r50_r18_cls_reg_img_ceph.py:17)
+    return _r50_r18(
+        mix=True, distill_feat=True, feat_weight=0.1, reweight_score=True
+    )
+
+
+@register_distill("detr4d_r50_distill_r50_1x")
+def d_r50_r50():
+    """A trained R50 teacher and a fresh R50 student, both the flagship
+    (configs/distillers/objdgcnn_Gdetr4d_r50_distill_Gdetr4d_r50_1x_*: the
+    'objdgcnn' of the name is vestigial)."""
+    flagship = get_config("detr4d_res50_deform_pe_testaug_2subset_12e")
+    return DistillBundle(teacher=flagship, student=flagship)
+
+
+@register_distill("mixdistill_r50_m2_cls_reg_img")
+def md_m2():
+    # vanilla feature distill 0.1 with MixDistill's reweight_score
+    # (mixdistill_r50_m2_cls_reg_img_ceph.py:17)
+    return DistillBundle(
+        teacher=get_config("detr4d_res50_deform_pe_testaug_320_800"),
+        student=get_config("detr4d_m2_deform_pe_testaug_320_fullset"),
+        mix=True,
+        distill_feat=True,
+        feat_weight=0.1,
+        reweight_score=True,
     )

@@ -1,6 +1,6 @@
 """GraphDETR4D detector: grid mask -> backbone -> FPN -> head
-(counterpart of graph_detr4d_tpu/models/detector.py with a ResNet backbone
-and the `detr4d_pe` head, with or without its 3D position embedding, with
+(counterpart of graph_detr4d_tpu/models/detector.py with a ResNet, VoVNet
+or MobileNetV2 backbone and the `detr4d_pe` head, with or without its 3D position embedding, with
 any of the cross-attentions of models/transformer.py, H-DETR's one2many
 query group and the camera-aware options of models/head.py). The grid mask
 and dropout apply only in training (detr3d.py:53-54), drawn from the
@@ -20,8 +20,10 @@ from ..utils.device import resolve_device
 from .fpn import FPN
 from .grid_mask import apply_grid_mask, grid_mask_params
 from .head import Detr3DHeadPE
+from .mobilenet import MobileNetV2
 from .resnet import ResNet
 from .transformer import ATTN_TYPES
+from .vovnet import VoVNet
 
 
 # the batch entries a model takes besides images and lidar2img: scale_pred's
@@ -35,12 +37,29 @@ def model_extras(batch: dict) -> dict:
     return {k: batch[k] for k in MODEL_EXTRAS if batch.get(k) is not None}
 
 
+BACKBONE_TYPES = ("resnet", "vovnet", "mobilenetv2")
+
+
+def build_backbone(cfg: ModelConfig) -> nn.Module:
+    """The backbone of cfg.backbone_type (the JAX detector's setup,
+    detector.py:31-56): VoVNet (cfg.vovnet_spec, remat), MobileNetV2, or
+    ResNet for any other type."""
+    b = cfg.backbone
+    if cfg.backbone_type == "vovnet":
+        return VoVNet(cfg.vovnet_spec, b.out_indices, remat=b.remat)
+    if cfg.backbone_type == "mobilenetv2":
+        return MobileNetV2(b.out_indices)
+    return ResNet(depth=b.depth, out_indices=b.out_indices,
+                  stage_with_dcn=b.stage_with_dcn, use_dcn=b.use_dcn,
+                  dcn_gather=b.dcn_gather)
+
+
 def check_supported(cfg: ModelConfig):
     """Raise for the config features this slice of the port does not run."""
     h = cfg.head
     unsupported = {
         "head_type": cfg.head_type != "detr4d_pe",
-        "backbone_type": cfg.backbone_type != "resnet",
+        "backbone_type": cfg.backbone_type not in BACKBONE_TYPES,
         "head.attn_type": h.attn_type not in ATTN_TYPES,
         "head.fpe_type": h.fpe_type not in ("se", "camconv"),
         "neck.cp": cfg.neck.cp,
@@ -60,13 +79,7 @@ class GraphDETR4D(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.dtype = torch.bfloat16 if cfg.bf16 else torch.float32
-        self.img_backbone = ResNet(
-            depth=cfg.backbone.depth,
-            out_indices=cfg.backbone.out_indices,
-            stage_with_dcn=cfg.backbone.stage_with_dcn,
-            use_dcn=cfg.backbone.use_dcn,
-            dcn_gather=cfg.backbone.dcn_gather,
-        )
+        self.img_backbone = build_backbone(cfg)
         self.img_neck = FPN(
             in_channels=cfg.neck.in_channels,
             out_channels=cfg.neck.out_channels,
@@ -100,14 +113,17 @@ class GraphDETR4D(nn.Module):
         ]
 
     def forward_feats(self, feats, lidar2img: torch.Tensor, generator=None,
-                      depth_factors=None, intrinsics=None, ida_scale=None):
+                      depth_factors=None, intrinsics=None, ida_scale=None,
+                      teacher_query_embed=None):
         """Head-only forward over precomputed camera features. The extras
         (depth_factors (B,), intrinsics (B, N, 4, 4), ida_scale (B, N))
         reach the heads that read them: scale_pred and the camera-aware
-        head."""
+        head. teacher_query_embed: MixDistill's (Qt, 2C) teacher query
+        table, decoded a second time (models/head.py)."""
         return self.pts_bbox_head(feats, lidar2img, generator,
                                   depth_factors=depth_factors,
-                                  intrinsics=intrinsics, ida_scale=ida_scale)
+                                  intrinsics=intrinsics, ida_scale=ida_scale,
+                                  teacher_query_embed=teacher_query_embed)
 
     def aug_forward(self, images_list, lidar2img, **extras):
         """Test-time augmentation (graph_detr4d_tpu/models/detector.py:
@@ -129,12 +145,12 @@ class GraphDETR4D(nn.Module):
 
     def forward(self, images: torch.Tensor, lidar2img: torch.Tensor,
                 train: bool = False, generator=None, depth_factors=None,
-                intrinsics=None, ida_scale=None):
+                intrinsics=None, ida_scale=None, teacher_query_embed=None):
         """images (B, N, H, W, 3) normalized (raw pixels with
         cfg.device_normalize); lidar2img (B, N, 4, 4). train=True draws the
         grid mask and dropout from `generator`, a torch.Generator on the
-        model's device; eval ignores it. depth_factors, intrinsics and
-        ida_scale: see forward_feats."""
+        model's device; eval ignores it. depth_factors, intrinsics,
+        ida_scale and teacher_query_embed: see forward_feats."""
         if not train:
             generator = None
         elif generator is None:
@@ -143,4 +159,5 @@ class GraphDETR4D(nn.Module):
         return self.forward_feats(self.extract_feats(images, generator),
                                   lidar2img, generator,
                                   depth_factors=depth_factors,
-                                  intrinsics=intrinsics, ida_scale=ida_scale)
+                                  intrinsics=intrinsics, ida_scale=ida_scale,
+                                  teacher_query_embed=teacher_query_embed)

@@ -27,6 +27,12 @@ Options of the head family:
     `fpe_type='camconv'` swaps the SE gate on the PE for SELayerCAMConv.
   * `scale_pred`: the decoded centres are multiplied by `depth_factors`
     (:592-595) when the caller passes them.
+  * MixDistill (`teacher_query_embed`, mix_distill.py:102,
+    detr3d_head_pe.py:617-671): a second pass of the whole decoder over the
+    teacher's (Qt, 2C) query table, detached, with no self-attention mask,
+    sharing the student's layers, branches and reference-point
+    projection; returned as `all_cls_scores_guided` /
+    `all_bbox_preds_guided` with its own `cam_overflow_guided`.
 """
 
 from typing import Sequence, Tuple
@@ -156,16 +162,61 @@ class Detr3DHeadPE(nn.Module):
                          device=device) >= cfg.num_query
         return g[:, None] == g[None, :]
 
+    def decode(self, query_embed, value, shapes, lidar2img, generator,
+               attn_mask, df):
+        """The decoder stack with iterative box refinement on a (Qx, 2C)
+        query table: (cls (layers, B, Qx, classes), boxes (layers, B, Qx,
+        code), cam_overflow)."""
+        cfg = self.cfg
+        B, dtype = value.shape[0], value.dtype
+        query_pos, query = query_embed.split(cfg.embed_dims, dim=1)
+        query_pos = query_pos[None].to(dtype).expand(B, -1, -1)
+        query = query[None].to(dtype).expand(B, -1, -1)
+        reference_points = torch.sigmoid(
+            self.transformer.reference_points(query_pos.float())
+        )
+
+        pc = cfg.pc_range
+        cls_scores, bbox_preds, overflow = [], [], 0.0
+        for lid, layer in enumerate(self.transformer.decoder.layers):
+            query, ov = layer(query, query_pos, value, shapes,
+                              reference_points, lidar2img, self.img_shape,
+                              generator, attn_mask)
+            overflow = overflow + ov
+            score = self.cls_branches[lid](query)
+            tmp = self.reg_branches[lid](query).float()
+
+            ref = inverse_sigmoid(reference_points)
+            xy = torch.sigmoid(tmp[..., 0:2] + ref[..., 0:2])
+            z = torch.sigmoid(tmp[..., 4:5] + ref[..., 2:3])
+            cx = xy[..., 0:1] * (pc[3] - pc[0]) + pc[0]
+            cy = xy[..., 1:2] * (pc[4] - pc[1]) + pc[1]
+            cz = z * (pc[5] - pc[2]) + pc[2]
+            if df is not None:
+                cx, cy, cz = cx * df, cy * df, cz * df
+            bbox_preds.append(
+                torch.cat([cx, cy, tmp[..., 2:4], cz, tmp[..., 5:]], dim=-1)
+            )
+            cls_scores.append(score.float())
+            # iterative refinement (detr3d_transformer.py:201-214)
+            reference_points = torch.cat([xy, z], dim=-1).detach()
+        return torch.stack(cls_scores), torch.stack(bbox_preds), overflow
+
     def forward(self, mlvl_feats, lidar2img, generator=None,
-                depth_factors=None, intrinsics=None, ida_scale=None):
+                depth_factors=None, intrinsics=None, ida_scale=None,
+                teacher_query_embed=None):
         """mlvl_feats: L x (B, N, H, W, C) in the compute dtype;
         lidar2img (B, N, 4, 4); generator: dropout's random source in
         training, None in eval; depth_factors (B,) for scale_pred;
         intrinsics (B, N, 4, 4) and ida_scale (B, N) for the camera-aware
-        head (absent: the identity and ones, as the JAX head). Returns
-        {'all_cls_scores' (layers, B, Q, classes), 'all_bbox_preds'
-        (layers, B, Q, code), 'cam_overflow'}, and with a one2many group
-        'all_cls_scores_one2many' / 'all_bbox_preds_one2many'.
+        head (absent: the identity and ones, as the JAX head);
+        teacher_query_embed: MixDistill's (Qt, 2C) teacher query table, or
+        None. Returns {'all_cls_scores' (layers, B, Q, classes),
+        'all_bbox_preds' (layers, B, Q, code), 'cam_overflow'}, with a
+        one2many group 'all_cls_scores_one2many' /
+        'all_bbox_preds_one2many', and with teacher_query_embed
+        'all_cls_scores_guided' / 'all_bbox_preds_guided' (layers, B, Qt,
+        .) and 'cam_overflow_guided'.
         """
         cfg = self.cfg
         dtype = mlvl_feats[0].dtype
@@ -208,50 +259,29 @@ class Detr3DHeadPE(nn.Module):
             shapes.append((H, W))
         value = torch.cat(feats_pe, dim=2)  # (B, N, sum H*W, C)
 
-        C = cfg.embed_dims
-        query_pos, query = self.query_embedding.weight.split(C, dim=1)
-        query_pos = query_pos[None].to(dtype).expand(B, -1, -1)
-        query = query[None].to(dtype).expand(B, -1, -1)
-        reference_points = torch.sigmoid(
-            self.transformer.reference_points(query_pos.float())
-        )
-
-        pc = cfg.pc_range
         attn_mask = self.self_attn_mask(dev)
         df = (None if not cfg.scale_pred or depth_factors is None
               else depth_factors.float()[:, None, None])
-        cls_scores, bbox_preds, overflow = [], [], 0.0
-        for lid, layer in enumerate(self.transformer.decoder.layers):
-            query, ov = layer(query, query_pos, value, shapes,
-                              reference_points, lidar2img, self.img_shape,
-                              generator, attn_mask)
-            overflow = overflow + ov
-            score = self.cls_branches[lid](query)
-            tmp = self.reg_branches[lid](query).float()
-
-            ref = inverse_sigmoid(reference_points)
-            xy = torch.sigmoid(tmp[..., 0:2] + ref[..., 0:2])
-            z = torch.sigmoid(tmp[..., 4:5] + ref[..., 2:3])
-            cx = xy[..., 0:1] * (pc[3] - pc[0]) + pc[0]
-            cy = xy[..., 1:2] * (pc[4] - pc[1]) + pc[1]
-            cz = z * (pc[5] - pc[2]) + pc[2]
-            if df is not None:
-                cx, cy, cz = cx * df, cy * df, cz * df
-            bbox_preds.append(
-                torch.cat([cx, cy, tmp[..., 2:4], cz, tmp[..., 5:]], dim=-1)
-            )
-            cls_scores.append(score.float())
-            # iterative refinement (detr3d_transformer.py:201-214)
-            reference_points = torch.cat([xy, z], dim=-1).detach()
-        all_cls, all_bbox = torch.stack(cls_scores), torch.stack(bbox_preds)
+        all_cls, all_bbox, overflow = self.decode(
+            self.query_embedding.weight, value, shapes, lidar2img, generator,
+            attn_mask, df)
         if attn_mask is None:
-            return {"all_cls_scores": all_cls, "all_bbox_preds": all_bbox,
-                    "cam_overflow": overflow}
-        q1 = cfg.num_query  # the groups split (h_detr3d_head_pe.py:361-364)
-        return {
-            "all_cls_scores": all_cls[:, :, :q1],
-            "all_bbox_preds": all_bbox[:, :, :q1],
-            "all_cls_scores_one2many": all_cls[:, :, q1:],
-            "all_bbox_preds_one2many": all_bbox[:, :, q1:],
-            "cam_overflow": overflow,
-        }
+            out = {"all_cls_scores": all_cls, "all_bbox_preds": all_bbox,
+                   "cam_overflow": overflow}
+        else:
+            q1 = cfg.num_query  # the groups split (h_detr3d_head_pe.py:361-364)
+            out = {
+                "all_cls_scores": all_cls[:, :, :q1],
+                "all_bbox_preds": all_bbox[:, :, :q1],
+                "all_cls_scores_one2many": all_cls[:, :, q1:],
+                "all_bbox_preds_one2many": all_bbox[:, :, q1:],
+                "cam_overflow": overflow,
+            }
+        if teacher_query_embed is not None:
+            g_cls, g_bbox, g_overflow = self.decode(
+                teacher_query_embed.detach(), value, shapes, lidar2img,
+                generator, None, df)
+            out.update(all_cls_scores_guided=g_cls,
+                       all_bbox_preds_guided=g_bbox,
+                       cam_overflow_guided=g_overflow)
+        return out

@@ -148,6 +148,13 @@ class ResNet(nn.Module):
             self.add_module(f"layer{stage + 1}", nn.Sequential(*blocks))
             width *= 2
 
+    @staticmethod
+    def is_frozen(name: str) -> bool:
+        """The JAX optimizer's frozen rule (train/optim.py:35-45: a path
+        naming `stem` or `layer1`) on a parameter name relative to the
+        backbone: the stem (`conv1`, `bn1`) and `layer1`."""
+        return name.split(".")[0] in ("conv1", "bn1", "layer1")
+
     def forward(self, x):
         """x: (B, 3, H, W) -> list of (B, C, H/4..H/32, W/4..W/32)."""
         x = F.relu(self.bn1(self.conv1(x)))

@@ -7,10 +7,16 @@ backbone lr x0.1, gradients clipped to a global L2 norm of 35, cosine
 annealing to min_lr_ratio 1e-3 after a 500-step linear warmup from 1/3,
 evaluated at the 0-based update count as optax does.
 
-The frozen stages (frozen_stages=1: the stem and layer1) follow the JAX
-step, not upstream: their parameters keep requires_grad, so their
-gradients enter the clip norm and `grad_norm`, and only their update is
-zero (they are left out of the optimizer, optax's `set_to_zero`).
+The frozen parameters follow the JAX step, not upstream: their
+parameters keep requires_grad, so their gradients enter the clip norm and
+`grad_norm`, and only their update is zero (they are left out of the
+optimizer, optax's `set_to_zero`). Which they are is the JAX rule
+(train/optim.py:35-45): in the backbone, every parameter whose path names
+`stem` or `layer1`. Each backbone class states that rule on its own
+parameter names (`is_frozen`): ResNet's stem and layer1, VoVNet's stem
+and every OSA block's second conv, MobileNetV2's stem. A parameter is a
+backbone's wherever `img_backbone` is one of its name's parts, so a
+Distiller's `student.img_backbone.*` is labelled as the bare model's.
 """
 
 import math
@@ -19,8 +25,9 @@ from typing import Dict, List
 import torch
 
 from ..config import TrainConfig
+from ..models.resnet import ResNet
 
-FROZEN_MODULES = ("conv1", "bn1", "layer1")  # of img_backbone
+BACKBONE = "img_backbone"
 
 
 def lr_factor(cfg: TrainConfig, step: int) -> float:
@@ -33,21 +40,38 @@ def lr_factor(cfg: TrainConfig, step: int) -> float:
     return warm * cos
 
 
-def param_label(name: str) -> str:
-    """'frozen' (stem, layer1), 'backbone' (lr x0.1) or 'main', by the
-    reference's parameter name."""
+def param_label(name: str, is_frozen=ResNet.is_frozen) -> str:
+    """'frozen', 'backbone' (lr x0.1) or 'main', by the reference's
+    parameter name; `is_frozen` is the backbone class's rule on names
+    relative to it (default ResNet's)."""
     parts = name.split(".")
-    if parts[0] == "img_backbone":
-        return "frozen" if parts[1] in FROZEN_MODULES else "backbone"
-    return "main"
+    if BACKBONE not in parts:
+        return "main"
+    rel = ".".join(parts[parts.index(BACKBONE) + 1:])
+    return "frozen" if is_frozen(rel) else "backbone"
+
+
+def param_labels(model: torch.nn.Module) -> Dict[str, str]:
+    """{parameter name: param_label} for every parameter of `model`, each
+    backbone's parameters under that backbone class's rule."""
+    rules = {name + ".": type(m).is_frozen
+             for name, m in model.named_modules()
+             if name.split(".")[-1] == BACKBONE}
+    labels = {}
+    for name, _ in model.named_parameters():
+        rule = next((r for prefix, r in rules.items()
+                     if name.startswith(prefix)), ResNet.is_frozen)
+        labels[name] = param_label(name, rule)
+    return labels
 
 
 def build_optimizer(model: torch.nn.Module, cfg: TrainConfig):
     """(AdamW over the backbone and main groups, its LambdaLR schedule)."""
     groups: Dict[str, List[torch.nn.Parameter]] = {
         "frozen": [], "backbone": [], "main": []}
+    labels = param_labels(model)
     for name, p in model.named_parameters():
-        groups[param_label(name)].append(p)
+        groups[labels[name]].append(p)
     optimizer = torch.optim.AdamW(
         [{"params": groups["backbone"], "lr": cfg.lr * cfg.backbone_lr_mult},
          {"params": groups["main"], "lr": cfg.lr}],

@@ -5,10 +5,16 @@ own seeded initialisation.
 arrays ({'params': ..., 'batch_stats': ...}) and returns a state_dict under
 the reference's names (`img_backbone.*`, `img_neck.*`, `pts_bbox_head.*`),
 key for key and value for value what
-tools/convert_checkpoint.py::export_state_dict writes. The port's modules
-load it with `strict=True`, as they load a published mmdet3d checkpoint.
+tools/convert_checkpoint.py::export_state_dict writes (for the VoVNet and
+MobileNetV2 backbones, which export_state_dict does not map, the names
+convert_state_dict reads back). The port's modules load it with
+`strict=True`, as they load a published mmdet3d checkpoint.
 The part mappers (`backbone_state_dict`, `cross_attn_state_dict`, ...)
 map one flax subtree to names relative to the matching port module.
+
+`distiller_state_dict_from_jax(variables)` does the same for a
+`distill/distiller.py::Distiller` (the student under `student.`, the
+lateral convs under the port module's names).
 
 `obj_dgcnn_state_dict_from_jax(variables)` does the same for the LiDAR
 detector `models/dgcnn.py::ObjDGCNN`, under names that mirror the JAX tree
@@ -113,6 +119,65 @@ def backbone_state_dict(params, stats):
             w.conv(src + ["downsample_conv"], f"{dst}.downsample.0")
             w.bn(src + ["downsample_bn"], f"{dst}.downsample.1")
     return w.sd
+
+
+def vovnet_state_dict(params, stats):
+    """flax VoVNet subtree -> the reference's names
+    (`stem.stem_1/conv.weight`, `stage3.OSA3_1.layers.0.OSA3_1_0/conv.weight`,
+    `...concat.OSA3_1_concat/norm.*`, `...ese.fc.*`; blocks 1-based), as
+    tools/convert_checkpoint.py::convert_state_dict reads them."""
+    w = _Writer(params, stats)
+    for k in (1, 2, 3):
+        w.conv([f"stem{k}_conv"], f"stem.stem_{k}/conv")
+        w.bn([f"stem{k}_bn"], f"stem.stem_{k}/norm")
+    for s in range(2, 6):
+        b = 0
+        while f"stage{s}_osa{b}" in params:
+            src, mod = [f"stage{s}_osa{b}"], f"OSA{s}_{b + 1}"
+            dst = f"stage{s}.{mod}"
+            i = 0
+            while f"layer{i}_conv" in params[src[0]]:
+                w.conv(src + [f"layer{i}_conv"],
+                       f"{dst}.layers.{i}.{mod}_{i}/conv")
+                w.bn(src + [f"layer{i}_bn"], f"{dst}.layers.{i}.{mod}_{i}/norm")
+                i += 1
+            w.conv(src + ["concat_conv"], f"{dst}.concat.{mod}_concat/conv")
+            w.bn(src + ["concat_bn"], f"{dst}.concat.{mod}_concat/norm")
+            w.conv(src + ["ese", "fc"], f"{dst}.ese.fc", bias=True)
+            b += 1
+    return w.sd
+
+
+def mobilenet_state_dict(params, stats):
+    """flax MobileNetV2 subtree -> mmdet's names (`conv1.conv`,
+    `layer{s+1}.{b}.conv.{i}.conv|bn` for flax `stage{s}_block{b}`,
+    `conv2.conv|bn`), as convert_state_dict reads them."""
+    w = _Writer(params, stats)
+    w.conv(["stem"], "conv1.conv")
+    w.bn(["stem_bn"], "conv1.bn")
+    for name in params:
+        if not name.startswith("stage"):
+            continue
+        s, b = (int(x) for x in name[len("stage"):].split("_block"))
+        parts = [p for p in ("expand", "dw", "project") if p in params[name]]
+        for i, part in enumerate(parts):
+            dst = f"layer{s + 1}.{b}.conv.{i}"
+            w.conv([name, part], dst + ".conv")
+            w.bn([name, part + "_bn"], dst + ".bn")
+    if "conv2" in params:
+        w.conv(["conv2"], "conv2.conv")
+        w.bn(["conv2_bn"], "conv2.bn")
+    return w.sd
+
+
+def any_backbone_state_dict(params, stats):
+    """A flax backbone subtree of any type (told by its keys) -> the
+    reference's names."""
+    if "stem1_conv" in params:
+        return vovnet_state_dict(params, stats)
+    if "stem" in params:
+        return mobilenet_state_dict(params, stats)
+    return backbone_state_dict(params, stats)
 
 
 def neck_state_dict(params):
@@ -261,12 +326,30 @@ def state_dict_from_jax(variables) -> "OrderedDict[str, torch.Tensor]":
     """Full GraphDETR4D flax variables -> reference-named state_dict."""
     params, stats = variables["params"], variables["batch_stats"]
     sd = OrderedDict()
-    sd.update(_prefixed("img_backbone.", backbone_state_dict(
+    sd.update(_prefixed("img_backbone.", any_backbone_state_dict(
         params["backbone"], stats["backbone"])))
     sd.update(_prefixed("img_neck.", neck_state_dict(params["neck"])))
     sd.update(_prefixed("pts_bbox_head.", head_state_dict(
         params["head"], stats.get("head"))))
     return to_torch(sd)
+
+
+def distiller_state_dict_from_jax(variables) -> "OrderedDict[str, torch.Tensor]":
+    """flax Distiller variables (distill/distiller.py of the JAX package:
+    `student`, `lateral{i}`) -> the port's Distiller state_dict: the
+    student's reference-layout dict under `student.`, then
+    `lateral_convs.{i}.weight` / `.bias`. The JAX tools map no distiller
+    names; the laterals take the port module's."""
+    params, stats = variables["params"], variables["batch_stats"]
+    sd = _prefixed("student.", state_dict_from_jax(
+        {"params": params["student"], "batch_stats": stats["student"]}))
+    w = _Writer(params)
+    i = 0
+    while f"lateral{i}" in params:
+        w.conv([f"lateral{i}"], f"lateral_convs.{i}", bias=True)
+        i += 1
+    sd.update(to_torch(w.sd))
+    return sd
 
 
 def dgcnn_attn_state_dict(params, stats):

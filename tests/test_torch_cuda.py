@@ -482,6 +482,33 @@ def test_hungarian_kernel_takes_the_hdetr_one2many_shape(cuda):
 
 
 @pytest.mark.cuda
+def test_hungarian_kernel_takes_the_distill_shapes(cuda):
+    """Distillation's soft matching (distill/losses.py::match_soft_targets):
+    teacher rows by 900 student queries, every row solved: 4 problems of
+    64 rows (the bundles' top-k) and one of 900 (--teacher-top-k 0, most
+    rows read through the ring). The costs are made once on the host, as
+    the soft matching builds them; identical to the plain version."""
+    from graph_detr4d_tpu_torch.distill.losses import bce_cost_matrix
+
+    rng = np.random.RandomState(11)
+    for P, K in ((4, 64), (1, 900)):
+        sc = torch.from_numpy(rng.randn(P, 900, 10).astype(np.float32) * 2)
+        sb = torch.from_numpy(rng.randn(P, 900, 10).astype(np.float32))
+        ts = torch.from_numpy(rng.rand(P, K, 10).astype(np.float32))
+        tb = torch.from_numpy(rng.randn(P, K, 10).astype(np.float32))
+        reg = (sb[:, :, None, :8] - tb[:, None, :, :8]).abs().sum(-1)
+        cost = (bce_cost_matrix(sc, ts) + 0.25 * reg).transpose(1, 2)
+        cost = cost.contiguous()
+        launches = lsa_ops.launches
+        got = lsa_ops.hungarian_assignment(cost.to(cuda))
+        assert lsa_ops.launches == launches + 1
+        want = lsa_ops.hungarian_assignment_plain(cost)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
+        assert all(len(set(r.tolist())) == K for r in want)
+
+
+@pytest.mark.cuda
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     x = torch.randn(1, 8, 8, 16, device=cuda)
     off = torch.zeros(1, 8, 8, 9, 2, device=cuda)
