@@ -208,6 +208,33 @@ IoU, and prints one JSON line per phase:
               backward on the student: K1 12 / 6, K2 18 / 9, K4 2, K5 1);
               tools.distill_train.main --synthetic --steps 2, then
               tools.distill_test.main on the checkpoint it saved.
+ 17. petr     the PETR family (models/petr_head.py, models/petr_seg.py),
+              bf16, seeded random weights; its dense cross-attention is
+              plain PyTorch, so a request launches no K1, and K2 9 on the
+              R50-DCN configs only. petrv2_vovnet_gridmask_p4_1600x640
+              (12 x 640x1600, VoVNet-99, CPFPN, 48,000 keys,
+              mean_time_stamp 0.5): 3 requests, one split into backbone
+              and neck, head, the head's cross-attention and decode (CUDA
+              events), one profiled, 2 streamed requests and in fp32 a
+              streamed request against infer (phase plain's bounds), one
+              train step (K4 1, K5 1); petrv2_res50_gridmask_p4_800x320
+              (12 x 320x800, R50-DCN, FPN level 0 at stride 8: 48,000
+              keys): 3 requests (K2 9), petr_plain (fp32 kernels vs plain,
+              phase plain's bounds), one train step (K2 9 / 9, K4 1, K5
+              1), petr_train_plain (train_plain's bounds), exported by
+              tools/export_model.py (verified with mean_time_stamp) and
+              served by tools/serve.py: one /infer request answered as
+              Engine.infer answers it, one without mean_time_stamp refused
+              with 400; petr_r50dcn_gridmask_p4 and _c5 (6 cameras) one
+              request each (K2 9); petrv2_BEVseg one request and one train
+              step with lane targets from a seeded (3, 256, 256) map
+              (`loss_mask`); the generic deformable decoder
+              (models/detr_decoder.py: 900 queries, 6 layers, the 4
+              flagship FPN levels of one 640x1600 camera, 21,250 tokens),
+              fp32, K1 6 against its plain version within 1e-4 per layer;
+              one decoder layer's dense cross-attention at the main
+              config's keys: the plain route, its core, and off the path
+              F.scaled_dot_product_attention on the same q, k, v.
 Phase `kernels` also holds K3 (the fused int8-table conv, fp32 within
 1e-4 and bf16 within one bf16 step of the output's magnitude, both
 strides, the flagship's 7 int8 DCN shapes, with `gemm_ref_ms` as K2's),
@@ -295,6 +322,11 @@ from graph_detr4d_tpu_torch.distill.distiller import Distiller
 from graph_detr4d_tpu_torch.tools import distill_test as distill_test_cli
 from graph_detr4d_tpu_torch.tools import distill_train as distill_train_cli
 from graph_detr4d_tpu_torch.train.distill_step import DistillStep
+from graph_detr4d_tpu_torch.models.detr_decoder import (
+    Deformable3DDetrTransformerDecoder)
+from graph_detr4d_tpu_torch.models.petr_seg import maps_to_patches
+from graph_detr4d_tpu_torch.models.transformer import MultiheadAttention
+from graph_detr4d_tpu_torch.serve import synth_extra
 
 CONFIG = "detr4d_res50_deform_pe_testaug_2subset_12e"
 REQUESTS = 4
@@ -426,6 +458,23 @@ R50_DISTILL_STEP_LAUNCHES = {"msda_forward": 12, "msda_backward": 6,
                              "deform_conv_forward": 18,
                              "deform_conv_backward": 9, "focal_loss": 1,
                              "hungarian": 2}
+
+# phase petr: the PETR family at full width (seeded random weights, bf16).
+# Its heads attend densely in plain PyTorch, with no K1: a request
+# launches K2 9 on the R50-DCN configs and no kernel on VoVNet's
+PETR_MAIN = "petrv2_vovnet_gridmask_p4_1600x640"
+PETR_R50 = "petrv2_res50_gridmask_p4_800x320"
+PETR_V1 = ("petr_r50dcn_gridmask_p4", "petr_r50dcn_gridmask_c5")
+PETR_SEG = "petrv2_BEVseg"
+PETR_REQUESTS = 3
+PETR_DCN = {"deform_conv_forward": DCN_CALLS}  # a request on R50-DCN
+PETR_STEP = {"focal_loss": 1, "hungarian": 1}  # a train step on VoVNet
+PETR_DCN_STEP = {**PETR_STEP, "deform_conv_forward": DCN_CALLS,
+                 "deform_conv_backward": DCN_CALLS}
+SEG_MAP_HW = (256, 256)  # petrv2_BEVseg's map: 256 patches of 16x16
+# the generic deformable decoder: 900 queries and 6 layers over one
+# camera's 4 flagship FPN levels at 640x1600 (MSDA_LEVELS, 21,250 tokens)
+DECODER_QUERIES, DECODER_LAYERS = 900, 6
 
 
 def emit(record):
@@ -2638,14 +2687,17 @@ def gt_of_query(cost, col4row):
 
 
 def phase_train_plain(cfg, sd, phase="train_plain",
-                      step_launches=STEP_LAUNCHES):
+                      step_launches=STEP_LAUNCHES, extras=None):
     """One fp32 step (dropout 0, grid mask off) from the same weights
     through the kernels, then through the plain versions. Every K4 call
-    of the step (H-DETR's one2one and one2many groups: two) is compared."""
+    of the step (H-DETR's one2one and one2many groups: two) is compared.
+    extras: batch entries besides train_batch's (PETRv2's
+    mean_time_stamp)."""
     cfg32 = dataclasses.replace(
         cfg, bf16=False, head=dataclasses.replace(cfg.head, dropout=0.0),
         train=dataclasses.replace(cfg.train, use_grid_mask=False))
-    batch = {k: torch.as_tensor(v).cuda() for k, v in train_batch(cfg32).items()}
+    batch = {k: torch.as_tensor(v).cuda()
+             for k, v in {**train_batch(cfg32), **(extras or {})}.items()}
     metrics, counts, calls = {}, {}, {}
     for route, ctx in (("kernels", contextlib.nullcontext),
                        ("plain", plain_kernels)):
@@ -3844,6 +3896,381 @@ def phase_distill(dev):
     return total, hungarian
 
 
+def petr_extras(cfg):
+    """The serving extras of a config (serve.extras_spec), each at its
+    placeholder value (synth_extra: mean_time_stamp 0.5 s)."""
+    return [synth_extra(n, shape) for n, shape in extras_spec(cfg, 1)]
+
+
+def petr_train_extras(cfg, maps=False):
+    """A train batch's extras: mean_time_stamp for the temporal heads and,
+    with `maps`, lane targets patchified from a seeded synthetic map of
+    SEG_MAP_HW (blobs of each of the 3 channels)."""
+    extras = {n: v for (n, _), v in zip(extras_spec(cfg, 1), petr_extras(cfg))}
+    if maps:
+        rng = np.random.RandomState(0)
+        m = np.zeros((3, *SEG_MAP_HW), np.float32)
+        for c in range(3):
+            for _ in range(12):
+                y, x = rng.randint(0, SEG_MAP_HW[0] - 40, 2)
+                m[c, y:y + rng.randint(4, 40), x:x + rng.randint(4, 40)] = 1.0
+        extras["maps"] = maps_to_patches(m)[None]
+    return extras
+
+
+def petr_serve(name, requests, want):
+    """`requests` timed requests of a config through serve.Engine (seeded
+    random weights, its extras), launches exactly `want` a request,
+    cam_overflow 0. Returns (cfg, weights, engine, batch, extras, record,
+    launches)."""
+    cfg = get_config(name)
+    sd = random_state_dict(cfg)
+    batch = synthetic_batch(cfg, seed=0)
+    extras = petr_extras(cfg)
+    engine = Engine(cfg, sd)
+    level0 = []  # the head's level-0 grid (B, N, H, W, C): its keys
+    hook = engine.model.pts_bbox_head.input_proj.register_forward_hook(
+        lambda m, a, out: level0.append(tuple(out.shape)))
+    times, results, launches, peak = timed_requests(
+        engine.infer, [(batch["images"], batch["lidar2img"], extras)] * requests)
+    hook.remove()
+    check_answers(name, results, cfg, launches, want)
+    overflow = [r["cam_overflow"] for r in results]
+    if any(overflow):
+        raise AssertionError(f"{name}: cam_overflow {overflow}")
+    _, N, Hf, Wf, _ = level0[0]
+    rec = {"img_size": list(cfg.img_size), "cameras": N,
+           "level0_hw": [Hf, Wf], "attention_keys": N * Hf * Wf,
+           "extras": [n for n, _ in extras_spec(cfg, 1)],
+           "ms_per_request": times, "mean_ms": sum(times) / len(times),
+           "peak_memory_bytes": peak, "launches": launches,
+           "valid_detections": int(results[-1]["valid"].sum())}
+    return cfg, sd, engine, batch, extras, rec, launches
+
+
+def petr_request_split(engine, batch, extras):
+    """One request's device ms by CUDA events: backbone and neck
+    (extract_feats), head (forward_feats), inside the head the dense
+    cross-attention of every decoder layer (events around each
+    `attentions[1]`), and the decode; the head's and the attention's
+    shares of the request."""
+    model = engine.model
+    images = torch.as_tensor(batch["images"]).cuda()
+    l2i = torch.as_tensor(batch["lidar2img"]).cuda()
+    mts = torch.as_tensor(extras[0]).cuda()
+    spans = []
+
+    def event():
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
+
+    layers = model.pts_bbox_head.transformer.decoder.layers
+    handles = [h for layer in layers for h in (
+        layer.attentions[1].register_forward_pre_hook(
+            lambda m, a: spans.append([event()])),
+        layer.attentions[1].register_forward_hook(
+            lambda m, a, o: spans[-1].append(event())))]
+    try:
+        with torch.inference_mode():
+            e0 = event()
+            feats = model.extract_feats(images)
+            e1 = event()
+            out = model.forward_feats(feats, l2i, mean_time_stamp=mts)
+            e2 = event()
+            engine._answer(out)
+            e3 = event()
+        e3.synchronize()
+    finally:
+        for h in handles:
+            h.remove()
+    total = e0.elapsed_time(e3)
+    head = e1.elapsed_time(e2)
+    attn = sum(a.elapsed_time(b) for a, b in spans)
+    return {"backbone_neck_ms": e0.elapsed_time(e1), "head_ms": head,
+            "cross_attention_ms": attn, "decode_ms": e2.elapsed_time(e3),
+            "total_ms": total, "head_share": head / total,
+            "attention_share": attn / total,
+            "attention_share_of_head": attn / head}
+
+
+def petr_stream(engine, cfg, sd, batch, extras):
+    """Engine.infer_stream on the main config: 2 requests of one stream,
+    each a frame's 6 new cameras (no launches: VoVNet), then in fp32 a
+    stream's second request against infer on the concatenated 12
+    cameras, every decoder layer within phase plain's bounds. Returns
+    (record, launches)."""
+    nf = cfg.head.num_frame_cams
+    l2i = batch["lidar2img"]
+    frames = [synthetic_batch(cfg, seed=s)["images"][:, :nf] for s in (1, 2)]
+    times, results, launches, _ = timed_requests(
+        lambda f: engine.infer_stream(f, l2i, extras, stream="live"),
+        [(f,) for f in frames])
+    check_answers("petr stream", results, cfg, launches, {}, same=False)
+    engine.reset_stream("live")
+    engine32 = Engine(dataclasses.replace(cfg, bf16=False), sd)
+    outs, inner = [], engine32.model.forward_feats
+
+    def recording(feats, lidar2img, generator=None, **kw):
+        outs.append(inner(feats, lidar2img, generator, **kw))
+        return outs[-1]
+
+    engine32.model.forward_feats = recording
+    engine32.infer_stream(frames[0], l2i, extras, stream="a")
+    engine32.infer_stream(frames[1], l2i, extras, stream="a")
+    engine32.infer(np.concatenate([frames[1], frames[0]], axis=1), l2i, extras)
+    errs = layer_errors(outs[1], outs[2])
+    del engine32, outs
+    torch.cuda.empty_cache()
+    check_layer_errors("petr stream vs infer", errs)
+    return {"ms_per_request": times, "launches": launches,
+            "fp32_vs_infer_max_abs_err_per_layer": errs}, launches
+
+
+def petr_train_step(name, cfg, sd, want, maps=False):
+    """One timed bf16 TrainStep step (after a warm-up step), with the
+    config's extras (and lane targets with `maps`): launches exactly
+    `want`, finite metrics. Returns (record, launches)."""
+    model = GraphDETR4D(cfg)
+    model.load_state_dict(sd, strict=True)
+    step = TrainStep(model, cfg, seed=0)
+    dev = {k: torch.as_tensor(v).cuda()
+           for k, v in {**train_batch(cfg),
+                        **petr_train_extras(cfg, maps)}.items()}
+    ms, metrics, counts, peak = timed_train_steps(step.step, dev, 1)
+    del model, step, dev
+    torch.cuda.empty_cache()
+    check_step_launches(name, counts, 1, want)
+    check_finite_metrics(name, metrics)
+    if maps and not metrics[0].get("loss_mask", 0.0) > 0.0:
+        raise AssertionError(f"{name}: no lane loss in {metrics[0]}")
+    return {"train_ms": ms, "train_metrics": metrics[0],
+            "train_peak_memory_bytes": peak, "train_launches": counts}, counts
+
+
+def petr_attention_reference(dev, cfg, keys):
+    """One PETR decoder layer's dense cross-attention of `cfg`'s head at
+    `keys` keys (900 queries, 8 heads of 32 on every PETR config), bf16:
+    the port's plain route
+    (models/transformer.py::MultiheadAttention, fp32 logits and softmax)
+    timed by CUDA events, its core (QK^T, softmax, AV) alone, and off the
+    path one F.scaled_dot_product_attention call on the same projected
+    q, k, v; the core against SDPA (max abs error, bf16 output); the
+    least time of the function (q, k, v and the output moved once, QK^T
+    and AV at the bf16 tensor peak) and the fp32 logits' bytes."""
+    C, heads, Q = cfg.head.embed_dims, cfg.head.num_heads, cfg.head.num_query
+    hd = C // heads
+    g = torch.Generator(device=dev).manual_seed(0)
+    mha = MultiheadAttention(C, heads, 0.0).to(dev)
+    init_weights(mha, seed=0)
+    bf = torch.bfloat16
+    query = torch.randn(1, Q, C, generator=g, device=dev).to(bf)
+    memory = torch.randn(1, keys, C, generator=g, device=dev).to(bf)
+    key = memory + torch.randn(1, keys, C, generator=g, device=dev).to(bf)
+    w, b = mha.in_proj_weight.to(bf), mha.in_proj_bias.to(bf)
+
+    def proj(x, i):
+        y = torch.nn.functional.linear(x, w[i * C:(i + 1) * C],
+                                       b[i * C:(i + 1) * C])
+        return y.view(1, -1, heads, hd).transpose(1, 2).contiguous()
+
+    with torch.inference_mode():
+        qh, kh, vh = proj(query, 0), proj(key, 1), proj(memory, 2)
+
+        def core():
+            logits = ((qh / hd ** 0.5) @ kh.transpose(-1, -2)).float()
+            return torch.softmax(logits, dim=-1).to(bf) @ vh
+
+        def sdpa():
+            return torch.nn.functional.scaled_dot_product_attention(qh, kh, vh)
+
+        layer_ms = cuda_ms(lambda: mha(query, key, memory), 5)
+        core_ms = cuda_ms(core, 5)
+        sdpa_ms = cuda_ms(sdpa, 5)
+        err = (core().float() - sdpa().float()).abs().max().item()
+    moved = 2 * (qh.numel() + kh.numel() + vh.numel() + qh.numel())
+    flops = 2 * 2 * heads * Q * keys * hd
+    bound_ms = 1e3 * max(moved / PEAK_BYTES_PER_S, flops / PEAK_BF16_TENSOR_FLOPS)
+    return {"keys": keys, "queries": Q, "heads": heads, "head_dim": hd,
+            "layer_ms": layer_ms, "core_ms": core_ms, "sdpa_ms": sdpa_ms,
+            "core_vs_sdpa_max_abs_err": err, "bound_ms": bound_ms,
+            "bound_by": "operations" if flops / PEAK_BF16_TENSOR_FLOPS
+            > moved / PEAK_BYTES_PER_S else "bytes",
+            "fp32_logits_bytes": 4 * heads * Q * keys}
+
+
+def petr_generic_decoder(dev):
+    """The generic deformable decoder (models/detr_decoder.py), fp32,
+    seeded random weights: DECODER_QUERIES queries, DECODER_LAYERS layers
+    over MSDA_LEVELS, 2-d reference points scaled by valid_ratios, once
+    through K1 (a launch a layer) and once through its plain version (no
+    launch), every layer's output within PLAIN_EARLY_ATOL; each route
+    timed. Returns (record, the kernel route's launches)."""
+    C = 256
+    dec = Deformable3DDetrTransformerDecoder(
+        embed_dims=C, num_layers=DECODER_LAYERS, num_heads=8,
+        num_levels=len(MSDA_LEVELS), num_points=4, ffn_dims=512)
+    init_weights(dec, seed=0)
+    dec = dec.to(dev).eval()
+    g = torch.Generator(device=dev).manual_seed(0)
+    query, query_pos = (torch.randn(1, DECODER_QUERIES, C, generator=g,
+                                    device=dev) for _ in range(2))
+    values = [torch.randn(1, h, w, C, generator=g, device=dev)
+              for h, w in MSDA_LEVELS]
+    ref = torch.rand(1, DECODER_QUERIES, 2, generator=g, device=dev)
+    ratios = 0.8 + 0.2 * torch.rand(1, len(MSDA_LEVELS), 2, generator=g,
+                                    device=dev)
+
+    def run():
+        return dec(query, query_pos, values, ref, valid_ratios=ratios)
+
+    outs, counts, ms = {}, {}, {}
+    with torch.inference_mode():
+        for route, ctx in (("kernels", contextlib.nullcontext),
+                           ("plain", plain_kernels)):
+            with ctx():
+                reset_launch_counts()
+                outs[route] = run()[0]
+                counts[route] = {k: v for k, v in launch_counts().items() if v}
+                ms[route] = cuda_ms(run, 3)
+    errs = [(a - b).abs().max().item()
+            for a, b in zip(outs["kernels"], outs["plain"])]
+    rec = {"queries": DECODER_QUERIES, "layers": DECODER_LAYERS,
+           "levels": MSDA_LEVELS, "tokens": sum(h * w for h, w in MSDA_LEVELS),
+           "max_abs_err_per_layer": errs, "launches": counts,
+           "ms": ms["kernels"], "plain_ms": ms["plain"]}
+    del dec, values
+    torch.cuda.empty_cache()
+    if counts != {"kernels": {"msda_forward": DECODER_LAYERS}, "plain": {}}:
+        raise AssertionError(f"generic decoder: launches per route {counts}")
+    if not all(np.isfinite(e) and e <= PLAIN_EARLY_ATOL for e in errs):
+        raise AssertionError(f"generic decoder: kernels vs plain {errs}")
+    return rec, counts["kernels"]
+
+
+def petr_http(name, sd):
+    """tools/export_model.py on a PETRv2 config (verified on the card with
+    its mean_time_stamp), served in process by tools/serve.py: one /infer
+    request with mean_time_stamp (K2 9) answered as in-process
+    Engine.infer answers it, and one without it refused with 400.
+    Returns (record, launches)."""
+    cfg = get_config(name)
+    b = synthetic_batch(cfg, seed=1)
+    extras = petr_extras(cfg)
+    with tempfile.TemporaryDirectory() as tmp:
+        pth, d = f"{tmp}/weights.pth", f"{tmp}/artifact"
+        torch.save({"state_dict": sd}, pth)
+        start = time.perf_counter()
+        manifest = export_cli.main(["--config", name, "--checkpoint", pth,
+                                    "--out", d])
+        export_s = time.perf_counter() - start
+        srv, engine, thread = serve_cli.serve_in_thread(
+            ["--artifact", d, "--port", "0"])
+        url = f"http://127.0.0.1:{srv.server_address[1]}/infer"
+        try:
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            start = time.perf_counter()
+            status, answer = serve_cli.post(url, serve_cli.npz_body(
+                images=b["images"], lidar2img=b["lidar2img"],
+                mean_time_stamp=extras[0]))
+            ms = 1e3 * (time.perf_counter() - start)
+            launches = launch_counts()
+            refused, error = serve_cli.post(url, serve_cli.npz_body(
+                images=b["images"], lidar2img=b["lidar2img"]))
+            direct = http_json(engine.infer(b["images"], b["lidar2img"],
+                                            extras))
+        finally:
+            srv.shutdown()
+            thread.join(60)
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    rec = {"config": name, "extras": manifest["extras"],
+           "platforms": manifest["platforms"], "export_s": export_s,
+           "ms": ms, "launches": launches, "status": status,
+           "refused_without_mean_time_stamp": [refused, error]}
+    check_step_launches("petr http", launches, 1, PETR_DCN)
+    if (status != 200 or answer != direct or manifest["extras"]
+            != ["mean_time_stamp"] or refused != 400):
+        raise AssertionError(f"petr http: {rec}")
+    return rec, launches
+
+
+def phase_petr(dev):
+    """The PETR family at full width, seeded random weights, bf16 (see the
+    docstring's phase 17). Returns the summed launches."""
+    t0 = time.perf_counter()
+    total = dict.fromkeys(launch_counts(), 0)
+    records = {}
+    # the main config: served, split, profiled, streamed, trained
+    cfg, sd, engine, batch, extras, rec, launches = petr_serve(
+        PETR_MAIN, PETR_REQUESTS, {})
+    add_counts(total, launches)
+    rec["split"] = petr_request_split(engine, batch, extras)
+    rec["profile"] = profiled_span(lambda: engine.infer(
+        batch["images"], batch["lidar2img"], extras))
+    rec["stream"], launches = petr_stream(engine, cfg, sd, batch, extras)
+    add_counts(total, launches)
+    del engine
+    torch.cuda.empty_cache()
+    step, launches = petr_train_step(PETR_MAIN, cfg, sd, PETR_STEP)
+    rec.update(step)
+    add_counts(total, launches)
+    records[PETR_MAIN] = rec
+    main_cfg, keys = cfg, rec["attention_keys"]
+    del sd
+    # R50-DCN under PETRv2: served, kernels vs plain, trained (bf16, then
+    # one fp32 step on each route)
+    cfg, sd, engine, batch, extras, rec, launches = petr_serve(
+        PETR_R50, PETR_REQUESTS, PETR_DCN)
+    add_counts(total, launches)
+    del engine
+    torch.cuda.empty_cache()
+    errs, counts, _, overflow, _ = compare_routes(
+        cfg, sd, extras={"mean_time_stamp": extras[0]})
+    rec.update(petr_plain_max_abs_err_per_layer=errs,
+               petr_plain_launches=counts)
+    if counts != {"kernels": PETR_DCN, "plain": {}}:
+        raise AssertionError(f"petr_plain: launches per route {counts}")
+    check_layer_errors("petr_plain", errs)
+    step, launches = petr_train_step(PETR_R50, cfg, sd, PETR_DCN_STEP)
+    rec.update(step)
+    add_counts(total, launches)
+    rec["train_plain"] = phase_train_plain(
+        cfg, sd, phase="petr_train_plain", step_launches=PETR_DCN_STEP,
+        extras=petr_train_extras(cfg))
+    torch.cuda.empty_cache()
+    records[PETR_R50] = rec
+    rec["http"], launches = petr_http(PETR_R50, sd)
+    add_counts(total, launches)
+    del sd
+    # PETRv1 over a CPFPN and over the raw C5: one request each
+    for name in PETR_V1:
+        _, _, engine, _, _, rec, launches = petr_serve(name, 1, PETR_DCN)
+        add_counts(total, launches)
+        records[name] = rec
+        del engine
+        torch.cuda.empty_cache()
+    # PETR-seg: served, one step with the lane loss
+    cfg, sd, engine, _, _, rec, launches = petr_serve(PETR_SEG, 1, {})
+    add_counts(total, launches)
+    del engine
+    torch.cuda.empty_cache()
+    step, launches = petr_train_step(PETR_SEG, cfg, sd, PETR_STEP, maps=True)
+    rec.update(step)
+    add_counts(total, launches)
+    records[PETR_SEG] = rec
+    del sd
+    records["generic_decoder"], launches = petr_generic_decoder(dev)
+    add_counts(total, launches)
+    records["attention_reference"] = petr_attention_reference(dev, main_cfg,
+                                                              keys)
+    emit({"phase": "petr", "configs": records, "launches": total,
+          "seconds": time.perf_counter() - t0})
+    return total
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3905,12 +4332,15 @@ def main():
     backbone_launches = phase_backbones()
     torch.cuda.empty_cache()
     distill_launches, kernels["hungarian"]["distill"] = phase_distill(dev)
+    torch.cuda.empty_cache()
+    petr_launches = phase_petr(dev)
 
     paths = {**serving, "serve_int8": int8_launches, "train": train_launches,
              "data": data_launches, "lidar": lidar_launches, "iou": iou_launches,
              "lidar_grad": lidar_grad_launches, "hdetr": hdetr_launches,
              "camaware": camaware_launches, "http": http_launches,
-             "backbones": backbone_launches, "distill": distill_launches}
+             "backbones": backbone_launches, "distill": distill_launches,
+             "petr": petr_launches}
     serving_total = {k: sum(c[k] for c in serving.values())
                      for k in serve_launches}
     table = []

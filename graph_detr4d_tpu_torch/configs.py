@@ -7,9 +7,11 @@ whose every feature the port runs (`get_config`, `apply_overrides` and the
 single-frame 6-camera models, H-DETR's hybrid matching, the camera-aware
 heads (DepthNet, the camconv gate, scale_pred), the VoVNet detectors and
 the ResNet-18 and MobileNetV2 students, with the train-pipeline variants
-(`*_aug`, `resize_scales`) that data/pipeline.py::build_batch runs. Names
-and values are the JAX registry's (tests/test_torch_weights.py and
-tests/test_torch_data.py hold them equal).
+(`*_aug`, `resize_scales`) that data/pipeline.py::build_batch runs, and the
+PETR family (PETR, PETRv2, PETR-seg; CPFPN necks and the neck-less C5):
+every entry of the JAX registry. Names and values are the JAX registry's
+(tests/test_torch_weights.py and tests/test_torch_data.py hold them
+equal).
 
 Also the distillation bundles (`get_distill_config`, `DistillBundle`, the
 18 `register_distill` entries of the JAX registry), held equal to JAX's
@@ -27,7 +29,8 @@ import types
 import typing
 from typing import Callable, Dict, Optional, Sequence
 
-from .config import BackboneConfig, HeadConfig, ModelConfig, NeckConfig
+from .config import (BackboneConfig, HeadConfig, ModelConfig, NeckConfig,
+                     TrainConfig)
 
 _REGISTRY: Dict[str, Callable[[], ModelConfig]] = {}
 
@@ -354,6 +357,113 @@ def detr4d_m2():
         backbone_type="mobilenetv2",
         backbone=BackboneConfig(out_indices=(2, 4, 7)),
         neck=NeckConfig(in_channels=(32, 96, 1280), start_level=0),
+    )
+
+
+# --------------------------------------------------------- petr family
+def _petr(backbone="resnet", img_size=(320, 800), **kw) -> ModelConfig:
+    """PETR-family base: 2-level CPFPNs over the backbone's last two maps
+    (petr_r50dcn_gridmask_p4.py:33, 43-47; petrv2_vovnet...py:35-40); the
+    head reads level 0, the stride-16 map. BGR input with caffe means and
+    std [57.375, 57.120, 58.395] (petrv2_*.py:13-16), no photometric
+    distortion in any PETR-family train pipeline."""
+    head = dict(num_cams=6, with_detach=False)
+    head.update(kw)
+    cfg = ModelConfig(
+        head_type="petr",
+        head=HeadConfig(**head),
+        img_size=img_size,
+        neck=NeckConfig(
+            in_channels=(1024, 2048), start_level=0, num_outs=2, cp=True
+        ),
+        img_mean=(103.530, 116.280, 123.675),
+        img_std=(57.375, 57.120, 58.395),
+        img_bgr=True,
+        train=TrainConfig(photometric=False),
+    )
+    cfg = dataclasses.replace(
+        cfg, backbone=dataclasses.replace(cfg.backbone, out_indices=(2, 3))
+    )
+    if backbone == "vovnet":
+        cfg = dataclasses.replace(
+            cfg,
+            backbone_type="vovnet",
+            neck=dataclasses.replace(cfg.neck, in_channels=(768, 1024)),
+        )
+    return cfg
+
+
+@register("petr_r50dcn_gridmask_p4")
+def petr_r50():
+    """PETRv1 R50-DCN: std 1.0 (petr_r50dcn_gridmask_p4.py:13-14)."""
+    return dataclasses.replace(_petr(), img_std=(1.0, 1.0, 1.0))
+
+
+@register("petr_vovnet_gridmask_p4_800x320")
+def petr_vovnet_800():
+    return _petr(backbone="vovnet")
+
+
+@register("petr_vovnet_gridmask_p4_1600x640")
+def petr_vovnet_1600():
+    return _petr(backbone="vovnet", img_size=(640, 1600))
+
+
+@register("petrv2_res50_gridmask_p4_800x320")
+def petrv2_r50():
+    """R50 + DCN on stages 3-4 under the flagship's standard 4-level FPN
+    (start_level 1, 'on_output' extra convs): level 0 is the stride-8
+    map (petrv2_res50_gridmask_p4_800x320.py:31-49)."""
+    cfg = _petr(num_cams=12)
+    return dataclasses.replace(
+        cfg,
+        head_type="petrv2",
+        backbone=dataclasses.replace(cfg.backbone, out_indices=(0, 1, 2, 3)),
+        neck=NeckConfig(),
+    )
+
+
+@register("petrv2_vovnet_gridmask_p4_800x320")
+def petrv2_vovnet():
+    cfg = _petr(backbone="vovnet", num_cams=12)
+    return dataclasses.replace(cfg, head_type="petrv2")
+
+
+@register("petr_r50dcn_gridmask_c5")
+def petr_c5():
+    """PETR over the raw C5 map: no img_neck, the head's input_proj reads
+    the 2048-channel C5 (petr_r50dcn_gridmask_c5.py:46)."""
+    cfg = _petr()
+    return dataclasses.replace(
+        cfg,
+        backbone=dataclasses.replace(cfg.backbone, out_indices=(3,)),
+        neck=dataclasses.replace(cfg.neck, num_outs=0),
+        head=dataclasses.replace(cfg.head, num_levels=1),
+        img_std=(1.0, 1.0, 1.0),
+    )
+
+
+@register("petrv2_vovnet_gridmask_p4_1600x640")
+def petrv2_vovnet_1600():
+    cfg = _petr(backbone="vovnet", img_size=(640, 1600), num_cams=12)
+    return dataclasses.replace(cfg, head_type="petrv2")
+
+
+@register("petrv2_vovnet_gridmask_p4_1600x640_trainval")
+def petrv2_vovnet_1600_trainval():
+    return petrv2_vovnet_1600()
+
+
+@register("petrv2_BEVseg")
+def petrv2_bevseg():
+    """PETR + BEV map segmentation (Petr3D_seg + PETRHeadseg): VoVNet
+    V-99-eSE with remat over stages 4-5, CPFPN [768, 1024], 12 temporal
+    cameras, with_time and with_se (petrv2_BEVseg.py:27-56)."""
+    cfg = _petr(backbone="vovnet", num_cams=12)
+    return dataclasses.replace(
+        cfg,
+        head_type="petr_seg",
+        backbone=dataclasses.replace(cfg.backbone, remat=True),
     )
 
 

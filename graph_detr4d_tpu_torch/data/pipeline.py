@@ -221,14 +221,14 @@ def apply_ida(
 
 def load_maps(map_filename: str):
     """BEV map masks of the segmentation variant (LoadMapsFromFiles,
-    pipelines/loading.py:10-25). They feed PETR-seg's lane head, which the
-    port does not run yet (ROADMAP Queue 1 item 5), so a sample that
-    names a map raises."""
-    raise NotImplementedError(
-        f"sample has map_filename {map_filename!r}: BEV map masks feed the "
-        "PETR-seg head (models/petr_seg.py::maps_to_patches), which "
-        "graph_detr4d_tpu_torch does not port yet (ROADMAP Queue 1 item 5)"
-    )
+    pipelines/loading.py:10-25): npz 'arr_0' (H, W, C) float mask ->
+    (gt_map (C, H, W), maps (num_patches, C*16*16) 16x16-patchified rows,
+    the targets of models/petr_seg.py::lane_mask_loss)."""
+    from ..models.petr_seg import maps_to_patches
+
+    arr = np.load(map_filename)["arr_0"].astype(np.float32)
+    gt_map = arr.transpose(2, 0, 1)
+    return gt_map, maps_to_patches(gt_map)
 
 
 def normalize_image(

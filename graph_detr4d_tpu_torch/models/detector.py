@@ -1,10 +1,12 @@
 """GraphDETR4D detector: grid mask -> backbone -> FPN -> head
 (counterpart of graph_detr4d_tpu/models/detector.py with a ResNet, VoVNet
-or MobileNetV2 backbone and the `detr4d_pe` head, with or without its 3D position embedding, with
-any of the cross-attentions of models/transformer.py, H-DETR's one2many
-query group and the camera-aware options of models/head.py). The grid mask
-and dropout apply only in training (detr3d.py:53-54), drawn from the
-generator the forward is given.
+or MobileNetV2 backbone; an FPN, a CPFPN or no neck; and the `detr4d_pe`
+head, with or without its 3D position embedding, with any of the
+cross-attentions of models/transformer.py, H-DETR's one2many query group
+and the camera-aware options of models/head.py, or a head of the PETR
+family: `petr`, `petrv2` (models/petr_head.py) and `petr_seg`
+(models/petr_seg.py)). The grid mask and dropout apply only in training
+(detr3d.py:53-54), drawn from the generator the forward is given.
 
 All cameras fold into the batch axis for the conv stack (detr3d.py:62-66),
 then unfold to (B, N, ...) for the head. The convs run NCHW tensors whose
@@ -21,14 +23,17 @@ from .fpn import FPN
 from .grid_mask import apply_grid_mask, grid_mask_params
 from .head import Detr3DHeadPE
 from .mobilenet import MobileNetV2
+from .petr_head import PETRHead
+from .petr_seg import PETRHeadSeg
 from .resnet import ResNet
 from .transformer import ATTN_TYPES
 from .vovnet import VoVNet
 
 
 # the batch entries a model takes besides images and lidar2img: scale_pred's
-# depth_factors and the camera-aware head's intrinsics and ida_scale
-MODEL_EXTRAS = ("depth_factors", "intrinsics", "ida_scale")
+# depth_factors, PETRv2's mean_time_stamp and the camera-aware head's
+# intrinsics and ida_scale
+MODEL_EXTRAS = ("depth_factors", "mean_time_stamp", "intrinsics", "ida_scale")
 
 
 def model_extras(batch: dict) -> dict:
@@ -38,6 +43,7 @@ def model_extras(batch: dict) -> dict:
 
 
 BACKBONE_TYPES = ("resnet", "vovnet", "mobilenetv2")
+HEAD_TYPES = ("detr4d_pe", "petr", "petrv2", "petr_seg")
 
 
 def build_backbone(cfg: ModelConfig) -> nn.Module:
@@ -54,16 +60,36 @@ def build_backbone(cfg: ModelConfig) -> nn.Module:
                   dcn_gather=b.dcn_gather)
 
 
+PETR_HEADS = ("petr", "petrv2", "petr_seg")
+
+
+def build_head(cfg: ModelConfig, in_channels: int) -> nn.Module:
+    """The head of cfg.head_type (the JAX detector's setup, detector.py:
+    71-116) over level-0 features of `in_channels` channels: PETRv2 turns
+    on with_time, the fpe gate (as head.with_fpe says), the grouped reg
+    branch and per-layer branches; PETR-seg is temporal iff the rig
+    carries past-frame cameras, and head.with_fpe is its `se` gate."""
+    h = cfg.head
+    if cfg.head_type in ("petr", "petrv2"):
+        v2 = cfg.head_type == "petrv2"
+        return PETRHead(h, cfg.img_size, in_channels, with_time=v2,
+                        with_fpe=v2 and h.with_fpe, with_multi=v2,
+                        per_layer_branches=v2)
+    if cfg.head_type == "petr_seg":
+        return PETRHeadSeg(h, cfg.img_size, in_channels,
+                           with_time=h.num_cams > h.num_frame_cams,
+                           with_se=h.with_fpe)
+    return Detr3DHeadPE(h, cfg.img_size)
+
+
 def check_supported(cfg: ModelConfig):
-    """Raise for the config features this slice of the port does not run."""
+    """Raise for a config value the port does not know."""
     h = cfg.head
     unsupported = {
-        "head_type": cfg.head_type != "detr4d_pe",
+        "head_type": cfg.head_type not in HEAD_TYPES,
         "backbone_type": cfg.backbone_type not in BACKBONE_TYPES,
         "head.attn_type": h.attn_type not in ATTN_TYPES,
         "head.fpe_type": h.fpe_type not in ("se", "camconv"),
-        "neck.cp": cfg.neck.cp,
-        "neck.num_outs": cfg.neck.num_outs == 0,
     }
     bad = [k for k, v in unsupported.items() if v]
     if bad:
@@ -80,14 +106,19 @@ class GraphDETR4D(nn.Module):
         self.cfg = cfg
         self.dtype = torch.bfloat16 if cfg.bf16 else torch.float32
         self.img_backbone = build_backbone(cfg)
-        self.img_neck = FPN(
-            in_channels=cfg.neck.in_channels,
-            out_channels=cfg.neck.out_channels,
-            start_level=cfg.neck.start_level,
-            num_outs=cfg.neck.num_outs,
-            relu_before_extra_convs=cfg.neck.relu_before_extra_convs,
+        n = cfg.neck
+        # neck-less (petr_r50dcn_gridmask_c5): the head reads the raw C5,
+        # whose channels the neck config's in_channels name
+        self.img_neck = None if n.num_outs == 0 else FPN(
+            in_channels=n.in_channels,
+            out_channels=n.out_channels,
+            start_level=n.start_level,
+            num_outs=n.num_outs,
+            relu_before_extra_convs=n.relu_before_extra_convs,
+            cp=n.cp,
         )
-        self.pts_bbox_head = Detr3DHeadPE(cfg.head, cfg.img_size)
+        self.pts_bbox_head = build_head(
+            cfg, n.in_channels[-1] if self.img_neck is None else n.out_channels)
         self.to(dev)
 
     def extract_feats(self, images: torch.Tensor, generator=None):
@@ -106,20 +137,27 @@ class GraphDETR4D(nn.Module):
                 generator, H, tc.grid_mask_prob)
             images = apply_grid_mask(images, d, l, st_h, st_w, apply)
         x = images.reshape(B * N, H, W, 3).to(self.dtype).permute(0, 3, 1, 2)
-        feats = self.img_neck(self.img_backbone(x))
+        feats = self.img_backbone(x)
+        if self.img_neck is not None:
+            feats = self.img_neck(feats)
         return [
             f.permute(0, 2, 3, 1).reshape(B, N, f.shape[2], f.shape[3], -1)
             for f in feats
         ]
 
     def forward_feats(self, feats, lidar2img: torch.Tensor, generator=None,
-                      depth_factors=None, intrinsics=None, ida_scale=None,
+                      depth_factors=None, mean_time_stamp=None,
+                      intrinsics=None, ida_scale=None,
                       teacher_query_embed=None):
         """Head-only forward over precomputed camera features. The extras
-        (depth_factors (B,), intrinsics (B, N, 4, 4), ida_scale (B, N))
-        reach the heads that read them: scale_pred and the camera-aware
-        head. teacher_query_embed: MixDistill's (Qt, 2C) teacher query
-        table, decoded a second time (models/head.py)."""
+        (depth_factors (B,), mean_time_stamp (B,), intrinsics (B, N, 4, 4),
+        ida_scale (B, N)) reach the heads that read them: scale_pred, the
+        PETR family and the camera-aware head. teacher_query_embed:
+        MixDistill's (Qt, 2C) teacher query table, decoded a second time
+        (models/head.py)."""
+        if self.cfg.head_type in PETR_HEADS:
+            return self.pts_bbox_head(feats, lidar2img, generator,
+                                      mean_time_stamp=mean_time_stamp)
         return self.pts_bbox_head(feats, lidar2img, generator,
                                   depth_factors=depth_factors,
                                   intrinsics=intrinsics, ida_scale=ida_scale,
@@ -133,7 +171,7 @@ class GraphDETR4D(nn.Module):
         the head outputs, which are query-aligned across copies. The
         reference's aug_test averages features under copy 0's
         calibration; the JAX method averages outputs, and so does this.
-        `extras` (depth_factors, intrinsics, ida_scale) go to every copy."""
+        `extras` (MODEL_EXTRAS) go to every copy."""
         if isinstance(lidar2img, (list, tuple)) or lidar2img.dim() == 5:
             l2is = list(lidar2img)
         else:
@@ -145,12 +183,14 @@ class GraphDETR4D(nn.Module):
 
     def forward(self, images: torch.Tensor, lidar2img: torch.Tensor,
                 train: bool = False, generator=None, depth_factors=None,
-                intrinsics=None, ida_scale=None, teacher_query_embed=None):
+                mean_time_stamp=None, intrinsics=None, ida_scale=None,
+                teacher_query_embed=None):
         """images (B, N, H, W, 3) normalized (raw pixels with
         cfg.device_normalize); lidar2img (B, N, 4, 4). train=True draws the
         grid mask and dropout from `generator`, a torch.Generator on the
-        model's device; eval ignores it. depth_factors, intrinsics,
-        ida_scale and teacher_query_embed: see forward_feats."""
+        model's device; eval ignores it. depth_factors, mean_time_stamp,
+        intrinsics, ida_scale and teacher_query_embed: see
+        forward_feats."""
         if not train:
             generator = None
         elif generator is None:
@@ -159,5 +199,6 @@ class GraphDETR4D(nn.Module):
         return self.forward_feats(self.extract_feats(images, generator),
                                   lidar2img, generator,
                                   depth_factors=depth_factors,
+                                  mean_time_stamp=mean_time_stamp,
                                   intrinsics=intrinsics, ida_scale=ida_scale,
                                   teacher_query_embed=teacher_query_embed)

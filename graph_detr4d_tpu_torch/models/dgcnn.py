@@ -34,7 +34,7 @@ from ..ops import voxelize
 from ..utils.device import resolve_device
 from ..utils.math import inverse_sigmoid
 from .head import cls_branch, reg_branch
-from .layers import Conv2d, FrozenBatchNorm, LayerNorm, Linear
+from .layers import Conv2d, FrozenBatchNorm, LayerNorm, Linear, dropout
 from .positional import sine_positional_encoding_2d
 
 DEFAULT_PC_RANGE = (-51.2, -51.2, -5.0, 51.2, 51.2, 3.0)
@@ -106,25 +106,30 @@ def grid_offset_bias(num_heads: int, num_levels: int, num_points: int):
 
 
 class BEVDeformableCrossAttn(nn.Module):
-    """2D multi-scale deformable attention over the BEV pyramid (mmcv's
+    """2D multi-scale deformable attention over a feature pyramid (mmcv's
     MultiScaleDeformableAttention): offsets normalised by each level's
-    (W, H), softmax over levels x points, K1 over all queries."""
+    (W, H), softmax over levels x points, K1 over all queries. The BEV
+    pyramid's cross-attention here; the generic deformable decoder's
+    (models/detr_decoder.py) with per-level reference points and, in
+    training, dropout on the output."""
 
     def __init__(self, embed_dims: int, num_heads: int = 8,
-                 num_levels: int = 4, num_points: int = 4):
+                 num_levels: int = 4, num_points: int = 4,
+                 dropout: float = 0.0):
         super().__init__()
         C = embed_dims
         self.num_heads, self.num_levels = num_heads, num_levels
-        self.num_points = num_points
+        self.num_points, self.dropout = num_points, dropout
         self.sampling_offsets = Linear(C, num_heads * num_levels * num_points * 2)
         self.attention_weights = Linear(C, num_heads * num_levels * num_points)
         self.value_proj = Linear(C, C)
         self.output_proj = Linear(C, C)
 
     def forward(self, query, values: Sequence[torch.Tensor], reference_points,
-                query_pos):
+                query_pos, generator=None):
         """query (B, Q, C); values L x (B, H_l, W_l, C); reference_points
-        (B, Q, 2) in [0, 1] as (x, y)."""
+        (B, Q, 2), or (B, Q, L, 2) one per level, in [0, 1] as (x, y);
+        generator: the output dropout's random source in training."""
         B, Q, C = query.shape
         Hh, L, P = self.num_heads, self.num_levels, self.num_points
         q = query + query_pos
@@ -134,15 +139,18 @@ class BEVDeformableCrossAttn(nn.Module):
         shapes = [(v.shape[1], v.shape[2]) for v in values]
         wh = torch.tensor([[w, h] for h, w in shapes], dtype=torch.float32,
                           device=query.device)
+        ref = reference_points.float()
+        if ref.dim() == 3:
+            ref = ref[:, :, None]  # one point for every level
         # loc and attn stay float32 into K1, as on the camera path
-        loc = (reference_points.float()[:, :, None, None, None, :]
+        loc = (ref[:, :, None, :, None, :]
                + offsets / wh[None, None, None, :, None, :])
         value = self.value_proj(torch.cat(
             [v.reshape(B, -1, C) for v in values], dim=1))
         out = msda_ops.msda_forward(
             value.view(B, -1, Hh, C // Hh), shapes, loc.contiguous(),
             attn.contiguous())
-        return query + self.output_proj(out)
+        return query + dropout(self.output_proj(out), self.dropout, generator)
 
 
 class DGCNN3DHead(nn.Module):

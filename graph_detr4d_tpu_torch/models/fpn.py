@@ -6,6 +6,14 @@ graph_detr4d_tpu/models/fpn.py).
 mmdet quirk kept exactly: the FIRST extra conv sees the raw source without
 relu; `relu_before_extra_convs` inserts relu from the second extra conv on.
 NCHW; nearest-neighbour top-down upsampling.
+
+`cp=True` is the reference's CPFPN (models/necks/cp_fpn.py:182-185), the
+PETR family's neck: the 3x3 output conv exists and runs only on level 0,
+higher levels pass their lateral through. The reference builds no
+`fpn_convs.{i>0}` for those levels, so `fpn_convs` holds the level-0 conv
+and then the extra levels' convs: the JAX module's `fpn_conv{i}` of an
+extra level (i counts from the number of laterals) is `fpn_convs.{i -
+laterals + 1}` here, as the reference appends it.
 """
 
 from typing import Sequence
@@ -44,6 +52,7 @@ class FPN(nn.Module):
         start_level: int = 1,
         num_outs: int = 4,
         relu_before_extra_convs: bool = True,
+        cp: bool = False,
     ):
         super().__init__()
         self.start_level = start_level
@@ -53,9 +62,11 @@ class FPN(nn.Module):
         self.lateral_convs = nn.ModuleList(
             ConvModule(c, out_channels, 1) for c in used
         )
+        # the levels with a 3x3 output conv: all, or level 0 under cp
+        self.conv_levels = 1 if cp else len(used)
         self.fpn_convs = nn.ModuleList(
             ConvModule(out_channels, out_channels, 3, padding=1)
-            for _ in used
+            for _ in range(self.conv_levels)
         )
         for _ in range(len(used), num_outs):
             self.fpn_convs.append(
@@ -69,10 +80,12 @@ class FPN(nn.Module):
             laterals[i - 1] = laterals[i - 1] + _upsample_nearest(
                 laterals[i], laterals[i - 1].shape[-2:]
             )
-        outs = [conv(x) for conv, x in zip(self.fpn_convs, laterals)]
+        n = self.conv_levels
+        outs = [self.fpn_convs[i](x) if i < n else x
+                for i, x in enumerate(laterals)]
         for i in range(len(laterals), self.num_outs):
             src = outs[-1]
             if self.relu_before_extra_convs and i > len(laterals):
                 src = F.relu(src)
-            outs.append(self.fpn_convs[i](src))
+            outs.append(self.fpn_convs[n + i - len(laterals)](src))
         return outs

@@ -41,11 +41,11 @@ import torch
 import torch.nn as nn
 
 from ..config import HeadConfig
-from ..geometry.projection import inv4x4
 from ..utils.math import inverse_sigmoid
 from .camera_aware import DepthNet, SELayerCAMConv
 from .layers import LayerNorm, Linear, SELayer, two_layer_mlp
-from .positional import lid_depth_bins, sine_positional_encoding_3d
+from .positional import (coords_position_3d, lid_depth_bins,
+                         sine_positional_encoding_3d)
 from .transformer import DecoderLayer
 
 
@@ -129,28 +129,11 @@ class Detr3DHeadPE(nn.Module):
         """LID-bin 3D position embedding of one level (:427-491), fp32:
         (B, N, H, W, C) features -> (B, N, H, W, depth_num * 3)."""
         cfg = self.cfg
-        B, N, H, W, _ = feat.shape
-        pad_h, pad_w = self.img_shape
-        dev = feat.device
-        eps = 1e-5
-        coords_h = torch.arange(H, dtype=torch.float32, device=dev) * pad_h / H
-        coords_w = torch.arange(W, dtype=torch.float32, device=dev) * pad_w / W
+        _, _, H, W, _ = feat.shape
         d = lid_depth_bins(cfg.depth_num, cfg.depth_start, cfg.pc_range[3],
-                           device=dev).clamp(min=eps)
-        D = cfg.depth_num
-        shape = (H, W, D)
-        coords = torch.stack([
-            (coords_w[None, :, None] * d).expand(shape),
-            (coords_h[:, None, None] * d).expand(shape),
-            d.expand(shape),
-            torch.ones(shape, device=dev),
-        ], dim=-1)  # (H, W, D, 4) homogeneous (x*d, y*d, d, 1)
-        img2lidar = inv4x4(lidar2img)
-        p3d = torch.einsum("bnij,hwdj->bnhwdi", img2lidar, coords)[..., :3]
-        lo = torch.tensor(cfg.pc_range[:3], device=dev)
-        hi = torch.tensor(cfg.pc_range[3:], device=dev)
-        p3d = inverse_sigmoid((p3d - lo) / (hi - lo))
-        return p3d.reshape(B, N, H, W, D * 3)
+                           device=feat.device)
+        return coords_position_3d(lidar2img, H, W, self.img_shape, d,
+                                  cfg.pc_range)
 
     def self_attn_mask(self, device):
         """H-DETR's (Q, Q) block-diagonal group mask, True = attend; None

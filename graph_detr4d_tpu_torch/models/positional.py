@@ -6,11 +6,17 @@ cumulative-sum embeddings over (camera, y, x) with normalize=True,
 offset=-0.5, temperature 10000; output (B, N, H, W, 3*num_feats).
 `sine_positional_encoding_2d` is mmdet's 2-axis SinePositionalEncoding of
 the LiDAR head (dgcnn3d_head.py:140-141), interleaved sin / cos.
+`coords_position_3d` is the PETR-style per-pixel 3D coordinates that the
+flagship head and the PETR heads embed.
 """
 
 import math
+from typing import Sequence, Tuple
 
 import torch
+
+from ..geometry.projection import inv4x4
+from ..utils.math import inverse_sigmoid
 
 
 def sine_positional_encoding_3d(
@@ -83,3 +89,35 @@ def sine_positional_encoding_2d(
     pos_y = encode(y_embed)[:, None, :].expand(h, w, num_feats)
     pos_x = encode(x_embed)[None, :, :].expand(h, w, num_feats)
     return torch.cat([pos_y, pos_x], dim=-1)
+
+
+def coords_position_3d(lidar2img: torch.Tensor, H: int, W: int,
+                       img_shape: Tuple[int, int], depth: torch.Tensor,
+                       position_range: Sequence[float]) -> torch.Tensor:
+    """Per-pixel 3D coordinates of a (H, W) feature grid (detr3d_head_pe.py:
+    427-491, petr_head.py:282-345), fp32: pixel (x, y) sits at (x * pad_w /
+    W, y * pad_h / H) of the (pad_h, pad_w) = img_shape network input, with
+    no half-pixel offset; each of the D depth bins `depth` (clamped at 1e-5)
+    back-projects through the inverse of lidar2img (B, N, 4, 4), and the
+    points are normalised to position_range (x0, y0, z0, x1, y1, z1) and
+    inverse-sigmoided. Returns (B, N, H, W, D * 3), channels (d, xyz)."""
+    B, N = lidar2img.shape[:2]
+    dev = lidar2img.device
+    pad_h, pad_w = img_shape
+    coords_h = torch.arange(H, dtype=torch.float32, device=dev) * pad_h / H
+    coords_w = torch.arange(W, dtype=torch.float32, device=dev) * pad_w / W
+    d = depth.clamp(min=1e-5)
+    D = d.shape[0]
+    shape = (H, W, D)
+    coords = torch.stack([
+        (coords_w[None, :, None] * d).expand(shape),
+        (coords_h[:, None, None] * d).expand(shape),
+        d.expand(shape),
+        torch.ones(shape, device=dev),
+    ], dim=-1)  # (H, W, D, 4) homogeneous (x*d, y*d, d, 1)
+    img2lidar = inv4x4(lidar2img.float())
+    p3d = torch.einsum("bnij,hwdj->bnhwdi", img2lidar, coords)[..., :3]
+    lo = torch.tensor(position_range[:3], device=dev)
+    hi = torch.tensor(position_range[3:], device=dev)
+    p3d = inverse_sigmoid((p3d - lo) / (hi - lo))
+    return p3d.reshape(B, N, H, W, D * 3)

@@ -48,8 +48,10 @@ def graph_reference_points(ref: torch.Tensor, k: int) -> torch.Tensor:
 class MultiheadAttention(nn.Module):
     """Batch-first multi-head attention with nn.MultiheadAttention's
     parameters (packed in_proj, out_proj), as plain matmuls and a softmax
-    in fp32. An optional (Q, T) bool mask (True = attend; flax
-    MultiHeadDotProductAttention's `mask`) fills the logits it leaves out
+    in fp32. An optional bool mask (True = attend; flax
+    MultiHeadDotProductAttention's `mask`) that broadcasts to the logits
+    (B, heads, Q, T): a (Q, T) query-key mask, or a (B, 1, 1, T) key mask
+    (the PETR heads' padded pixels). It fills the logits it leaves out
     with -inf before the softmax: every row attends to some key, so those
     weights are exact zeros, as flax's finfo.min fill gives."""
 

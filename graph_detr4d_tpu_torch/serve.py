@@ -39,11 +39,17 @@ MANIFEST, WEIGHTS = "manifest.json", "weights.pth"
 
 def extras_spec(cfg, batch_size: int):
     """[(name, shape)] of the extra serving inputs a config needs, in
-    artifact order (tools/export_model.py::_extras_spec): the camera-aware
-    head's intrinsics and ida_scale, scale_pred's depth_factors. (PETRv2's
-    mean_time_stamp waits for that head.)"""
+    artifact order (tools/export_model.py::_extras_spec): the temporal PETR
+    heads' mean_time_stamp (petrv2, and petr_seg on a rig with past-frame
+    cameras), the camera-aware head's intrinsics and ida_scale,
+    scale_pred's depth_factors. Without mean_time_stamp a PETRv2 answer
+    would keep its velocity undivided."""
     B, N = batch_size, cfg.head.num_cams
     spec = []
+    if cfg.head_type == "petrv2" or (
+            cfg.head_type == "petr_seg"
+            and cfg.head.num_cams > cfg.head.num_frame_cams):
+        spec.append(("mean_time_stamp", (B,)))
     if cfg.head.cam_aware:
         spec.append(("intrinsics", (B, N, 4, 4)))
         spec.append(("ida_scale", (B, N)))
@@ -60,6 +66,8 @@ def synth_extra(name, shape):
         v[..., 0, 0] = v[..., 1, 1] = 1000.0
         v[..., 0, 2], v[..., 1, 2] = 400.0, 225.0
         return v
+    if name == "mean_time_stamp":
+        return np.full(shape, 0.5, np.float32)
     return np.ones(shape, np.float32)
 
 
@@ -88,8 +96,9 @@ class Engine:
     the NMS-free decode of the final decoder layer as numpy: 'bboxes'
     (B, max_num, 9), 'scores', 'labels', 'valid' (B, max_num), plus
     'cam_overflow', the in-view queries the per-camera compaction dropped
-    (0 means it was exact). `extras`: the config's extra inputs
-    (`extras_spec`: intrinsics, ida_scale, depth_factors), in that order.
+    (0 means it was exact; always 0 for the dense PETR heads). `extras`:
+    the config's extra inputs (`extras_spec`: mean_time_stamp, intrinsics,
+    ida_scale, depth_factors), in that order.
 
     infer_stream(images, lidar2img, extras, stream) answers a request of a
     video stream from its new frame only (the temporal configs: num_cams

@@ -92,9 +92,8 @@ def load_checkpoint(path: str):
 
 def _model_inputs(batch):
     # the inputs the port's models take: images, lidar2img and the model
-    # extras the batch carries (the camera-aware intrinsics and ida_scale,
-    # scale_pred's depth_factors); PETRv2's mean_time_stamp waits for that
-    # head (ROADMAP Queue 1)
+    # extras the batch carries (PETRv2's mean_time_stamp, the camera-aware
+    # intrinsics and ida_scale, scale_pred's depth_factors)
     return {"images": batch["images"], "lidar2img": batch["lidar2img"],
             **model_extras(batch)}
 

@@ -15,6 +15,7 @@ import torch
 from ..config import ModelConfig
 from ..core.losses import detr3d_loss, hybrid_detr3d_loss
 from ..models.detector import model_extras
+from ..models.petr_seg import lane_mask_loss
 from .optim import build_optimizer, clip_by_global_norm
 
 
@@ -36,22 +37,43 @@ class TrainStep:
         device = self.params[0].device
         self.generator = torch.Generator(device).manual_seed(seed)
 
-    def step(self, batch: dict) -> dict:
-        """batch: images (B, N, H, W, 3), lidar2img (B, N, 4, 4), gt_bboxes
-        (B, G, 9), gt_labels (B, G), gt_valid (B, G), on the model's
-        device, and where the batch has them depth_factors, intrinsics and
-        ida_scale (models/detector.py::MODEL_EXTRAS). Returns the loss metrics and `grad_norm`
-        (before clipping)."""
-        for p in self.params:
-            p.grad = None
+    def loss(self, batch: dict):
+        """The training forward and its loss: (total, metrics of 0-d
+        tensors). batch: images (B, N, H, W, 3), lidar2img (B, N, 4, 4),
+        gt_bboxes (B, G, 9), gt_labels (B, G), gt_valid (B, G), on the
+        model's device, and where the batch has them the model extras
+        (models/detector.py::MODEL_EXTRAS) and PETR-seg's lane targets
+        `maps` (B, P, 768)."""
         out = self.model(batch["images"], batch["lidar2img"], train=True,
                          generator=self.generator, **model_extras(batch))
         total, metrics = self.loss_fn(
             out, batch["gt_bboxes"], batch["gt_labels"], batch["gt_valid"],
             self.cfg.loss, self.cfg.head,
         )
+        if "all_lane_preds" in out and "maps" in batch:
+            # PETR-seg: each layer's positive-balanced BCE on the lane
+            # patches, summed over layers (the JAX step, parallel/step.py:
+            # 85-96)
+            lane = sum(lane_mask_loss(p, batch["maps"])
+                       for p in out["all_lane_preds"])
+            metrics["loss_mask"] = lane
+            total = total + lane
+            metrics["loss"] = total
+        return total, metrics
+
+    def step(self, batch: dict) -> dict:
+        """One step on `batch` (see `loss`). Returns the loss metrics and
+        `grad_norm` (before clipping)."""
+        for p in self.params:
+            p.grad = None
+        total, metrics = self.loss(batch)
         total.backward()
-        grads = [p.grad for p in self.params if p.grad is not None]
+        for p in self.params:
+            if p.grad is None:
+                # a parameter the loss does not reach (the FPN levels a
+                # PETR head does not read): optax still decays it
+                p.grad = torch.zeros_like(p)
+        grads = [p.grad for p in self.params]
         metrics["grad_norm"] = clip_by_global_norm(
             grads, self.cfg.train.grad_clip_norm)
         self.optimizer.step()

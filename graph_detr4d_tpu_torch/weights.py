@@ -16,6 +16,13 @@ map one flax subtree to names relative to the matching port module.
 `distill/distiller.py::Distiller` (the student under `student.`, the
 lateral convs under the port module's names).
 
+The PETR heads (`petr_head_state_dict`) take the reference's names as
+tools/convert_checkpoint.py::convert_state_dict reads them back, which
+is the oracle (export_state_dict does not map them); the neck-less C5
+detector has no `img_neck.*`. `detr_decoder_state_dict_from_jax(params)`
+maps the generic deformable decoder (models/detr_decoder.py), which no
+checkpoint carries, to the port module's names.
+
 `obj_dgcnn_state_dict_from_jax(variables)` does the same for the LiDAR
 detector `models/dgcnn.py::ObjDGCNN`, under names that mirror the JAX tree
 (`pts_bbox_head.layer0_self_attn.conv1.weight`, ...). No upstream
@@ -44,6 +51,7 @@ from .models.attention_variants import (Deform3DCrossAttnMP, Detr3DCrossAtten,
 from .models.dgcnn import BEVDeformableCrossAttn, DGCNN3DHead, grid_offset_bias
 from .models.head import Detr3DHeadPE
 from .models.layers import FrozenBatchNorm, LayerNorm
+from .models.petr_head import PETRHead, RegLayer
 from .models.resnet import DeformConv
 from .models.transformer import MultiheadAttention
 
@@ -186,10 +194,12 @@ def neck_state_dict(params):
     while f"lateral{i}" in params:
         w.conv([f"lateral{i}"], f"lateral_convs.{i}.conv", bias=True)
         i += 1
-    i = 0
-    while f"fpn_conv{i}" in params:
-        w.conv([f"fpn_conv{i}"], f"fpn_convs.{i}.conv", bias=True)
-        i += 1
+    # CPFPN has no fpn_conv{1..laterals-1}: the port's fpn_convs number
+    # the JAX convs present in order (models/fpn.py)
+    convs = sorted(int(k[len("fpn_conv"):]) for k in params
+                   if k.startswith("fpn_conv"))
+    for j, i in enumerate(convs):
+        w.conv([f"fpn_conv{i}"], f"fpn_convs.{j}.conv", bias=True)
     return w.sd
 
 
@@ -276,6 +286,100 @@ def se_camconv_state_dict(params):
     return w.sd
 
 
+def _cls_branch(w, src, dst):
+    for name, idx in (("fc0", 0), ("ln0", 1), ("fc1", 3), ("ln1", 4),
+                      ("out", 6)):
+        (w.ln if name.startswith("ln") else w.lin)(src + [name], f"{dst}.{idx}")
+
+
+def _reg_layer(w, src, dst):
+    """PETRv2's grouped RegLayer: trunk fc{i} at reg_branch.{3i}, groups
+    task{t}_fc / task{t}_out at task_heads.{t}.0 / .2."""
+    node = w.params
+    for k in src:
+        node = node[k]
+    i = 0
+    while f"fc{i}" in node:
+        w.lin(src + [f"fc{i}"], f"{dst}.reg_branch.{3 * i}")
+        i += 1
+    t = 0
+    while f"task{t}_fc" in node:
+        w.lin(src + [f"task{t}_fc"], f"{dst}.task_heads.{t}.0")
+        w.lin(src + [f"task{t}_out"], f"{dst}.task_heads.{t}.2")
+        t += 1
+
+
+def _mlp(w, src, dst):
+    """flax MLP or RegBranch (fc{i}, out) -> a Sequential with Linears at
+    0, 2, ..."""
+    node = w.params
+    for k in src:
+        node = node[k]
+    i = 0
+    while f"fc{i}" in node:
+        w.lin(src + [f"fc{i}"], f"{dst}.{2 * i}")
+        i += 1
+    w.lin(src + ["out"], f"{dst}.{2 * i}")
+
+
+def petr_decoder_layer_state_dict(params):
+    """flax PETRDecoderLayer subtree -> port PETRDecoderLayer names."""
+    w = _Writer(params)
+    for i, name in enumerate(("self_attn", "cross_attn")):
+        w.sd.update(_prefixed(f"attentions.{i}.attn.",
+                              mha_state_dict(params[name])))
+    w.lin(["Dense_0"], "ffns.0.layers.0.0")
+    w.lin(["Dense_1"], "ffns.0.layers.1")
+    for ni in range(3):
+        w.ln([f"norm{ni + 1}"], f"norms.{ni}")
+    return w.sd
+
+
+def petr_head_state_dict(params):
+    """flax PETRHead / PETRHeadSeg subtree -> the reference's names, as
+    tools/convert_checkpoint.py::convert_state_dict reads them back
+    (:226-389). Shared branches (`cls_branch`, `reg_branch`,
+    `lane_branch`) are written at every layer's index, as the reference's
+    checkpoint holds them; per-layer ones (`cls_branch{l}`) at their own."""
+    w = _Writer(params)
+    w.conv(["input_proj"], "input_proj", bias=True)
+    for src in ("position_encoder", "adapt_pos3d"):
+        for j, tidx in enumerate((0, 2)):
+            w.sd[f"{src}.{tidx}.weight"] = _arr(
+                params, [src, f"Dense_{j}", "kernel"]).T[:, :, None, None]
+            w.sd[f"{src}.{tidx}.bias"] = _arr(params, [src, f"Dense_{j}", "bias"])
+    for gate in ("fpe", "se"):
+        if gate in params:
+            w.conv([gate, "reduce"], f"{gate}.conv_reduce", bias=True)
+            w.conv([gate, "expand"], f"{gate}.conv_expand", bias=True)
+    w.sd["reference_points.weight"] = _arr(params, ["reference_points"])
+    streams = [("", "transformer", "query_embedding", "post_norm")]
+    if "lane_layer0" in params:
+        streams.append(("lane_", "transformer_lane", "query_embedding_lane",
+                        "lane_post_norm"))
+    layers = 0
+    while f"layer{layers}" in params:
+        layers += 1
+    for pre, tr, qe, post in streams:
+        for j, tidx in enumerate((0, 2)):
+            w.lin([qe, f"Dense_{j}"], f"{qe}.{tidx}")
+        for lid in range(layers):
+            w.sd.update(_prefixed(
+                f"{tr}.decoder.layers.{lid}.",
+                petr_decoder_layer_state_dict(params[f"{pre}layer{lid}"])))
+        w.ln([post], f"{tr}.decoder.post_norm")
+    reg = _reg_layer if "task0_fc" in params.get(
+        "reg_branch0", params.get("reg_branch", {})) else _mlp
+    shared = "cls_branch" in params
+    for lid in range(layers):
+        sfx = "" if shared else str(lid)
+        _cls_branch(w, ["cls_branch" + sfx], f"cls_branches.{lid}")
+        reg(w, ["reg_branch" + sfx], f"reg_branches.{lid}")
+        if "lane_branch" in params:
+            _mlp(w, ["lane_branch"], f"lane_branches.{lid}")
+    return w.sd
+
+
 def head_state_dict(params, stats=None):
     """flax Detr3DHeadPE subtree (and its batch_stats, which hold the
     camera-aware DepthNet's BN) -> port Detr3DHeadPE names.
@@ -306,15 +410,8 @@ def head_state_dict(params, stats=None):
         w.conv(["fpe", "expand"], "fpe.conv_expand", bias=True)
     lid = 0
     while f"decoder_layer{lid}" in params:
-        c, r = ["cls_branch" + str(lid)], ["reg_branch" + str(lid)]
-        w.lin(c + ["fc0"], f"cls_branches.{lid}.0")
-        w.ln(c + ["ln0"], f"cls_branches.{lid}.1")
-        w.lin(c + ["fc1"], f"cls_branches.{lid}.3")
-        w.ln(c + ["ln1"], f"cls_branches.{lid}.4")
-        w.lin(c + ["out"], f"cls_branches.{lid}.6")
-        w.lin(r + ["fc0"], f"reg_branches.{lid}.0")
-        w.lin(r + ["fc1"], f"reg_branches.{lid}.2")
-        w.lin(r + ["out"], f"reg_branches.{lid}.4")
+        _cls_branch(w, [f"cls_branch{lid}"], f"cls_branches.{lid}")
+        _mlp(w, [f"reg_branch{lid}"], f"reg_branches.{lid}")
         w.sd.update(_prefixed(
             f"transformer.decoder.layers.{lid}.",
             decoder_layer_state_dict(params[f"decoder_layer{lid}"])))
@@ -328,10 +425,36 @@ def state_dict_from_jax(variables) -> "OrderedDict[str, torch.Tensor]":
     sd = OrderedDict()
     sd.update(_prefixed("img_backbone.", any_backbone_state_dict(
         params["backbone"], stats["backbone"])))
-    sd.update(_prefixed("img_neck.", neck_state_dict(params["neck"])))
-    sd.update(_prefixed("pts_bbox_head.", head_state_dict(
-        params["head"], stats.get("head"))))
+    if "neck" in params:  # the neck-less C5 detector has none
+        sd.update(_prefixed("img_neck.", neck_state_dict(params["neck"])))
+    head = (petr_head_state_dict(params["head"]) if "input_proj" in params["head"]
+            else head_state_dict(params["head"], stats.get("head")))
+    sd.update(_prefixed("pts_bbox_head.", head))
     return to_torch(sd)
+
+
+def detr_decoder_state_dict_from_jax(params) -> "OrderedDict[str, torch.Tensor]":
+    """flax Deformable3DDetrTransformerDecoder params (`layer{l}`) -> the
+    port module's names (models/detr_decoder.py: `layers.{l}.attentions.0.
+    attn.*`, `attentions.1.{sampling_offsets, attention_weights,
+    value_proj, output_proj}`, `ffns.0.layers.{0.0,1}`, `norms.{0,1,2}`).
+    No reference checkpoint carries this decoder, so no reference names
+    exist to follow."""
+    w = _Writer(params)
+    lid = 0
+    while f"layer{lid}" in params:
+        src, dst = f"layer{lid}", f"layers.{lid}"
+        w.sd.update(_prefixed(f"{dst}.attentions.0.attn.",
+                              mha_state_dict(params[src]["self_attn"])))
+        for name in ("sampling_offsets", "attention_weights", "value_proj",
+                     "output_proj"):
+            w.lin([src, "cross_attn", name], f"{dst}.attentions.1.{name}")
+        w.lin([src, "ffn", "Dense_0"], f"{dst}.ffns.0.layers.0.0")
+        w.lin([src, "ffn", "Dense_1"], f"{dst}.ffns.0.layers.1")
+        for ni in range(3):
+            w.ln([src, f"norm{ni + 1}"], f"{dst}.norms.{ni}")
+        lid += 1
+    return to_torch(w.sd)
 
 
 def distiller_state_dict_from_jax(variables) -> "OrderedDict[str, torch.Tensor]":
@@ -584,6 +707,18 @@ def init_weights(model: nn.Module, seed: int = 0):
                 branch[-1].bias.fill_(CLS_PRIOR_BIAS)
             for branch in m.reg_branches:
                 branch[-1].weight.mul_(REG_OUT_SCALE)
+        elif isinstance(m, PETRHead):
+            # uniform in [0, 1), flax's uniform(scale=1.0)
+            m.reference_points.weight.copy_(
+                torch.rand(m.reference_points.weight.shape, generator=g))
+            # v1 shares one branch across the layers: scale it once
+            for branch in dict.fromkeys(m.cls_branches):
+                branch[-1].bias.fill_(CLS_PRIOR_BIAS)
+            for branch in dict.fromkeys(m.reg_branches):
+                outs = ([h[-1] for h in branch.task_heads]
+                        if isinstance(branch, RegLayer) else [branch[-1]])
+                for lin in outs:
+                    lin.weight.mul_(REG_OUT_SCALE)
         elif isinstance(m, BEVDeformableCrossAttn):
             for lin in (m.value_proj, m.output_proj):
                 _xavier_uniform(lin.weight, g)

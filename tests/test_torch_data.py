@@ -253,13 +253,6 @@ def test_tta_copies_carry_the_tta_ida_composition(ann_file):
         np.testing.assert_array_equal(b["lidar2img"][a, 0], want)
 
 
-def test_load_maps_is_refused_until_petr_seg_is_ported(ann_file):
-    s = port_nusc.NuScenesSweepDataset(ann_file, test_mode=True).sample(0)
-    s["map_filename"] = "/nowhere/map.npz"
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        port_pipe.build_batch([s], FINAL_HW, src_hw=SRC_HW)
-
-
 def test_photometric_and_hsv_match_jax():
     rng = np.random.RandomState(0)
     img = rng.randint(0, 256, (20, 30, 3)).astype(np.uint8)

@@ -3,8 +3,9 @@
 
 * the port's manifest against the JAX manifest: the same keys and values
   apart from `platforms` and `size_bytes` (and the port's own
-  `cfg_options`), for the plain, `--streaming`, `--uint8-input` and a
-  camera-aware `--tiny --cfg-options` export;
+  `cfg_options`), for the plain, `--streaming`, `--uint8-input`, a
+  camera-aware and a PETRv2 (`mean_time_stamp` among the extras) `--tiny
+  --cfg-options` export;
 * the port's server answers against the JAX Engine on the JAX artifact of
   the same weights (the JAX export's init at PRNGKey(0), carried over by
   weights.state_dict_from_jax into a reference-layout .pth): labels equal,
@@ -47,6 +48,7 @@ EXPORTS = {  # export flags of each manifest case
     "uint8": ["--tiny", "--uint8-input"],
     "camaware": ["--tiny", "--cfg-options", "head.cam_aware=true",
                  "head.scale_pred=true"],
+    "petrv2": ["--tiny", "--cfg-options", "head_type=petrv2"],
 }
 
 
@@ -99,7 +101,7 @@ def artifacts(tmp_path_factory):
         jax.tree_util.tree_map(np.asarray, v))}, pth)
     jdirs, out = jax_exports(root), {}
     for name, flags in EXPORTS.items():
-        ckpt = ["--checkpoint", pth] if name != "camaware" else []
+        ckpt = ["--checkpoint", pth] if name not in ("camaware", "petrv2") else []
         pdir = port_export_dir(str(root / f"port_{name}"), flags + ckpt,
                                verify=name in ("plain", "streaming"))
         out[name] = (jdirs[name], pdir)
@@ -124,6 +126,8 @@ def test_manifest_matches_jax(artifacts, name):
                                 else [])
     assert got["size_bytes"] == os.path.getsize(os.path.join(pdir,
                                                              "weights.pth"))
+    if name == "petrv2":  # PETRv2's velocity needs the frames' time delta
+        assert got["extras"] == ["mean_time_stamp"]
     # the manifest rebuilds the model: the artifact runs
     r = export_model.main(["--run", pdir, "--device", "cpu"])
     assert r["detections_shape"][0] == 1

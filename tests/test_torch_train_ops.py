@@ -388,3 +388,26 @@ def test_train_step_refuses_what_it_does_not_train():
     with pytest.raises(ValueError):
         model(torch.zeros(1, 6, 64, 128, 3), torch.eye(4).expand(1, 6, 4, 4),
               train=True)
+    # the PETR family is trained since it was ported: PETRv2 steps, with
+    # mean_time_stamp, and every parameter moves or decays
+    from graph_detr4d_tpu_torch.data.synthetic import synthetic_batch
+    from graph_detr4d_tpu_torch.weights import init_weights
+
+    petr = dataclasses.replace(cfg, head_type="petrv2")
+    petr_model = GraphDETR4D(petr, device="cpu")
+    init_weights(petr_model, seed=0)
+    before = {n: p.detach().clone() for n, p in petr_model.named_parameters()}
+    batch = {k: torch.from_numpy(np.asarray(a))
+             for k, a in synthetic_batch(petr, seed=0, num_gt=5).items()}
+    batch["mean_time_stamp"] = torch.tensor([0.5])
+    metrics = TrainStep(petr_model, petr).step(batch)
+    assert np.isfinite(float(metrics["loss"]))
+    after = dict(petr_model.named_parameters())
+    assert all(not torch.equal(p.detach(), before[n])
+               for n, p in after.items() if n.startswith("pts_bbox_head."))
+    # an FPN level the head does not read only decays, as optax decays it
+    tc = petr.train
+    lr0 = tc.lr * optim.lr_factor(tc, 0)
+    key = "img_neck.fpn_convs.1.conv.weight"
+    torch.testing.assert_close(after[key].detach(),
+                               before[key] * (1 - lr0 * tc.weight_decay))

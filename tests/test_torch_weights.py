@@ -37,7 +37,8 @@ import graph_detr4d_tpu.configs as jax_configs  # noqa: E402
 from graph_detr4d_tpu.models import GraphDETR4D as JaxGraphDETR4D  # noqa: E402
 import graph_detr4d_tpu_torch.config as port_config  # noqa: E402
 import graph_detr4d_tpu_torch.configs as port_configs  # noqa: E402
-from graph_detr4d_tpu_torch.models.detector import GraphDETR4D  # noqa: E402
+from graph_detr4d_tpu_torch.models.detector import (  # noqa: E402
+    GraphDETR4D, check_supported)
 from graph_detr4d_tpu_torch.serve import Engine  # noqa: E402
 from graph_detr4d_tpu_torch.weights import state_dict_from_jax  # noqa: E402
 
@@ -191,7 +192,10 @@ def test_named_configs_equal_jax(name):
     for o in ([], ovs):
         assert dataclasses.asdict(port_configs.get_config(name, o)) == \
             dataclasses.asdict(jax_configs.get_config(name, o))
-    assert FLAGSHIP in port_configs.list_configs()
+    # the port registers every model of the JAX registry (35 since the
+    # PETR family), and builds each
+    assert port_configs.list_configs() == jax_configs.list_configs()
+    check_supported(port_configs.get_config(name))
 
 
 def _imports(path):
