@@ -235,6 +235,27 @@ IoU, and prints one JSON line per phase:
               one decoder layer's dense cross-attention at the main
               config's keys: the plain route, its core, and off the path
               F.scaled_dot_product_attention on the same q, k, v.
+ 18. dist     the flagship train step under a torch.distributed process
+              group (parallel/mesh.py; the card's machine has one GPU, so
+              no time here is a multi-GPU time): (a) a world-size-1 NCCL
+              group in this process: one fp32 step through
+              TrainStep(mesh=make_mesh()) against the step without a
+              group (train_plain's bounds), the one-rank all-reduce / 1
+              bit-equal, its bytes equal to every parameter in fp32, and 3
+              bf16 steps timed each way beside the coalesced all-reduce's
+              ms; (b) two ranks sharing the card over gloo (NCCL refuses
+              two ranks on one device), data=2: one fp32 step on a global
+              batch of 2, one sample a rank, against one process on the
+              same batch (train_plain's bounds, each rank's assignments
+              identical to its image's); (c) the same two ranks as cam=2,
+              6 cameras a rank: an fp32 forward against one process
+              (phase plain's bounds, cam_overflow summed equal) and one
+              fp32 step (train_plain's bounds), each rank launching K1 6
+              / K2 9 a forward and a step's STEP_LAUNCHES for its
+              cameras; (d) one bf16 step with head.fix_offset: the
+              offsets' update AdamW's pure decay within 1e-6 relative.
+              Each rank prints its card's name and power limit; a rank's
+              failure or timeout fails the phase.
 Phase `kernels` also holds K3 (the fused int8-table conv, fp32 within
 1e-4 and bf16 within one bf16 step of the output's magnitude, both
 strides, the flagship's 7 int8 DCN shapes, with `gemm_ref_ms` as K2's),
@@ -837,14 +858,28 @@ def dcn_backward_bound_ms(x, offsets, w):
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+def smi_line():
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+
+
+def fp32_step_config(cfg):
+    """train_plain's configuration: fp32, dropout 0, grid mask off."""
+    return dataclasses.replace(
+        cfg, bf16=False, head=dataclasses.replace(cfg.head, dropout=0.0),
+        train=dataclasses.replace(cfg.train, use_grid_mask=False))
+
+
+def cuda_batch(batch):
+    return {k: torch.as_tensor(v).cuda() for k, v in batch.items()}
+
+
 def phase_build():
     t0 = time.perf_counter()
     nvcc = build.build()
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()[0]
+    smi = smi_line()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": nvcc, "card": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda})
@@ -2693,11 +2728,8 @@ def phase_train_plain(cfg, sd, phase="train_plain",
     of the step (H-DETR's one2one and one2many groups: two) is compared.
     extras: batch entries besides train_batch's (PETRv2's
     mean_time_stamp)."""
-    cfg32 = dataclasses.replace(
-        cfg, bf16=False, head=dataclasses.replace(cfg.head, dropout=0.0),
-        train=dataclasses.replace(cfg.train, use_grid_mask=False))
-    batch = {k: torch.as_tensor(v).cuda()
-             for k, v in {**train_batch(cfg32), **(extras or {})}.items()}
+    cfg32 = fp32_step_config(cfg)
+    batch = cuda_batch({**train_batch(cfg32), **(extras or {})})
     metrics, counts, calls = {}, {}, {}
     for route, ctx in (("kernels", contextlib.nullcontext),
                        ("plain", plain_kernels)):
@@ -3697,11 +3729,7 @@ def distill_plain(bundle):
     or, where the two routes' rounding picks another optimum, at the same
     summed cost within 1e-5 (phase train_plain's rule), the differing rows
     counted."""
-    def fp32(c):
-        return dataclasses.replace(
-            c, bf16=False, head=dataclasses.replace(c.head, dropout=0.0),
-            train=dataclasses.replace(c.train, use_grid_mask=False))
-
+    fp32 = fp32_step_config
     batch = distill_batch(bundle, fp32(bundle.teacher))
     metrics, counts, calls = {}, {}, {}
     for route, ctx in (("kernels", contextlib.nullcontext),
@@ -4271,6 +4299,311 @@ def phase_petr(dev):
     return total
 
 
+# phase dist: the flagship train step under a torch.distributed process
+# group. The card's machine has one GPU: (a) a world-size-1 NCCL group in
+# this process (the NCCL code path), then two ranks sharing the card over
+# gloo (NCCL refuses two ranks on one device): (b) data=2, one sample a
+# rank, and (c) cam=2, 6 cameras a rank; (d) a bf16 step with
+# head.fix_offset. Times of the two ranks are of processes sharing one
+# card: no multi-GPU time exists.
+DIST_TIMED_STEPS = 3
+DIST_SPAWN_TIMEOUT_S = 420.0
+# (d): the offsets' update against AdamW's pure decay, relative
+FIX_OFFSET_RTOL = 1e-6
+
+
+
+
+
+
+def step_record(step, batch):
+    """One TrainStep.step with its K4 calls recorded and the launches
+    counted from 0: (float metrics, launches, [(cost, num_valid, col4row)]
+    on the host)."""
+    calls = []
+    reset_launch_counts()
+    with record_assignments(calls):
+        m = step.step(batch)
+    torch.cuda.synchronize()
+    return ({k: float(v) for k, v in m.items()}, launch_counts(),
+            [(c.cpu().numpy(), n.cpu().numpy(), a.cpu().numpy())
+             for c, n, a in calls])
+
+
+def check_step_against(name, got, want, rtol=TRAIN_PLAIN_RTOL,
+                       grad_norm_rtol=TRAIN_PLAIN_GRAD_NORM_RTOL):
+    """train_plain's bounds on two runs' metrics; returns the relative
+    errors."""
+    rel = {k: abs(got[k] - want[k]) / max(abs(want[k]), 1e-12) for k in want}
+    for k, e in rel.items():
+        tol = grad_norm_rtol if k == "grad_norm" else rtol
+        if not e <= tol:
+            raise AssertionError(f"{name}: {k} {got[k]} vs {want[k]}: "
+                                 f"{e} > {tol}")
+    return rel
+
+
+def check_assignments(name, got, want, rows):
+    """K4's answers of one rank (`got`, its problems in order) against the
+    one-process call's rows `rows` of `want`: identical, or at an equal
+    optimum cost within 1e-5. Returns the rows that differ a problem."""
+    if len(got) != 1 or len(want) != 1:
+        raise AssertionError(f"{name}: K4 calls {len(got)} / {len(want)}")
+    (ck, nk, ak), (cw, nw, aw) = ([torch.from_numpy(x) for x in call]
+                                  for call in (got[0], want[0]))
+    differ = []
+    for i, j in enumerate(rows):
+        d = int((ak[i] != aw[j]).sum())
+        differ.append(d)
+        if d:
+            a = assignment_cost(ck[i:i + 1], nk[i:i + 1], ak[i:i + 1])[0]
+            b = assignment_cost(cw[j:j + 1], nw[j:j + 1], aw[j:j + 1])[0]
+            if not abs(a - b) <= 1e-5 * max(abs(b), 1e-12):
+                raise AssertionError(f"{name}: problem {i}: {d} rows "
+                                     f"assigned otherwise at cost {a} vs {b}")
+    return differ
+
+
+def forward_outputs(model, batch):
+    with torch.no_grad():
+        out = model(batch["images"], batch["lidar2img"])
+    return ({k: out[k].float().cpu().numpy() for k in
+             ("all_cls_scores", "all_bbox_preds")},
+            float(out["cam_overflow"]))
+
+
+
+
+def dist_rank(rank, world):
+    """One of two ranks sharing the card over gloo: (b) one fp32 step of a
+    data=2 mesh on sample `rank` of the global batch of 2; (c) on a cam=2
+    mesh, an fp32 forward and one fp32 step with this rank's 6 cameras.
+    Returns host values only."""
+    from graph_detr4d_tpu_torch.models.detector import shard_cameras
+    from graph_detr4d_tpu_torch.parallel.mesh import (
+        init_distributed, make_mesh, make_mesh_2d, shard_batch)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    init_distributed("cuda", backend="gloo", timeout_s=DIST_SPAWN_TIMEOUT_S)
+    cfg32 = fp32_step_config(get_config(CONFIG))
+    sd = random_state_dict(get_config(CONFIG))
+    out = {"card": smi_line()}
+
+    model = GraphDETR4D(cfg32)
+    model.load_state_dict(sd, strict=True)
+    step = TrainStep(model, cfg32, seed=0, mesh=make_mesh())
+    global2 = synthetic_batch(cfg32, 2, seed=0, num_gt=NUM_GT)
+    local = cuda_batch({k: v[rank:rank + 1] for k, v in global2.items()})
+    torch.cuda.reset_peak_memory_stats()
+    metrics, launches, calls = step_record(step, local)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    step.step(local)
+    end.record()
+    end.synchronize()
+    out["data"] = {"metrics": metrics, "launches": launches, "calls": calls,
+                   "reduced_bytes": step.reduced_bytes,
+                   "second_step_ms_shared_card": start.elapsed_time(end),
+                   "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+    del model, step, local
+    torch.cuda.empty_cache()
+
+    mesh2 = make_mesh_2d(cam=2)
+    model = GraphDETR4D(cfg32)
+    model.load_state_dict(sd, strict=True)
+    shard_cameras(model, mesh2)
+    batch = cuda_batch(shard_batch(train_batch(cfg32), mesh2))
+    reset_launch_counts()
+    fwd, overflow = forward_outputs(model, batch)
+    fwd_launches = launch_counts()
+    step = TrainStep(model, cfg32, seed=0, mesh=mesh2)
+    metrics, launches, calls = step_record(step, batch)
+    out["cam"] = {"forward": fwd, "cam_overflow": overflow,
+                  "cameras": int(batch["images"].shape[1]),
+                  "forward_launches": fwd_launches, "metrics": metrics,
+                  "launches": launches, "calls": calls}
+    return out
+
+
+def phase_dist(cfg, sd):
+    """(a)-(d) above; returns the launches of the path (this process's
+    distributed steps and both ranks')."""
+    import torch.distributed as dist
+
+    from graph_detr4d_tpu_torch.parallel import mesh as mesh_mod
+    from graph_detr4d_tpu_torch.train.optim import lr_factor
+
+    t0 = time.perf_counter()
+    cfg32 = fp32_step_config(cfg)
+    path = dict.fromkeys(launch_counts(), 0)
+    param_bytes = 4 * sum(p.numel() for p in
+                          GraphDETR4D(cfg, device="cpu").parameters())
+
+    def build(c, mesh=None):
+        model = GraphDETR4D(c)
+        model.load_state_dict(sd, strict=True)
+        return TrainStep(model, c, seed=0, mesh=mesh)
+
+    # (a) NCCL, world size 1, in this process
+    os.environ.update(MASTER_ADDR="localhost", RANK="0", WORLD_SIZE="1",
+                      LOCAL_RANK="0",
+                      MASTER_PORT=str(mesh_mod.free_port()))
+    mesh_mod.init_distributed("cuda")
+    try:
+        if dist.get_backend() != "nccl":
+            raise AssertionError(f"backend {dist.get_backend()}, not nccl")
+        mesh = mesh_mod.make_mesh()
+        batch = cuda_batch(train_batch(cfg32))
+        ref = build(cfg32)
+        want, _, _ = step_record(ref, batch)
+        del ref
+        torch.cuda.empty_cache()
+        step = build(cfg32, mesh)
+        got, launches, _ = step_record(step, batch)
+        check_step_launches("dist (a)", launches, 1, STEP_LAUNCHES)
+        add_counts(path, launches)
+        nccl_rel = check_step_against("dist (a) NCCL world 1", got, want)
+        grads = [p.grad for p in step.model.parameters()]
+        copies = [g.clone() for g in grads]
+        reduced = mesh_mod.all_reduce_mean_(copies)
+        sum_div_1_err = max(float((c - g).abs().max())
+                            for c, g in zip(copies, grads))
+        del step, grads, copies
+        torch.cuda.empty_cache()
+        # bf16 steps both ways, and the all-reduce alone
+        bf16 = {}
+        batch16 = cuda_batch(train_batch(cfg))
+        for way, m in (("one_process", None), ("nccl_world_1", mesh)):
+            s = build(cfg, m)
+            times, _, launches, peak = timed_train_steps(
+                s.step, batch16, DIST_TIMED_STEPS)
+            if m is not None:
+                add_counts(path, launches)
+                check_step_launches("dist (a) bf16", launches,
+                                    DIST_TIMED_STEPS, STEP_LAUNCHES)
+                grads = [p.grad for p in s.model.parameters()]
+                ar_ms = cuda_ms(lambda: mesh_mod.all_reduce_mean_(grads), 5)
+            bf16[way] = {"ms_per_step": times, "peak_memory_bytes": peak}
+            del s
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+        for k in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE",
+                  "LOCAL_RANK"):
+            os.environ.pop(k, None)
+    record_a = {"rel_err": nccl_rel, "sum_div_1_max_abs_diff": sum_div_1_err,
+                "all_reduce_bytes": reduced, "predicted_bytes": param_bytes,
+                "all_reduce_ms": ar_ms, "bf16": bf16}
+    if sum_div_1_err != 0.0:
+        raise AssertionError(f"dist (a): all-reduce / 1 differs by "
+                             f"{sum_div_1_err}")
+    if reduced != param_bytes:
+        raise AssertionError(f"dist (a): reduced {reduced} bytes, the "
+                             f"parameters hold {param_bytes}")
+
+    # the one-process references of (b) and (c), freed before the ranks
+    global2 = synthetic_batch(cfg32, 2, seed=0, num_gt=NUM_GT)
+    ref = build(cfg32)
+    want2, _, calls2 = step_record(ref, cuda_batch(global2))
+    del ref
+    ref = build(cfg32)
+    batch = cuda_batch(train_batch(cfg32))
+    ref.model.eval()
+    want_fwd, want_overflow = forward_outputs(ref.model, batch)
+    want1, _, calls1 = step_record(ref, batch)
+    del ref, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) and (c): two ranks sharing the card over gloo
+    ranks = mesh_mod.spawn_ranks(dist_rank, 2, timeout_s=DIST_SPAWN_TIMEOUT_S)
+    layers = cfg.head.num_decoder_layers
+    record_b, record_c = {}, {}
+    for r, res in enumerate(ranks):
+        d, c = res["data"], res["cam"]
+        rb = {"card": res["card"]}
+        rb["rel_err"] = check_step_against(f"dist (b) rank {r}",
+                                           d["metrics"], want2)
+        rb["assignment_rows_differing_per_layer"] = check_assignments(
+            f"dist (b) rank {r}", d["calls"], calls2,
+            [l * 2 + r for l in range(layers)])
+        check_step_launches(f"dist (b) rank {r}", d["launches"], 1,
+                            STEP_LAUNCHES)
+        if d["reduced_bytes"] != param_bytes:
+            raise AssertionError(f"dist (b): {d['reduced_bytes']} bytes")
+        rb.update(launches=d["launches"], all_reduce_bytes=d["reduced_bytes"],
+                  second_step_ms_shared_card=d["second_step_ms_shared_card"],
+                  peak_memory_bytes=d["peak_memory_bytes"])
+        add_counts(path, d["launches"])
+        record_b[f"rank{r}"] = rb
+
+        if c["cameras"] != cfg.head.num_cams // 2:
+            raise AssertionError(f"dist (c): rank {r} holds {c['cameras']}")
+        errs = layer_errors(
+            *({k: torch.from_numpy(v) for k, v in o.items()}
+              for o in (c["forward"], want_fwd)))
+        check_layer_errors(f"dist (c) rank {r} forward", errs)
+        if c["cam_overflow"] != want_overflow:
+            raise AssertionError(f"dist (c): cam_overflow {c['cam_overflow']}"
+                                 f" vs {want_overflow}")
+        # the rank's cameras: a K1 launch a layer, the 9 DCN convs
+        check_step_launches(f"dist (c) rank {r} forward",
+                            c["forward_launches"], 1,
+                            {"msda_forward": MSDA_CALLS,
+                             "deform_conv_forward": DCN_CALLS})
+        check_step_launches(f"dist (c) rank {r} step", c["launches"], 1,
+                            STEP_LAUNCHES)
+        rc = {"max_abs_err_per_layer": errs, "cam_overflow": c["cam_overflow"],
+              "cameras": c["cameras"],
+              "rel_err": check_step_against(f"dist (c) rank {r}",
+                                            c["metrics"], want1),
+              "assignment_rows_differing_per_layer": check_assignments(
+                  f"dist (c) rank {r}", c["calls"], calls1, range(layers)),
+              "forward_launches": c["forward_launches"],
+              "launches": c["launches"]}
+        add_counts(path, c["forward_launches"])
+        add_counts(path, c["launches"])
+        record_c[f"rank{r}"] = rc
+
+    # (d) head.fix_offset, bf16
+    fixed = dataclasses.replace(cfg, head=dataclasses.replace(
+        cfg.head, fix_offset=True))
+    step = build(fixed)
+    offsets = {n: p.detach().clone() for n, p in step.model.named_parameters()
+               if "deform_sampling_offsets" in n}
+    main_w = "pts_bbox_head.cls_branches.0.0.weight"
+    before_main = step.model.state_dict()[main_w].clone()
+    metrics, launches, _ = step_record(step, cuda_batch(train_batch(fixed)))
+    check_step_launches("dist (d)", launches, 1, STEP_LAUNCHES)
+    add_counts(path, launches)
+    check_finite_metrics("dist (d)", [metrics])
+    lr0 = fixed.train.lr * lr_factor(fixed.train, 0)
+    decay = 1.0 - lr0 * fixed.train.weight_decay
+    named = dict(step.model.named_parameters())
+    fix_err = max(float(((named[n].detach().double() - p.double() * decay).abs()
+                         / (p.double() * decay).abs().clamp(min=1e-30)).max())
+                  for n, p in offsets.items())
+    if not fix_err <= FIX_OFFSET_RTOL:
+        raise AssertionError(f"dist (d): offsets' update off pure decay by "
+                             f"{fix_err}")
+    if torch.equal(step.model.state_dict()[main_w], before_main):
+        raise AssertionError(f"dist (d): {main_w} did not move")
+    del step
+    torch.cuda.empty_cache()
+    emit({"phase": "dist", "config": CONFIG,
+          "note": "one H100: (a) is a world-size-1 NCCL group; (b) and (c) "
+                  "are two processes sharing one card over gloo, so their "
+                  "times are no multi-GPU time",
+          "nccl_world_1": record_a, "data2_gloo_shared_card": record_b,
+          "cam2_gloo_shared_card": record_c,
+          "fix_offset": {"offsets_rel_err_vs_pure_decay": fix_err,
+                         "offset_tensors": len(offsets), "lr0": lr0,
+                         "metrics": metrics},
+          "launches": path, "seconds": time.perf_counter() - t0})
+    return path
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4334,13 +4667,15 @@ def main():
     distill_launches, kernels["hungarian"]["distill"] = phase_distill(dev)
     torch.cuda.empty_cache()
     petr_launches = phase_petr(dev)
+    torch.cuda.empty_cache()
+    dist_launches = phase_dist(cfg, sd)
 
     paths = {**serving, "serve_int8": int8_launches, "train": train_launches,
              "data": data_launches, "lidar": lidar_launches, "iou": iou_launches,
              "lidar_grad": lidar_grad_launches, "hdetr": hdetr_launches,
              "camaware": camaware_launches, "http": http_launches,
              "backbones": backbone_launches, "distill": distill_launches,
-             "petr": petr_launches}
+             "petr": petr_launches, "dist": dist_launches}
     serving_total = {k: sum(c[k] for c in serving.values())
                      for k in serve_launches}
     table = []

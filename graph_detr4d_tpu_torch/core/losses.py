@@ -11,9 +11,13 @@ every layer and image, one K5 launch gives every layer's focal loss.
 `hybrid_detr3d_loss` adds H-DETR's one2many set loss (a second K4 and K5
 launch) over the GT tiled k_one2many times.
 
-The reference's two `reduce_mean` sync points (the JAX package's
-`lax.pmean`) are the identity on one GPU; multi-GPU training is not
-ported yet.
+The reference's two `reduce_mean` sync points (:824-826, :834-835; the
+JAX package's `lax.pmean`) are parallel/mesh.py::reduce_mean over the
+`data` group a caller passes (`group`): the classification avg factor
+(when `sync_cls_avg_factor`) and the positive count of the L1 term. Rank
+r's loss is then sum_r / (avg_G / W), and the gradient averaged over the
+W ranks (train/step.py) is grad sum_G / avg_G, the JAX step's over the
+global batch. Without a group they are the identity.
 """
 
 import torch
@@ -21,6 +25,7 @@ import torch
 from ..config import HeadConfig, LossConfig
 from ..geometry.boxes import normalize_bbox
 from ..ops import focal_loss as focal_ops
+from ..parallel.mesh import reduce_mean
 from .matching import match_targets
 
 
@@ -32,10 +37,12 @@ def loss_single_layer(
     gt_valid: torch.Tensor,  # (B, G)
     loss_cfg: LossConfig,
     head_cfg: HeadConfig,
+    group=None,
 ):
     """The JAX package's `loss_single_layer` for every decoder layer at
     once (the leading axis), as `detr3d_loss` vmaps it. Returns
-    (loss_cls, loss_bbox, num_total_pos), each of shape (layers,)."""
+    (loss_cls, loss_bbox, num_total_pos), each of shape (layers,); the
+    sync points reduce over `group` (see the module docstring)."""
     layers, B, Q, C = cls_scores.shape
 
     def per_layer(t):
@@ -51,6 +58,8 @@ def loss_single_layer(
     num_total_pos = t.num_pos.sum(-1)
     # classification avg factor = pos + bg_weight * neg (:822-828)
     cls_avg = num_total_pos + loss_cfg.bg_cls_weight * (B * Q - num_total_pos)
+    if loss_cfg.sync_cls_avg_factor:
+        cls_avg = reduce_mean(cls_avg, group)
     cls_avg = cls_avg.clamp(min=1.0)
     loss_cls = loss_cfg.cls_weight * focal_ops.sigmoid_focal_loss(
         cls_scores.reshape(layers, B * Q, C).float(),
@@ -62,7 +71,7 @@ def loss_single_layer(
     )
 
     # regression: weighted L1 on normalized targets (:837-845)
-    num_pos = num_total_pos.clamp(min=1.0)
+    num_pos = reduce_mean(num_total_pos, group).clamp(min=1.0)
     codes = normalize_bbox(t.bbox_targets.reshape(layers, B * Q, -1))
     finite = torch.isfinite(codes).all(-1, keepdim=True)
     codes = torch.where(finite, codes, 0.0)
@@ -82,12 +91,14 @@ def detr3d_loss(
     gt_valid: torch.Tensor,
     loss_cfg: LossConfig,
     head_cfg: HeadConfig,
+    group=None,
 ):
     """Sum of the per-decoder-layer losses and a metrics dict of 0-d
-    tensors named as the JAX package names them (:1013-1094)."""
+    tensors named as the JAX package names them (:1013-1094). `group`:
+    the data group the sync points reduce over, or None."""
     lcs, lbs, nposs = loss_single_layer(
         preds["all_cls_scores"], preds["all_bbox_preds"], gt_bboxes,
-        gt_labels, gt_valid, loss_cfg, head_cfg,
+        gt_labels, gt_valid, loss_cfg, head_cfg, group,
     )
     total = lcs.sum() + lbs.sum()
     num_layers = lcs.shape[0]
@@ -108,21 +119,22 @@ def hybrid_detr3d_loss(
     gt_valid: torch.Tensor,
     loss_cfg: LossConfig,
     head_cfg: HeadConfig,
+    group=None,
 ):
     """H-DETR's hybrid loss (the JAX `hybrid_detr3d_loss`,
     h_detr3d_head_pe.py:616-668): the one2one set loss plus
     lambda_one2many times the one2many group's set loss against the GT
     tiled k_one2many times (g0..g(G-1), g0.., as jnp.tile: validity is not
     a prefix). Metrics `o2m.<key>` hold the one2many loss terms already
-    scaled by lambda."""
+    scaled by lambda. Both set losses sync over `group`."""
     total, metrics = detr3d_loss(preds, gt_bboxes, gt_labels, gt_valid,
-                                 loss_cfg, head_cfg)
+                                 loss_cfg, head_cfg, group)
     k = head_cfg.k_one2many
     o2m_preds = {"all_cls_scores": preds["all_cls_scores_one2many"],
                  "all_bbox_preds": preds["all_bbox_preds_one2many"]}
     o2m_total, o2m_metrics = detr3d_loss(
         o2m_preds, gt_bboxes.repeat(1, k, 1), gt_labels.repeat(1, k),
-        gt_valid.repeat(1, k), loss_cfg, head_cfg)
+        gt_valid.repeat(1, k), loss_cfg, head_cfg, group)
     lam = head_cfg.lambda_one2many
     total = total + lam * o2m_total
     for key, v in o2m_metrics.items():

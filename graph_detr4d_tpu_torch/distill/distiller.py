@@ -161,14 +161,15 @@ def instance_distill_loss(teacher_outs: dict, student_outs: dict,
 
 def distill_loss(student_outs: dict, student_adapted_feats, teacher_outs: dict,
                  teacher_feats, gt_bboxes, gt_labels, gt_valid,
-                 cfg: ModelConfig, dcfg: DistillConfig):
-    """(total loss, metrics): the student's GT set loss (detr3d_loss) plus
+                 cfg: ModelConfig, dcfg: DistillConfig, group=None):
+    """(total loss, metrics): the student's GT set loss (detr3d_loss, its
+    sync points over the data `group`, where JAX passes axis_name) plus
     `distill_loss_cls` / `_reg`, with mix `mix_loss_cls` / `_reg` (raises
     when the student emitted no guided outputs) and `feat_loss`; `loss`
     the total. The metrics are 0-d tensors, named as the JAX package
     names them."""
     total, metrics = detr3d_loss(student_outs, gt_bboxes, gt_labels, gt_valid,
-                                 cfg.loss, cfg.head)
+                                 cfg.loss, cfg.head, group)
     if dcfg.mix and "all_cls_scores_guided" not in student_outs:
         # a silently dropped MixDistill term would train a plain distill
         # run while the config claims mix

@@ -19,6 +19,21 @@ exactly zero. The compaction is an index list that K1 reads directly.
 With `depth_encode` the positional MLP also sees rho = sqrt(x^2 + y^2) of
 the sigmoid-space reference point, appended before inverse_sigmoid
 (deform3d_cross_attn.py:331-334; Linear(4, C) at :105).
+
+With `fix_offset` the offset linear's weight and bias are detached in the
+forward (the JAX module's stop_gradient): they get no gradient, the
+query still does, and the parameters stay trainable, so AdamW's `main`
+group still decays them as optax does (deform3d_cross_attn.py:64 sets
+requires_grad=False instead, which freezes them outright).
+
+Camera parallelism (`cam_shard`, a parallel/mesh.py Mesh with a cam
+group, set by parallel/mesh.py's callers through
+models/detector.py::shard_cameras): the rank holds cameras
+[cam_index * n, (cam_index + 1) * n) of the N, samples and compacts only
+those, and sums its part of the gated camera sum over the cam group.
+The gate is computed for all N cameras and viewed as (B, N, Q) before the
+rank's cameras are taken: the view mixes the query and camera axes, so
+slicing the logits first would give other numbers.
 """
 
 import math
@@ -27,9 +42,11 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from ..geometry.projection import denormalize_points
 from ..ops import msda as msda_ops
+from ..parallel.mesh import all_reduce_sum
 from ..utils.math import inverse_sigmoid
 from .layers import Linear, dropout, ln_mlp
 
@@ -59,6 +76,7 @@ class Deform3DCrossAttn(nn.Module):
         cam_capacity: float = 1.0,
         dropout: float = 0.1,
         depth_encode: bool = False,
+        fix_offset: bool = False,
     ):
         super().__init__()
         C = embed_dims
@@ -68,6 +86,8 @@ class Deform3DCrossAttn(nn.Module):
         self.pc_range = tuple(pc_range)
         self.cam_capacity = cam_capacity
         self.depth_encode = depth_encode
+        self.fix_offset = fix_offset
+        self.cam_shard = None  # a Mesh with a cam group, or None
         self.cam_attention_weights = Linear(C, num_cams)
         self.deform_sampling_offsets = Linear(C, num_heads * num_points * 3)
         self.attention_weights = Linear(C, num_heads * num_levels * num_points)
@@ -92,10 +112,17 @@ class Deform3DCrossAttn(nn.Module):
         B, Q, C = query.shape
         nh, L, P, N = (self.num_heads, self.num_levels, self.num_points,
                        self.num_cams)
+        n = lidar2img.shape[1]  # the cameras this rank holds
         residual = query
         q = query + query_pos
         gate_logits = self.cam_attention_weights(q)  # (B, Q, N)
-        offsets = self.deform_sampling_offsets(q).view(B, Q, nh, 1, P, 3)
+        lin = self.deform_sampling_offsets
+        if self.fix_offset:
+            offsets = F.linear(q, lin.weight.detach().to(q.dtype),
+                               lin.bias.detach().to(q.dtype))
+        else:
+            offsets = lin(q)
+        offsets = offsets.view(B, Q, nh, 1, P, 3)
 
         ref_metric = denormalize_points(reference_points.float(),
                                         self.pc_range)
@@ -122,10 +149,10 @@ class Deform3DCrossAttn(nn.Module):
         attn = torch.softmax(attn.float(), dim=-1).view(B, 1, Q, nh, L, P)
         attn = attn * valid
 
-        value = self.value_proj(value).reshape(B * N, -1, nh, C // nh)
+        value = self.value_proj(value).reshape(B * n, -1, nh, C // nh)
         # einsum leaves the camera axis permuted in memory; K1 reads dense
-        loc = loc.reshape(B * N, Q, nh, L, P, 2).contiguous()
-        attn = attn.reshape(B * N, Q, nh, L, P).contiguous()
+        loc = loc.reshape(B * n, Q, nh, L, P, 2).contiguous()
+        attn = attn.reshape(B * n, Q, nh, L, P).contiguous()
 
         K = min(Q, int(math.ceil(Q * self.cam_capacity)))
         if K < Q:
@@ -135,23 +162,30 @@ class Deform3DCrossAttn(nn.Module):
             sel = torch.sort(anyv, dim=-1, descending=True,
                              stable=True).indices[..., :K]
             overflow = (anyv.sum(-1) - K).clamp(min=0.0).sum()
-            sel = sel.reshape(B * N, K).contiguous()
+            sel = sel.reshape(B * n, K).contiguous()
             sampled_sel = msda_ops.msda_forward(value, spatial_shapes, loc,
                                                 attn, sel)
-            sampled = torch.zeros(B * N, Q, C, dtype=sampled_sel.dtype,
+            sampled = torch.zeros(B * n, Q, C, dtype=sampled_sel.dtype,
                                   device=sampled_sel.device)
             sampled.scatter_(1, sel[..., None].expand(-1, -1, C), sampled_sel)
         else:
             overflow = torch.zeros((), device=query.device)
             sampled = msda_ops.msda_forward(value, spatial_shapes, loc, attn)
-        sampled = sampled.view(B, N, Q, C)
+        sampled = sampled.view(B, n, Q, C)
 
         # REFERENCE QUIRK (checkpoint-parity load-bearing): the (B, Q, N)
         # gate becomes (B, N, Q, 1) by `.view`, a memory reinterpret of
         # the (Q, N)-contiguous tensor, NOT a transpose
-        # (deform3d_cross_attn.py:211-212).
+        # (deform3d_cross_attn.py:211-212). A camera shard takes its
+        # cameras after the view.
         gate = torch.sigmoid(gate_logits.float()).reshape(B, N, Q, 1)
+        shard = self.cam_shard
+        if shard is not None:
+            gate = gate[:, shard.cam_index * n:(shard.cam_index + 1) * n]
         out = (sampled.float() * gate).sum(dim=1)
+        if shard is not None:
+            out = all_reduce_sum(out, shard.cam_group)
+            overflow = all_reduce_sum(overflow.detach(), shard.cam_group)
         out = dropout(self.output_proj(out.to(query.dtype)), self.dropout,
                       generator)
 

@@ -9,7 +9,9 @@ family: `petr`, `petrv2` (models/petr_head.py) and `petr_seg`
 (detr3d.py:53-54), drawn from the generator the forward is given.
 
 All cameras fold into the batch axis for the conv stack (detr3d.py:62-66),
-then unfold to (B, N, ...) for the head. The convs run NCHW tensors whose
+then unfold to (B, N, ...) for the head. On a camera shard
+(`shard_cameras`) the images are the rank's cameras only, so the conv
+stack runs on those (the JAX package's constrain points). The convs run NCHW tensors whose
 memory is channels-last: the (B*N, H, W, 3) images viewed as NCHW already
 are.
 """
@@ -19,6 +21,7 @@ import torch.nn as nn
 
 from ..config import ModelConfig
 from ..utils.device import resolve_device
+from .attention import Deform3DCrossAttn
 from .fpn import FPN
 from .grid_mask import apply_grid_mask, grid_mask_params
 from .head import Detr3DHeadPE
@@ -96,6 +99,38 @@ def check_supported(cfg: ModelConfig):
         raise NotImplementedError(
             f"graph_detr4d_tpu_torch does not implement {bad} yet"
         )
+
+
+# the ROADMAP item that queues camera parallelism for the other heads
+CAM_PARALLEL_ITEM = "ROADMAP Queue 1 item 7"
+
+
+def shard_cameras(model: nn.Module, mesh) -> nn.Module:
+    """Put `model` on the cam group of a parallel/mesh.py Mesh: its head
+    and every Deform3DCrossAttn read their camera slice from the mesh
+    (the identity for mesh.cam 1). Only the gated camera sum of
+    Deform3DCrossAttn mixes cameras in these heads (the flagship, H-DETR,
+    the camera-aware heads, MixDistill's student); the other heads raise,
+    naming the ROADMAP item that queues them."""
+    if mesh is None or mesh.cam == 1:
+        return model
+    cfg = getattr(model, "cfg", None)
+    if (not isinstance(model, GraphDETR4D) or cfg.head_type != "detr4d_pe"
+            or cfg.head.attn_type != "deform3d"):
+        what = (type(model).__name__ if cfg is None else
+                f"head_type={cfg.head_type!r}, attn_type="
+                f"{cfg.head.attn_type!r}")
+        raise NotImplementedError(
+            f"camera parallelism (cam={mesh.cam}) covers the "
+            f"Deform3DCrossAttn heads only, not {what}: {CAM_PARALLEL_ITEM}")
+    if cfg.head.num_cams % mesh.cam:
+        raise ValueError(f"{cfg.head.num_cams} cameras not divisible by "
+                         f"cam={mesh.cam}")
+    model.pts_bbox_head.cam_shard = mesh
+    for m in model.modules():
+        if isinstance(m, Deform3DCrossAttn):
+            m.cam_shard = mesh
+    return model
 
 
 class GraphDETR4D(nn.Module):

@@ -12,8 +12,10 @@ projects/mmdet3d_plugin/models/dense_heads/detr3d_head_pe.py):
     (:587-600).
 
 With `with_detach`, level 0 of the past frame's cameras is cut from the
-gradient (:512-516). Public tensors keep the JAX layouts: features L x
-(B, N, H, W, C), outputs (layers, B, Q, .).
+gradient (:512-516); a camera shard (`cam_shard`) cuts the ones of its
+cameras that are past-frame cameras of the whole rig. Public tensors
+keep the JAX layouts: features L x (B, N, H, W, C), outputs (layers, B,
+Q, .).
 
 Options of the head family:
   * H-DETR hybrid matching (`num_query_one2many` > 0,
@@ -94,6 +96,7 @@ class Transformer(nn.Module):
                 attn_type=cfg.attn_type,
                 num_neighbors=cfg.num_neighbors,
                 depth_encode=cfg.depth_encode,
+                fix_offset=cfg.fix_offset,
             )
             for _ in range(cfg.num_decoder_layers)
         ])
@@ -104,6 +107,7 @@ class Detr3DHeadPE(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.img_shape = tuple(img_shape)
+        self.cam_shard = None  # a Mesh with a cam group, or None
         C = cfg.embed_dims
         self.query_embedding = nn.Embedding(
             cfg.num_query + cfg.num_query_one2many, 2 * C)
@@ -214,11 +218,19 @@ class Detr3DHeadPE(nn.Module):
                 ida_scale = torch.ones(B, N, device=dev)
             mlvl_feats = [self.depth_net(f, intrinsics, ida_scale)
                           for f in mlvl_feats]
-        nf = cfg.num_frame_cams
-        if cfg.with_detach and N > nf and mlvl_feats[0].requires_grad:
+        # a camera shard (models/detector.py::shard_cameras) holds cameras
+        # [first, first + N) of cfg.num_cams
+        shard = self.cam_shard
+        first = 0 if shard is None else shard.cam_index * N
+        if shard is not None and N * shard.cam != cfg.num_cams:
+            raise ValueError(f"a camera shard of {shard.cam} takes "
+                             f"{cfg.num_cams // shard.cam} cameras, got {N}: "
+                             "pass parallel/mesh.py::shard_batch's slice")
+        past = min(max(cfg.num_frame_cams - first, 0), N)
+        if cfg.with_detach and past < N and mlvl_feats[0].requires_grad:
             f0 = mlvl_feats[0]
-            mlvl_feats = [torch.cat([f0[:, :nf], f0[:, nf:].detach()], dim=1),
-                          *mlvl_feats[1:]]
+            mlvl_feats = [torch.cat([f0[:, :past], f0[:, past:].detach()],
+                                    dim=1), *mlvl_feats[1:]]
 
         feats_pe, shapes = [], []
         for feat in mlvl_feats:
@@ -232,9 +244,13 @@ class Detr3DHeadPE(nn.Module):
                           if cfg.fpe_type == "camconv" else self.fpe(pe, feat))
                 # all-valid mask: inputs are always padded to the exact
                 # network size (:524-539)
-                mask = torch.zeros(B, N, H, W, device=feat.device)
-                sin = sine_positional_encoding_3d(mask,
-                                                  num_feats=cfg.pe_num_feats)
+                # the camera axis is one of its axes: a shard encodes its
+                # cameras of the whole rig
+                mask = torch.zeros(B, N if shard is None else N * shard.cam,
+                                   H, W, device=feat.device)
+                sin = sine_positional_encoding_3d(
+                    mask, num_feats=cfg.pe_num_feats,
+                    cams=slice(first, first + N))
                 pe = pe + self.adapt_pos3d(sin.to(dtype))
                 feat = feat + pe
             # with_pe False: raw FPN features (detr3d_head.py:16-166)

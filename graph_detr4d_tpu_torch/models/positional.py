@@ -26,8 +26,13 @@ def sine_positional_encoding_3d(
     offset: float = -0.5,
     eps: float = 1e-6,
     scale: float = 2 * math.pi,
+    cams: slice = slice(None),
 ) -> torch.Tensor:
-    """mask: (B, N, H, W) with 1 = padding, 0 = valid. Returns float32."""
+    """mask: (B, N, H, W) with 1 = padding, 0 = valid. Returns float32 (B,
+    N', H, W, 3 * num_feats) for the cameras `cams` selects (N' of the N;
+    default all): the camera axis is one of the encoded axes, normalised
+    over all N, so a camera shard passes the whole rig's mask and encodes
+    its own cameras."""
     not_mask = 1.0 - mask.float()
     n_embed = not_mask.cumsum(1)
     y_embed = not_mask.cumsum(2)
@@ -35,6 +40,8 @@ def sine_positional_encoding_3d(
     n_embed = (n_embed + offset) / (n_embed[:, -1:, :, :] + eps) * scale
     y_embed = (y_embed + offset) / (y_embed[:, :, -1:, :] + eps) * scale
     x_embed = (x_embed + offset) / (x_embed[:, :, :, -1:] + eps) * scale
+    n_embed, y_embed, x_embed = (e[:, cams] for e in
+                                 (n_embed, y_embed, x_embed))
 
     dim_t = torch.arange(num_feats, dtype=torch.float32, device=mask.device)
     dim_t = temperature ** (2 * (dim_t // 2) / num_feats)

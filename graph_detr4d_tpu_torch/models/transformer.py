@@ -129,6 +129,7 @@ class DecoderLayer(nn.Module):
         attn_type: str = "deform3d",
         num_neighbors: int = 8,
         depth_encode: bool = False,
+        fix_offset: bool = False,
     ):
         super().__init__()
         if attn_type not in ATTN_TYPES:
@@ -139,7 +140,8 @@ class DecoderLayer(nn.Module):
         if attn_type == "deform3d":
             cross = Deform3DCrossAttn(num_heads=num_heads, num_points=num_points,
                                       cam_capacity=cam_capacity,
-                                      depth_encode=depth_encode, **common)
+                                      depth_encode=depth_encode,
+                                      fix_offset=fix_offset, **common)
         elif attn_type == "deform3d_mp":
             cross = Deform3DCrossAttnMP(num_heads=num_heads,
                                         num_points=num_points,

@@ -15,8 +15,13 @@ and tools/distill_test.py load. `--teacher-top-k`: -1 the bundle's (64),
 0 all teacher rows. The port always runs the teacher as a forward of its
 own, so `--split-teacher` changes nothing, and `--teacher-msda` sets a
 field the port does not read (MSDA has one kernel); both are accepted.
-`--data-parallel` above 1 (the batch over several GPUs) is ROADMAP Queue
-1 item 4 and exits with an error. Teacher weights come from a port
+`--data-parallel N` shards the batch over N ranks, one process a GPU
+under torchrun's environment (`torchrun --nproc-per-node N -m
+graph_detr4d_tpu_torch.tools.distill_train --data-parallel N ...` or
+tools/launch_multihost.py), as the JAX CLI's data mesh: the global batch
+(`--batch-size`, default N) must be a multiple of N, each rank makes its
+share from the seed `step + rank * 100003`, and rank 0 writes the log
+and the checkpoint. Teacher weights come from a port
 checkpoint directory or a reference-layout `.pth`; without them, and for
 the Distiller, seeded random weights (weights.init_weights).
 
@@ -53,21 +58,13 @@ def parse_args(argv=None):
                    help="with --split-teacher: the teacher's msda_impl, a "
                    "TPU layout field the port does not read")
     p.add_argument("--data-parallel", type=int, default=0,
-                   help="the batch over this many GPUs (not ported: ROADMAP "
-                   "Queue 1 item 4)")
+                   help="shard the batch over this many ranks (the world "
+                   "size of the process group)")
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
     if args.teacher_msda and not args.split_teacher:
         p.error("--teacher-msda requires --split-teacher")
     return args
-
-
-def refuse_data_parallel(args):
-    if args.data_parallel > 1:
-        raise SystemExit(
-            f"--data-parallel {args.data_parallel}: the distill batch over "
-            "several GPUs is not ported yet (ROADMAP Queue 1 item 4, "
-            "multi-GPU)")
 
 
 def distill_config(bundle, teacher_top_k: int = -1):
@@ -110,7 +107,6 @@ def build_bundle(args):
 
 def main(argv=None):
     args = parse_args(argv)
-    refuse_data_parallel(args)
     import json
     import os
     import time
@@ -120,13 +116,24 @@ def main(argv=None):
     from ..data.synthetic import synthetic_batch
     from ..distill.distiller import Distiller
     from ..models.detector import GraphDETR4D
+    from ..parallel.mesh import replicate
     from ..train.checkpoint import CheckpointManager
     from ..train.distill_step import DistillStep
-    from ..utils.device import resolve_device
     from ..weights import init_weights
     from .test import load_checkpoint
+    from .train import setup_distributed
 
-    device = resolve_device(args.device)
+    device, mesh = setup_distributed(args.device)
+    dp = max(args.data_parallel, 1)
+    if mesh.world != dp:
+        raise SystemExit(
+            f"--data-parallel {args.data_parallel} needs {dp} ranks "
+            f"(torchrun --nproc-per-node {dp}, or tools/launch_multihost.py); "
+            f"the process group has {mesh.world}")
+    bs = args.batch_size or dp
+    if bs % dp:
+        raise SystemExit("--batch-size must be a multiple of --data-parallel")
+    local_bs, rank = bs // dp, mesh.rank
     bundle, dcfg = build_bundle(args)
     t_cfg, s_cfg = bundle.teacher, bundle.student
 
@@ -134,24 +141,26 @@ def main(argv=None):
     if args.teacher_checkpoint:
         teacher.load_state_dict(load_checkpoint(args.teacher_checkpoint),
                                 strict=True)
-        print(f"loaded teacher weights from {args.teacher_checkpoint}",
-              flush=True)
+        if mesh.is_main:
+            print(f"loaded teacher weights from {args.teacher_checkpoint}",
+                  flush=True)
     else:
         init_weights(teacher, args.seed)
     dist = Distiller(s_cfg, t_cfg.neck.out_channels, device="cpu")
     init_weights(dist, args.seed + 1)
-    step = DistillStep(teacher.to(device), dist.to(device), s_cfg, dcfg,
-                       seed=args.seed + 2)
+    step = DistillStep(replicate(teacher.to(device), mesh),
+                       replicate(dist.to(device), mesh), s_cfg, dcfg,
+                       seed=args.seed + 2, mesh=mesh)
 
     os.makedirs(args.work_dir, exist_ok=True)
     log_path = os.path.join(args.work_dir, "distill_log.jsonl")
-    bs = args.batch_size or 1
     records, t0 = [], time.time()
     for i in range(args.steps):
-        host = synthetic_batch(t_cfg, batch_size=bs, seed=i)
+        host = synthetic_batch(t_cfg, batch_size=local_bs,
+                               seed=i + rank * 100003)
         batch = {k: torch.as_tensor(v).to(device) for k, v in host.items()}
         metrics = step.step(batch)
-        if (i + 1) % args.log_interval == 0 or i == 0:
+        if mesh.is_main and ((i + 1) % args.log_interval == 0 or i == 0):
             rec = {"step": i + 1, **{k: float(v) for k, v in metrics.items()},
                    "iter_time": (time.time() - t0) / (i + 1)}
             with open(log_path, "a") as f:
@@ -160,9 +169,11 @@ def main(argv=None):
             records.append(rec)
     # the bare student (the laterals serve distillation only,
     # mmdet_distill_train.py:88-92), loadable by tools/test.py
-    CheckpointManager(os.path.join(args.work_dir, "checkpoints"),
-                      s_cfg).save_weights(args.steps, dist.student.state_dict())
-    print(f"saved student to {args.work_dir}/checkpoints", flush=True)
+    if mesh.is_main:
+        CheckpointManager(os.path.join(args.work_dir, "checkpoints"),
+                          s_cfg).save_weights(args.steps,
+                                              dist.student.state_dict())
+        print(f"saved student to {args.work_dir}/checkpoints", flush=True)
     return step, records
 
 

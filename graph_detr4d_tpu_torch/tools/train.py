@@ -9,9 +9,20 @@ The JAX CLI's flags, with the same names and meanings, plus `--device`
 (default cuda: without CUDA it raises; `--device cpu` runs on the host),
 `--ckpt-every` (the JAX Trainer.fit's ckpt_every, default 1000) and
 `--log-interval` (its log_interval, default 50).
-One process trains on one GPU; `--cam-parallel` above 1 (camera-axis
-model parallelism over several GPUs) is ROADMAP Queue 1 item 4 and exits
-with an error. With `--tiny`, `--cfg-options` still applies.
+With `--tiny`, `--cfg-options` still applies.
+
+Several GPUs: one process per GPU, under torchrun's environment
+(`torchrun --nproc-per-node N -m graph_detr4d_tpu_torch.tools.train ...`
+or tools/launch_multihost.py). As the JAX CLI: the global batch
+(`--batch-size`, default the data ranks' count) is rounded up to a
+multiple of the world size and each rank takes its rank-strided slice of
+every global batch (`local_bs = batch / world`), the synthetic seed a
+rank is `seed + rank * 100003` and the augmentation seed
+`seed + 7919 * rank`; `--cam-parallel C` lays the ranks on a (data, cam)
+grid (parallel/mesh.py), each rank of a cam group holding N / C cameras
+of the same samples (the heads that Deform3DCrossAttn serves; the others
+raise, naming ROADMAP Queue 1 item 7). Rank 0 writes the log and the
+checkpoints.
 
 `main(argv)` returns the Trainer, its input threads stopped.
 """
@@ -35,7 +46,7 @@ def parse_args(argv=None):
                    help="save a checkpoint every this many steps (and at the end)")
     p.add_argument("--log-interval", type=int, default=50,
                    help="steps per line of WORK_DIR/train_log.jsonl")
-    p.add_argument("--batch-size", type=int, default=None)
+    p.add_argument("--batch-size", type=int, default=None, help="global")
     p.add_argument("--img-h", type=int, default=320)
     p.add_argument("--img-w", type=int, default=800)
     p.add_argument("--tiny", action="store_true", help="tiny debug config")
@@ -53,8 +64,8 @@ def parse_args(argv=None):
                    help="torch.profiler trace of this many steps into "
                    "WORK_DIR/profile/trace.json")
     p.add_argument("--cam-parallel", type=int, default=1,
-                   help="camera-axis model parallelism over this many GPUs "
-                   "(not ported: ROADMAP Queue 1 item 4)")
+                   help="shard the camera axis over this many ranks (a 2-D "
+                   "(data, cam) grid; the world size must be divisible)")
     p.add_argument("--native-loader", action="store_true",
                    help="decode and resize through the C++ loader "
                    "(graph_detr4d_tpu_torch/native); python path if it is "
@@ -76,29 +87,41 @@ def build_config(args):
     return apply_overrides(cfg, args.cfg_options) if args.cfg_options else cfg
 
 
-def refuse_cam_parallel(args):
-    if args.cam_parallel > 1:
-        raise SystemExit(
-            f"--cam-parallel {args.cam_parallel}: camera-axis model "
-            "parallelism over several GPUs is not ported yet (ROADMAP "
-            "Queue 1 item 4, multi-GPU)")
+def setup_distributed(device_arg: str, cam: int = 1):
+    """(device, mesh): join torchrun's process group when its environment
+    names one (parallel/mesh.py::init_distributed) and lay the ranks on a
+    (data, cam) grid; one rank, unjoined, without it. The device is
+    resolved first, so a CUDA device that is absent raises here."""
+    from ..parallel.mesh import init_distributed, make_mesh_2d
+    from ..utils.device import resolve_device
+
+    device = init_distributed(resolve_device(device_arg))
+    return device, make_mesh_2d(cam=cam)
 
 
 def main(argv=None):
     args = parse_args(argv)
-    refuse_cam_parallel(args)
     import numpy as np
 
     from ..data.pipeline import shutdown_decode_pool
     from ..data.synthetic import synthetic_batch
     from ..models.detector import GraphDETR4D
     from ..train.trainer import Trainer
-    from ..utils.device import resolve_device
     from ..weights import init_weights
 
-    device = resolve_device(args.device)
+    device, mesh = setup_distributed(args.device, args.cam_parallel)
     cfg = build_config(args)
-    batch_size = args.batch_size or 1
+    # each process loads its share of the global batch (the JAX CLI's
+    # multi-host recipe, DistributedSampler semantics); a cam group's
+    # ranks load the same samples
+    rank, world = mesh.data_index, mesh.data
+    batch_size = args.batch_size or world
+    if batch_size % world:
+        batch_size = -(-batch_size // world) * world
+        if mesh.is_main:
+            print(f"global batch rounded up to {batch_size} ({world} data "
+                  "ranks)", flush=True)
+    local_bs = batch_size // world
     total = args.total_steps or cfg.train.total_steps
     # temporal sampling iff the model's rig carries past-frame cameras
     temporal = cfg.head.num_cams > cfg.head.num_frame_cams
@@ -106,10 +129,10 @@ def main(argv=None):
 
     if args.synthetic or args.ann_file is None:
         def batches():
-            seed = args.seed
+            seed = args.seed + rank * 100003
             while True:
                 seed += 1
-                yield synthetic_batch(cfg, batch_size, seed=seed)
+                yield synthetic_batch(cfg, local_bs, seed=seed)
     else:
         from ..data.nuscenes import CBGSDataset, NuScenesSweepDataset
         from ..data.pipeline import build_batch
@@ -122,9 +145,11 @@ def main(argv=None):
             ds = CBGSDataset(ds, seed=args.seed)
 
         def batches():
-            # the JAX CLI's order and augmentation draws at rank 0 of 1
+            # every rank draws the same global order and takes its
+            # rank-strided slice of each global batch; augmentation draws
+            # from a per-rank generator (the JAX CLI's)
             rng = np.random.RandomState(args.seed)
-            aug_rng = np.random.RandomState(args.seed)
+            aug_rng = np.random.RandomState(args.seed + 7919 * rank)
             order = rng.permutation(len(ds))
             i = 0
             while True:
@@ -135,7 +160,8 @@ def main(argv=None):
                         i = 0
                     idxs.append(int(order[i]))
                     i += 1
-                samples = [ds.sample(j, temporal=temporal) for j in idxs]
+                local = idxs[rank * local_bs:(rank + 1) * local_bs]
+                samples = [ds.sample(j, temporal=temporal) for j in local]
                 yield build_batch(
                     samples, cfg.img_size, training=True, rng=aug_rng,
                     aug=cfg.train, img_norm=img_norm,
@@ -154,7 +180,8 @@ def main(argv=None):
         def eval_fn(model):
             m = evaluate_dataset(
                 model, cfg, val_ds, min(args.eval_samples, len(val_ds)),
-                temporal=temporal, native_loader=args.native_loader)["metrics"]
+                mesh=mesh, temporal=temporal,
+                native_loader=args.native_loader)["metrics"]
             return {"val_mAP": m["mAP"], "val_NDS": m["NDS"]}
 
     # seeded random weights, drawn on the host (weights.init_weights)
@@ -162,11 +189,13 @@ def main(argv=None):
     init_weights(init, args.seed)
     trainer = Trainer(cfg, init.state_dict(), batches(), args.work_dir,
                       device=device, seed=args.seed, eval_fn=eval_fn,
-                      profile_steps=args.profile_steps)
+                      profile_steps=args.profile_steps, mesh=mesh)
     del init
     try:
         if args.resume:
-            print(f"resumed at step {trainer.resume()}", flush=True)
+            step = trainer.resume()
+            if mesh.is_main:
+                print(f"resumed at step {step}", flush=True)
         trainer.fit(total, log_interval=args.log_interval,
                     ckpt_every=args.ckpt_every)
     finally:

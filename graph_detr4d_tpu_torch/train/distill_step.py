@@ -14,13 +14,21 @@ TrainConfig, the student's frozen parameters labelled as in a plain
 step). The phases are methods of their own, so a caller can time them.
 The metrics are 0-d tensors on the device, with `grad_norm` before the
 clip.
+
+Under a process group (`mesh`, parallel/mesh.py) each rank steps on its
+share of the global batch, as train/step.py does: the student's set loss
+syncs over the data group, the gradients are averaged over all ranks in
+one all-reduce before the clip, and the metrics are the data group's
+mean (the JAX CLI's --data-parallel mesh over the distill batch).
 """
 
 import torch
 
 from ..config import ModelConfig
 from ..distill.distiller import DistillConfig, distill_loss
+from ..parallel.mesh import Mesh, all_reduce_mean_
 from .optim import build_optimizer, clip_by_global_norm
+from .step import DATA_SEED_STRIDE, data_mean
 
 
 class DistillStep:
@@ -28,17 +36,22 @@ class DistillStep:
     Distiller's parameters, its schedule and the random generator."""
 
     def __init__(self, teacher: torch.nn.Module, distiller: torch.nn.Module,
-                 student_cfg: ModelConfig, dcfg: DistillConfig, seed: int = 0):
-        if student_cfg.head.fix_offset:
+                 student_cfg: ModelConfig, dcfg: DistillConfig, seed: int = 0,
+                 mesh: Mesh = None):
+        self.mesh = mesh if mesh is not None and mesh.distributed else None
+        if self.mesh is not None and self.mesh.cam > 1:
             raise NotImplementedError(
-                "graph_detr4d_tpu_torch does not train head.fix_offset yet")
+                "a distill step shards the batch over a data mesh only (the "
+                "JAX CLI's --data-parallel)")
+        self.group = None if self.mesh is None else self.mesh.data_group
         self.teacher = teacher.eval().requires_grad_(False)
         self.distiller, self.cfg, self.dcfg = distiller, student_cfg, dcfg
         self.params = list(distiller.parameters())
         self.optimizer, self.scheduler = build_optimizer(distiller,
                                                          student_cfg.train)
         device = self.params[0].device
-        self.generator = torch.Generator(device).manual_seed(seed)
+        self.generator = torch.Generator(device).manual_seed(
+            seed + DATA_SEED_STRIDE * (self.mesh.data_index if self.mesh else 0))
         self.teacher_query_embed = (
             teacher.pts_bbox_head.query_embedding.weight if dcfg.mix else None)
 
@@ -59,13 +72,21 @@ class DistillStep:
             teacher_query_embed=self.teacher_query_embed)
         total, metrics = distill_loss(
             s_outs, adapted, t_outs, t_feats, batch["gt_bboxes"],
-            batch["gt_labels"], batch["gt_valid"], self.cfg, self.dcfg)
+            batch["gt_labels"], batch["gt_valid"], self.cfg, self.dcfg,
+            self.group)
         return total, metrics, s_outs
 
     def update(self, total: torch.Tensor) -> torch.Tensor:
         """Backward, clip and AdamW; returns the norm before the clip."""
         total.backward()
-        grads = [p.grad for p in self.params if p.grad is not None]
+        for p in self.params:
+            if p.grad is None:
+                # a parameter the loss does not reach (the offsets under
+                # head.fix_offset): optax still decays it
+                p.grad = torch.zeros_like(p)
+        grads = [p.grad for p in self.params]
+        if self.mesh is not None:
+            all_reduce_mean_(grads)
         norm = clip_by_global_norm(grads, self.cfg.train.grad_clip_norm)
         self.optimizer.step()
         self.scheduler.step()
@@ -78,4 +99,4 @@ class DistillStep:
         t_feats, t_outs = self.teacher_forward(batch)
         total, metrics, _ = self.student_loss(batch, t_feats, t_outs)
         metrics["grad_norm"] = self.update(total)
-        return {k: v.detach() for k, v in metrics.items()}
+        return data_mean(metrics, self.group)

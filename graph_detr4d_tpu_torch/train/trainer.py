@@ -1,6 +1,6 @@
 """Training loop (counterpart of graph_detr4d_tpu/train/trainer.py:
 PrefetchIterator, MetricLogger and Trainer with resume, checkpoints, an
-eval hook and a profiled window, on one GPU).
+eval hook and a profiled window; one process a GPU).
 
     trainer = Trainer(cfg, state_dict, batch_iter, work_dir)
     trainer.resume()                        # from work_dir/checkpoints
@@ -19,6 +19,14 @@ once per log interval, averaged, and appended to
 host pipeline's s a batch, on its thread), `h2d_bytes` and `h2d_ms` (the
 copy's device time, between events around the copies on its stream). The JAX logger also writes tensorboard; this one writes JSONL only
 (ROADMAP Queue 3).
+
+Under a process group (`mesh`, parallel/mesh.py) every rank runs a
+Trainer on its share of each global batch (on a cam group, the transfer
+stage keeps the rank's cameras: parallel/mesh.py::shard_batch). Rank 0's
+weights are broadcast at the start; rank 0 alone writes the log and the
+checkpoints, which hold every data rank's generator state; every rank
+resumes from the same file and takes its own generator back (a
+checkpoint of another data size leaves the generators as seeded).
 """
 
 import json
@@ -33,6 +41,7 @@ import torch
 
 from ..config import ModelConfig
 from ..models.detector import GraphDETR4D
+from ..parallel.mesh import Mesh, gather_states, replicate, shard_batch
 from ..parallel.transfer import batch_bytes, cast_for_transfer, to_device
 from ..utils.device import resolve_device
 from .checkpoint import CheckpointManager
@@ -150,15 +159,23 @@ class Trainer:
 
     def __init__(self, cfg: ModelConfig, state_dict, batch_iter: Iterable[dict],
                  work_dir: str, device="cuda", seed: int = 0,
-                 eval_fn: Optional[Callable] = None, profile_steps: int = 0):
+                 eval_fn: Optional[Callable] = None, profile_steps: int = 0,
+                 mesh: Optional[Mesh] = None):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.work_dir = work_dir
+        self.mesh = mesh if mesh is not None else Mesh()
+        self.is_main = self.mesh.is_main
         model = GraphDETR4D(cfg, device=self.device)
         model.load_state_dict(state_dict, strict=True)
-        self.train_step = TrainStep(model, cfg, seed=seed)
+        replicate(model, self.mesh)
+        self.train_step = TrainStep(model, cfg, seed=seed, mesh=self.mesh)
         self.logger = MetricLogger(work_dir)
         self.ckpt = CheckpointManager(os.path.join(work_dir, "checkpoints"), cfg)
+        # read once here, before rank 0 can have saved anything (its first
+        # step waits for every rank): every rank decides alike whether fit
+        # saves at its end
+        self._saved_step = self.ckpt.latest_step()
         self.eval_fn = eval_fn
         self.profile_steps = profile_steps
         self.profile_summary = None
@@ -169,7 +186,8 @@ class Trainer:
         host = PrefetchIterator(timed(batch_iter), PREFETCH,
                                 "trainer-host-pipeline")
         self._transfer = PrefetchIterator(
-            _transfers(host, cfg.bf16, self.device, self._copy_stream),
+            _transfers(host, cfg.bf16, self.device, self._copy_stream,
+                       self.mesh),
             PREFETCH, "trainer-transfer")
         self._close = weakref.finalize(self, _close_stages, self._transfer, host)
 
@@ -197,11 +215,14 @@ class Trainer:
         return dev, (timing, events)
 
     def state(self) -> dict:
+        """The checkpoint's state; under a data group a collective (every
+        data rank's generator state is gathered), so every rank calls it."""
         ts = self.train_step
+        gens = gather_states(ts.generator.get_state(), self.mesh, self.device)
         return {"state_dict": self.model.state_dict(),
                 "optimizer": ts.optimizer.state_dict(),
                 "scheduler": ts.scheduler.state_dict(),
-                "generators": {"train": ts.generator.get_state()}}
+                "generators": {"train": gens[0], "train_ranks": gens}}
 
     def resume(self) -> int:
         """Restore the latest checkpoint of work_dir/checkpoints, if any:
@@ -214,8 +235,13 @@ class Trainer:
         self.model.load_state_dict(ckpt["state_dict"], strict=True)
         ts.optimizer.load_state_dict(ckpt["optimizer"])
         ts.scheduler.load_state_dict(ckpt["scheduler"])
-        ts.generator.set_state(ckpt["generators"]["train"].cpu())
-        self.step = int(ckpt["step"])
+        gens = ckpt["generators"]
+        ranks = gens.get("train_ranks", [gens["train"]])
+        if len(ranks) == self.mesh.data:
+            ts.generator.set_state(ranks[self.mesh.data_index].cpu())
+        # saved by another number of data ranks: each rank's generator
+        # stays as its data rank seeded it
+        self.step = self._saved_step = int(ckpt["step"])
         if ts.scheduler.last_epoch != self.step:
             raise RuntimeError(
                 f"checkpoint step {self.step} but the schedule has taken "
@@ -244,8 +270,9 @@ class Trainer:
         span_ms = 1e3 * (time.perf_counter() - self._prof_t0)
         self._prof.__exit__(None, None, None)
         out = os.path.join(self.work_dir, "profile")
-        os.makedirs(out, exist_ok=True)
-        self._prof.export_chrome_trace(os.path.join(out, "trace.json"))
+        if self.is_main:
+            os.makedirs(out, exist_ok=True)
+            self._prof.export_chrome_trace(os.path.join(out, "trace.json"))
         busy_us = sum(
             getattr(e, "self_device_time_total", 0.0)
             for e in self._prof.key_averages()
@@ -290,7 +317,8 @@ class Trainer:
                 avg = {k: packed[i].item() / count for i, k in enumerate(keys)}
                 avg["iter_time"] = (time.perf_counter() - t0) / count
                 avg.update(_mean_timing(timings))
-                records.append(self.logger.log(self.step, avg))
+                if self.is_main:
+                    records.append(self.logger.log(self.step, avg))
                 msum, count, timings, t0 = None, 0, [], time.perf_counter()
             if self._prof is not None and self._prof_steps >= self.profile_steps:
                 self._stop_profile()
@@ -299,25 +327,31 @@ class Trainer:
                 self._checkpoint()
         if self._prof is not None:
             self._stop_profile()
-        if ckpt_every and self.ckpt.latest_step() != self.step:
+        if ckpt_every and self._saved_step != self.step:
             self._checkpoint()
         return records
 
     def _checkpoint(self):
-        self.ckpt.save(self.step, self.state())
+        self._saved_step = self.step
+        state = self.state()
+        if self.is_main:
+            self.ckpt.save(self.step, state)
         if self.eval_fn is not None:
-            self.logger.log(self.step, self.eval_fn(self.model))
+            # every rank evaluates (a cam group's forward is collective)
+            results = self.eval_fn(self.model)
+            if self.is_main:
+                self.logger.log(self.step, results)
 
     def close(self):
         """Stop and join the input threads."""
         self._close()
 
 
-def _transfers(host_iter, bf16: bool, device, stream):
-    """The second input stage: cast each host batch for transfer and copy
-    it to the device on `stream`."""
+def _transfers(host_iter, bf16: bool, device, stream, mesh: Mesh):
+    """The second input stage: keep the rank's cameras, cast each host
+    batch for transfer and copy it to the device on `stream`."""
     for batch, host_s in host_iter:
-        batch = cast_for_transfer(batch, bf16)
+        batch = cast_for_transfer(shard_batch(batch, mesh), bf16)
         timing = {"data_time": host_s, "h2d_bytes": batch_bytes(batch)}
         dev, events, pinned = to_device(batch, device, stream)
         yield dev, pinned, timing, events

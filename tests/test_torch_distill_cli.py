@@ -10,8 +10,8 @@
   a second distill run taking that checkpoint as its teacher;
 * --teacher-top-k's meanings (-1 the bundle's 64, 0 all rows),
   --teacher-msda needing --split-teacher;
-* --data-parallel 2 exits naming ROADMAP Queue 1 item 4; without CUDA
-  and without --device cpu, both CLIs raise.
+* --data-parallel 2 in one process exits (it needs a process group of 2
+  ranks); without CUDA and without --device cpu, both CLIs raise.
 """
 
 import dataclasses
@@ -118,7 +118,8 @@ def test_distill_train_then_distill_test(tmp_path):
 
 
 def test_data_parallel_exits_and_the_clis_need_cuda(tmp_path):
-    with pytest.raises(SystemExit, match="Queue 1 item 4"):
+    # --data-parallel N runs one process a rank: one process is 1 rank
+    with pytest.raises(SystemExit, match="needs 2 ranks"):
         distill_train.main(["--tiny", "--synthetic", "--device", "cpu",
                             "--data-parallel", "2"])
     if torch.cuda.is_available():
