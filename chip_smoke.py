@@ -116,9 +116,8 @@ IoU, and prints one JSON line per phase:
               memory, launches per request exactly K3 7, K2 forward 2,
               K1 6 (the int8 table applies only to DCN inputs above 1536
               padded pixels), and, reported without a limit, the box drift
-              against the exact path's answer as tools/int8_box_bound.py
-              defines it
-              (top-300 selection churn, max |d| of centre, size, yaw,
+              against the exact path's answer as the port's
+              tools/int8_box_bound.py::box_drift defines it (top-300 selection churn, max |d| of centre, size, yaw,
               velocity and score over the boxes both select), beside the
               drift of the same int8 convs through their plain version
               (quantize, column tile, cuBLAS matmul) after the timed
@@ -253,9 +252,23 @@ IoU, and prints one JSON line per phase:
               fp32 step (train_plain's bounds), each rank launching K1 6
               / K2 9 a forward and a step's STEP_LAUNCHES for its
               cameras; (d) one bf16 step with head.fix_offset: the
-              offsets' update AdamW's pure decay within 1e-6 relative.
-              Each rank prints its card's name and power limit; a rank's
-              failure or timeout fails the phase.
+              offsets' update AdamW's pure decay within 1e-6 relative;
+              (e) on the same two ranks at cam=2, the other head families
+              against one process, fp32: the MP config, detr4d_res50 with
+              DETR3D's and with DETR3D-v2's attention (each replaying the
+              one process's reference points, and free running), PETRv2
+              on VoVNet at 12 x 640x1600 (48,000 keys, the softmax merged
+              across the ranks), petr_r50dcn_gridmask_p4 (K2) and
+              petrv2_BEVseg (lane maps): every decoder output within
+              phase plain's bounds, cam_overflow and each rank's K1 / K2
+              launches equal to one process's, ms a forward and the
+              collectives' ms; one step each of MP and of PETRv2 (its
+              800x320 config, dropout on) within train_plain's bounds,
+              assignments identical, peak memory a rank; the planted MP
+              gate sliced before its view breaks the bound (the merge
+              without the global max is reported). Each rank prints its
+              card's name and power limit; a rank's failure or timeout
+              fails the phase.
 Phase `kernels` also holds K3 (the fused int8-table conv, fp32 within
 1e-4 and bf16 within one bf16 step of the output's magnitude, both
 strides, the flagship's 7 int8 DCN shapes, with `gemm_ref_ms` as K2's),
@@ -294,6 +307,8 @@ import importlib.util
 import itertools
 import json
 import os
+import pickle
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -310,7 +325,7 @@ from graph_detr4d_tpu_torch.configs import get_config
 from graph_detr4d_tpu_torch.core import iou3d
 from graph_detr4d_tpu_torch.core.coder import decode_batch
 from graph_detr4d_tpu_torch.data.synthetic import synthetic_batch
-from graph_detr4d_tpu_torch.models.detector import GraphDETR4D
+from graph_detr4d_tpu_torch.models.detector import GraphDETR4D, model_extras
 from graph_detr4d_tpu_torch.ops import build
 from graph_detr4d_tpu_torch.core.losses import detr3d_loss
 from graph_detr4d_tpu_torch.ops import deform_conv as dcn_ops
@@ -348,6 +363,7 @@ from graph_detr4d_tpu_torch.models.detr_decoder import (
 from graph_detr4d_tpu_torch.models.petr_seg import maps_to_patches
 from graph_detr4d_tpu_torch.models.transformer import MultiheadAttention
 from graph_detr4d_tpu_torch.serve import synth_extra
+from graph_detr4d_tpu_torch.tools.int8_box_bound import box_drift
 
 CONFIG = "detr4d_res50_deform_pe_testaug_2subset_12e"
 REQUESTS = 4
@@ -1877,15 +1893,17 @@ def graph_route(calls, replay=False):
 def reference_route(model, calls, replay=False):
     """Record the reference points each decoder layer of `model` is given
     into `calls`; or, with replay, give each layer the recorded ones in
-    turn (a forward pre-hook on its argument 4), so that a route's own
-    box refinement does not feed back into where it samples."""
+    turn (a forward pre-hook on its argument 4; a recorded None leaves that
+    layer its own), so that a route's own box refinement does not feed
+    back into where it samples."""
     recorded = iter(list(calls))
 
     def hook(module, args):
         if not replay:
             calls.append(args[4])
             return None
-        return args[:4] + (next(recorded),) + args[5:]
+        ref = next(recorded)
+        return None if ref is None else args[:4] + (ref,) + args[5:]
 
     handles = [layer.register_forward_pre_hook(hook)
                for layer in model.pts_bbox_head.transformer.decoder.layers]
@@ -2030,43 +2048,6 @@ def final_layer(engine, batch):
         out = engine.model(torch.as_tensor(batch["images"]).to(engine.device),
                            torch.as_tensor(batch["lidar2img"]).to(engine.device))
     return out["all_cls_scores"][-1].float(), out["all_bbox_preds"][-1].float()
-
-
-def top_selection(cls, codes, max_num):
-    """The NMS-free coder's ranking: the top `max_num` flat (query, class)
-    indices by sigmoid score (stable), their scores and decoded boxes."""
-    scores = torch.sigmoid(cls).flatten(-2)
-    top, idx = torch.sort(scores, dim=-1, descending=True, stable=True)
-    top, idx = top[..., :max_num], idx[..., :max_num]
-    C = cls.shape[-1]
-    q = (idx // C)[..., None].expand(*idx.shape, codes.shape[-1])
-    return idx, top, denormalize_bbox(torch.gather(codes, -2, q))
-
-
-def box_drift(ref, got, max_num):
-    """tools/int8_box_bound.py's box-level drift of `got` against `ref`
-    (final-layer logits and codes): top-max_num selection churn, and the
-    max |d| of centre (m), size, yaw (rad, wrapped), velocity and score
-    over the (query, class) pairs both select."""
-    ia, sa, ba = (t[0].cpu() for t in top_selection(*ref, max_num))
-    ib, sb, bb = (t[0].cpu() for t in top_selection(*got, max_num))
-    pos_b = {int(v): j for j, v in enumerate(ib)}
-    churn = len(set(ia.tolist()) - set(ib.tolist()))
-    d = dict.fromkeys(("center", "size", "yaw", "velocity", "score"), 0.0)
-    matched = 0
-    for i, v in enumerate(ia.tolist()):
-        j = pos_b.get(v)
-        if j is None:
-            continue
-        matched += 1
-        d["center"] = max(d["center"], (ba[i, :3] - bb[j, :3]).abs().max().item())
-        d["size"] = max(d["size"], (ba[i, 3:6] - bb[j, 3:6]).abs().max().item())
-        dy = abs(ba[i, 6].item() - bb[j, 6].item())
-        d["yaw"] = max(d["yaw"], min(dy, abs(dy - 2 * np.pi)))
-        d["velocity"] = max(d["velocity"], (ba[i, 7:9] - bb[j, 7:9]).abs().max().item())
-        d["score"] = max(d["score"], abs(sa[i].item() - sb[j].item()))
-    return {"selected": max_num, "churn": churn, "matched": matched,
-            "max_abs_delta": d}
 
 
 def phase_serve_int8(sd, batch, ref):
@@ -4304,10 +4285,43 @@ def phase_petr(dev):
 # this process (the NCCL code path), then two ranks sharing the card over
 # gloo (NCCL refuses two ranks on one device): (b) data=2, one sample a
 # rank, and (c) cam=2, 6 cameras a rank; (d) a bf16 step with
-# head.fix_offset. Times of the two ranks are of processes sharing one
-# card: no multi-GPU time exists.
+# head.fix_offset; (e), on the same two ranks, the other head families at
+# cam=2. Times of the two ranks are of processes sharing one card: no
+# multi-GPU time exists.
 DIST_TIMED_STEPS = 3
-DIST_SPAWN_TIMEOUT_S = 420.0
+DIST_SPAWN_TIMEOUT_S = 600.0
+# (e): each head family at full width, cam=2 against one process, fp32
+# (dropout 0 and the grid mask off, but PETRv2's step keeps dropout on: the
+# dense attention's (Q, T) weight mask is drawn whole and sliced by rank):
+# eval forwards within phase plain's bounds on every decoder layer (lane
+# maps too), cam_overflow equal, each rank's K1 / K2 launches equal to one
+# process's; MP's and PETRv2's steps within train_plain's bounds with
+# assignments identical. The heads that refine where they sample (MP,
+# DETR3D, DETR3D-v2) replay the one process's reference points, as phases
+# mp_plain and variants do, and also run free (FREE_RUNNING_ATOL). MP's
+# 2-way fusion projection is zeroed so both branches weigh 0.5: random
+# weights saturate its softmax over the summed queries and hide a branch.
+# Two planted faults, each in a replayed or dense forward of a rank: MP's
+# centre gate sliced by camera before the (B, Q, N) -> (B, N, Q) view,
+# which must break the bound, and PETRv2's merge without the global row
+# max, reported (its random-weight attention is near-uniform, so the two
+# halves' row maxima nearly agree; tests/test_torch_dist.py breaks it at
+# tiny width). PETRv2's step runs its
+# 800x320 config (`step_config`): at 640x1600 in fp32 the two ranks' steps
+# did not fit the card together (a rank held 22.9 GB when the card's 79 GB
+# were taken; PERF.md).
+DIST_HEADS = {
+    "mp": dict(config=MP_CONFIG, overrides=[], replay=True, step=True,
+               fault="gate"),
+    "detr3d": dict(config="detr4d_res50", overrides=[], replay=True),
+    "detr3d_v2": dict(config="detr4d_res50",
+                      overrides=["head.attn_type=detr3d_v2"], replay=True),
+    "petrv2": dict(config=PETR_MAIN, overrides=[], step=True, dropout=True,
+                   fault="merge",
+                   step_config="petrv2_vovnet_gridmask_p4_800x320"),
+    "petr_r50dcn": dict(config=PETR_V1[0], overrides=[]),
+    "petr_seg": dict(config=PETR_SEG, overrides=[]),
+}
 # (d): the offsets' update against AdamW's pure decay, relative
 FIX_OFFSET_RTOL = 1e-6
 
@@ -4374,11 +4388,347 @@ def forward_outputs(model, batch):
 
 
 
-def dist_rank(rank, world):
+def dist_head_config(h, step=False):
+    """A DIST_HEADS entry's fp32 config; with `step` its train step's (its
+    step_config where it names one, the entry's dropout kept where it says
+    so)."""
+    name = h.get("step_config", h["config"]) if step else h["config"]
+    cfg = get_config(name, h["overrides"])
+    out = fp32_step_config(cfg)
+    if step and h.get("dropout"):
+        out = dataclasses.replace(out, head=dataclasses.replace(
+            out.head, dropout=cfg.head.dropout))
+    return out
+
+
+def dist_head_batch(cfg):
+    """The train batch of a config with its model extras (PETRv2's and
+    PETR-seg's mean_time_stamp)."""
+    return {**train_batch(cfg), **petr_train_extras(cfg)}
+
+
+def head_forward(model, batch):
+    """An eval forward: ({'all_*': numpy}, cam_overflow, ms by CUDA events,
+    launches)."""
+    reset_launch_counts()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    with torch.no_grad():
+        start.record()
+        out = model(batch["images"], batch["lidar2img"], **model_extras(batch))
+        end.record()
+    end.synchronize()
+    return ({k: v.float().cpu().numpy() for k, v in out.items()
+             if k.startswith("all_")}, float(out["cam_overflow"]),
+            start.elapsed_time(end), launch_counts())
+
+
+def head_step(model, cfg, batch, mesh=None):
+    """One timed TrainStep step: (metrics, launches, K4 calls, ms, peak
+    bytes)."""
+    step = TrainStep(model, cfg, seed=0, mesh=mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    metrics, launches, calls = step_record(step, batch)
+    end.record()
+    end.synchronize()
+    return (metrics, launches, calls, start.elapsed_time(end),
+            torch.cuda.max_memory_allocated())
+
+
+def graph_rows_differing(got, want):
+    """Per decoder layer, the MP query-graph rows of `got` whose neighbour
+    set differs from `want`'s (lists of (B, Q, k) index arrays)."""
+    return [int((np.sort(g, -1) != np.sort(w, -1)).any(-1).sum())
+            for g, w in zip(got, want)]
+
+
+def dist_heads_one_process(tmp):
+    """The one-process side of (e): each DIST_HEADS config's weights saved
+    under `tmp`, its eval forward (recording the reference points, and
+    MP's query graphs, where the ranks replay or compare them) and its
+    step (recording its reference points likewise). Returns (the ranks'
+    spec, the results)."""
+    spec, want = {}, {}
+    for name, h in DIST_HEADS.items():
+        cfg = dist_head_config(h)
+        sd = random_state_dict(get_config(h["config"], h["overrides"]))
+        if name == "mp":  # both fusion branches weigh 0.5
+            sd = {k: torch.zeros_like(v) if ".output_weight." in k else v
+                  for k, v in sd.items()}
+        path = os.path.join(tmp, f"{name}.pt")
+        torch.save(sd, path)
+        model = GraphDETR4D(cfg)
+        model.load_state_dict(sd, strict=True)
+        model.eval()
+        batch = cuda_batch(dist_head_batch(cfg))
+        refs, graphs, step_refs = [], [], []
+        replay = h.get("replay")
+        with (reference_route(model, refs) if replay
+              else contextlib.nullcontext()), graph_route(graphs):
+            out, overflow, _, launches = head_forward(model, batch)
+        torch.cuda.reset_peak_memory_stats()
+        _, _, ms, _ = head_forward(model, batch)  # timed after a warm-up
+        rec = {"outputs": out, "cam_overflow": overflow, "ms": ms,
+               "peak": torch.cuda.max_memory_allocated(), "launches": launches,
+               "graphs": [g.cpu().numpy() for g in graphs]}
+        del model
+        if h.get("step"):
+            scfg = dist_head_config(h, step=True)
+            model = GraphDETR4D(scfg)
+            model.load_state_dict(sd, strict=True)
+            with (reference_route(model, step_refs) if replay
+                  else contextlib.nullcontext()):
+                (rec["metrics"], rec["step_launches"], rec["calls"],
+                 rec["step_ms"], rec["step_peak"]) = head_step(
+                    model, scfg, cuda_batch(dist_head_batch(scfg)))
+            del model
+        del sd, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+        # a step replays layers 1 on: layer 0's reference points carry the
+        # gradient of their projection, and both sides compute them alike
+        spec[name] = {**h, "weights": path,
+                      "refs": [r.cpu().numpy() for r in refs],
+                      "step_refs": [None] + [r.detach().cpu().numpy()
+                                             for r in step_refs[1:]]
+                      if step_refs else []}
+        want[name] = rec
+    return spec, want
+
+
+@contextlib.contextmanager
+def timed_collectives():
+    """Time every camera collective the heads call (the cross-attentions'
+    all_reduce_sum / all_reduce_max), each between two device syncs:
+    yields a dict that sums their host ms and counts them."""
+    from graph_detr4d_tpu_torch.models import attention as attention_mod
+    from graph_detr4d_tpu_torch.models import attention_variants as variants_mod
+
+    spent = {"ms": 0.0, "calls": 0}
+    patched = [(m, n, getattr(m, n)) for m, n in (
+        (attention_mod, "all_reduce_sum"), (variants_mod, "all_reduce_sum"),
+        (transformer_mod, "all_reduce_sum"), (transformer_mod, "all_reduce_max"))]
+
+    def timed(fn):
+        def call(x, group):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y = fn(x, group)
+            torch.cuda.synchronize()
+            spent["ms"] += 1e3 * (time.perf_counter() - t0)
+            spent["calls"] += 1
+            return y
+        return call
+
+    for m, n, fn in patched:
+        setattr(m, n, timed(fn))
+    try:
+        yield spent
+    finally:
+        for m, n, fn in patched:
+            setattr(m, n, fn)
+
+
+@contextlib.contextmanager
+def gate_sliced_before_view(model, mesh):
+    """The planted MP fault: each decoder layer's camera-gate logits (B, Q,
+    N) rewritten so that the module's view-then-slice reads, for this
+    rank's cameras, the logits sliced by camera first and transposed."""
+    def hook(module, args, g):
+        B, Q, N = g.shape
+        n = N // mesh.cam
+        cams = slice(mesh.cam_index * n, (mesh.cam_index + 1) * n)
+        view = g.reshape(B, N, Q).clone()
+        view[:, cams] = g[:, :, cams].transpose(1, 2)
+        return view.reshape(B, Q, N)
+
+    handles = [layer.attentions[1].cam_attention_weights.register_forward_hook(
+        hook) for layer in model.pts_bbox_head.transformer.decoder.layers]
+    try:
+        yield
+    finally:
+        for h in handles:
+            h.remove()
+
+
+def dist_heads_rank(mesh2, spec):
+    """The rank's side of (e) on the cam=2 mesh: each config's eval forward
+    with this rank's cameras (replaying the one process's reference
+    points, then free running, its MP query graphs recorded, and timed),
+    PETRv2's with the planted fault, and the steps (replaying the one
+    process's step reference points). Host values only."""
+    from graph_detr4d_tpu_torch.models.detector import shard_cameras
+    from graph_detr4d_tpu_torch.parallel.mesh import shard_batch
+
+    def replaying(model, refs):
+        if not refs:
+            return contextlib.nullcontext()
+        return reference_route(model, [None if r is None else
+                                       torch.from_numpy(r).cuda()
+                                       for r in refs], replay=True)
+
+    out = {}
+    for name, h in spec.items():
+        cfg = dist_head_config(h)
+        sd = torch.load(h["weights"], map_location="cuda", weights_only=True)
+        model = GraphDETR4D(cfg)
+        model.load_state_dict(sd, strict=True)
+        shard_cameras(model.eval(), mesh2)
+        batch = cuda_batch(shard_batch(dist_head_batch(cfg), mesh2))
+        rec = {"cameras": int(batch["images"].shape[1])}
+        if h["refs"]:
+            with replaying(model, h["refs"]):
+                rec["replayed"], _, _, _ = head_forward(model, batch)
+        graphs = []
+        with graph_route(graphs):
+            (rec["outputs"], rec["cam_overflow"], _,
+             rec["launches"]) = head_forward(model, batch)
+        rec["graphs"] = [g.cpu().numpy() for g in graphs]
+        torch.cuda.reset_peak_memory_stats()
+        _, _, rec["ms"], _ = head_forward(model, batch)
+        rec["peak"] = torch.cuda.max_memory_allocated()
+        with timed_collectives() as spent:
+            _, _, rec["synced_ms"], _ = head_forward(model, batch)
+        rec["collectives"] = spent
+        if h.get("fault") == "gate":
+            with replaying(model, h["refs"]), gate_sliced_before_view(
+                    model, mesh2):
+                rec["fault"], _, _, _ = head_forward(model, batch)
+        elif h.get("fault") == "merge":  # each rank with its own row max
+            real = transformer_mod.all_reduce_max
+            transformer_mod.all_reduce_max = lambda x, group: x.detach()
+            try:
+                rec["fault"], _, _, _ = head_forward(model, batch)
+            finally:
+                transformer_mod.all_reduce_max = real
+        del model
+        if h.get("step"):
+            scfg = dist_head_config(h, step=True)
+            model = GraphDETR4D(scfg)
+            model.load_state_dict(sd, strict=True)
+            with replaying(model, h["step_refs"]):
+                (rec["metrics"], rec["step_launches"], rec["calls"],
+                 rec["step_ms"], rec["step_peak"]) = head_step(
+                    model, scfg, cuda_batch(shard_batch(
+                        dist_head_batch(scfg), mesh2)), mesh2)
+            del model
+        del sd, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+        out[name] = rec
+    return out
+
+
+def output_errors(got, want):
+    """Per decoder layer, the max abs difference of every 'all_*' output
+    (logits, boxes and PETR-seg's lane maps)."""
+    errs = {}
+    for k, w in want.items():
+        if not np.isfinite(got[k]).all():
+            raise AssertionError(f"non-finite {k}")
+        errs[k] = [float(np.abs(got[k][i] - w[i]).max()) for i in range(len(w))]
+    return errs
+
+
+def within_plain_bounds(errs):
+    return all(e <= (PLAIN_EARLY_ATOL if i < 2 else PLAIN_ATOL)
+               for per_layer in errs.values() for i, e in enumerate(per_layer))
+
+
+def check_dist_heads(ranks, want, path):
+    """(e)'s checks of both ranks against the one process: (the record,
+    the failed checks' messages)."""
+    record, failed = {}, []
+
+    def check(fn, *args):
+        try:
+            return fn(*args)
+        except AssertionError as e:
+            failed.append(str(e))
+            return None
+
+    for name, w in want.items():
+        h = DIST_HEADS[name]
+        cfg = get_config(h["config"], h["overrides"])
+        rec = {"config": h["config"], "overrides": h["overrides"],
+               "one_process": {"forward_ms": w["ms"],
+                               "forward_peak_memory_bytes": w["peak"],
+                               "forward_launches": w["launches"]}}
+        if h.get("step"):
+            rec["one_process"].update(
+                step_config=h.get("step_config", h["config"]),
+                step_ms=w["step_ms"], step_peak_memory_bytes=w["step_peak"],
+                metrics=w["metrics"])
+        for r, res in enumerate(ranks):
+            got, tag = res["heads"][name], f"dist (e) {name} rank {r}"
+            if got["cameras"] != cfg.head.num_cams // 2:
+                failed.append(f"{tag}: {got['cameras']} cameras")
+            rr = {"forward_ms_shared_card": got["ms"],
+                  "forward_peak_memory_bytes": got["peak"],
+                  "synced_forward_ms": got["synced_ms"],
+                  "collective_ms": got["collectives"]["ms"],
+                  "collectives": got["collectives"]["calls"],
+                  "forward_launches": got["launches"]}
+            free = output_errors(got["outputs"], w["outputs"])
+            if h.get("replay"):
+                errs = output_errors(got["replayed"], w["outputs"])
+                rr["free_running_max_abs_err_per_layer"] = free
+                if w["graphs"]:
+                    # a free run's own query graphs: a near-tie of the 8th
+                    # and 9th nearest reference points flips on the camera
+                    # sum's rounding, and the query then reads other
+                    # neighbours (reported, not bounded)
+                    rr["free_running_graph_rows_differing_per_layer"] = (
+                        graph_rows_differing(got["graphs"], w["graphs"]))
+                else:
+                    check(check_free_running, tag, free)
+            else:
+                errs = free
+            rr["max_abs_err_per_layer"] = errs
+            check(check_layer_errors, tag, errs)
+            if got["cam_overflow"] != w["cam_overflow"]:
+                failed.append(f"{tag}: cam_overflow {got['cam_overflow']} "
+                              f"vs {w['cam_overflow']}")
+            if got["launches"] != w["launches"]:
+                failed.append(f"{tag}: launches {got['launches']} vs one "
+                              f"process {w['launches']}")
+            add_counts(path, got["launches"])
+            if h.get("fault"):
+                ferrs = output_errors(got["fault"], w["outputs"])
+                rr["fault"] = h["fault"]
+                rr["fault_max_abs_err_per_layer"] = ferrs
+                rr["fault_breaks_the_bound"] = not within_plain_bounds(ferrs)
+                if h["fault"] == "gate" and not rr["fault_breaks_the_bound"]:
+                    failed.append(f"{tag}: the gate sliced before its view "
+                                  f"stays within the bounds: {ferrs}")
+            if h.get("step"):
+                rr["rel_err"] = check(check_step_against, tag,
+                                      got["metrics"], w["metrics"])
+                rr["assignment_rows_differing_per_layer"] = check(
+                    check_assignments, tag, got["calls"], w["calls"],
+                    range(cfg.head.num_decoder_layers))
+                if got["step_launches"] != w["step_launches"]:
+                    failed.append(f"{tag}: step launches "
+                                  f"{got['step_launches']} vs "
+                                  f"{w['step_launches']}")
+                add_counts(path, got["step_launches"])
+                rr.update(metrics=got["metrics"],
+                          step_ms_shared_card=got["step_ms"],
+                          step_peak_memory_bytes=got["step_peak"],
+                          step_launches=got["step_launches"])
+            rec[f"rank{r}"] = rr
+        record[name] = rec
+    return record, failed
+
+
+def dist_rank(rank, world, heads_spec_path):
     """One of two ranks sharing the card over gloo: (b) one fp32 step of a
     data=2 mesh on sample `rank` of the global batch of 2; (c) on a cam=2
-    mesh, an fp32 forward and one fp32 step with this rank's 6 cameras.
-    Returns host values only."""
+    mesh, an fp32 forward and one fp32 step with this rank's 6 cameras;
+    (e) the other head families on that mesh (dist_heads_rank, the spec
+    pickled at heads_spec_path). Returns host values only."""
     from graph_detr4d_tpu_torch.models.detector import shard_cameras
     from graph_detr4d_tpu_torch.parallel.mesh import (
         init_distributed, make_mesh, make_mesh_2d, shard_batch)
@@ -4423,6 +4773,11 @@ def dist_rank(rank, world):
                   "cameras": int(batch["images"].shape[1]),
                   "forward_launches": fwd_launches, "metrics": metrics,
                   "launches": launches, "calls": calls}
+    del model, step, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    with open(heads_spec_path, "rb") as f:
+        out["heads"] = dist_heads_rank(mesh2, pickle.load(f))
     return out
 
 
@@ -4515,9 +4870,22 @@ def phase_dist(cfg, sd):
     del ref, batch
     gc.collect()
     torch.cuda.empty_cache()
-
-    # (b) and (c): two ranks sharing the card over gloo
-    ranks = mesh_mod.spawn_ranks(dist_rank, 2, timeout_s=DIST_SPAWN_TIMEOUT_S)
+    tmp = tempfile.mkdtemp(prefix="dist_heads_")
+    try:
+        heads_spec, heads_want = dist_heads_one_process(tmp)
+        spec_path = os.path.join(tmp, "spec.pkl")
+        with open(spec_path, "wb") as f:
+            pickle.dump(heads_spec, f)
+        # (b), (c) and (e): two ranks sharing the card over gloo
+        ranks = mesh_mod.spawn_ranks(dist_rank, 2, spec_path,
+                                     timeout_s=DIST_SPAWN_TIMEOUT_S)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    record_e, failed_e = check_dist_heads(ranks, heads_want, path)
+    emit({"phase": "dist", "part": "(e) cam=2 heads", "heads": record_e,
+          "failed": failed_e})
+    if failed_e:
+        raise AssertionError(f"dist (e): {failed_e}")
     layers = cfg.head.num_decoder_layers
     record_b, record_c = {}, {}
     for r, res in enumerate(ranks):
@@ -4597,6 +4965,7 @@ def phase_dist(cfg, sd):
                   "times are no multi-GPU time",
           "nccl_world_1": record_a, "data2_gloo_shared_card": record_b,
           "cam2_gloo_shared_card": record_c,
+          "cam2_heads_gloo_shared_card": "the (e) line above",
           "fix_offset": {"offsets_rel_err_vs_pure_decay": fix_err,
                          "offset_tensors": len(offsets), "lr0": lr0,
                          "metrics": metrics},

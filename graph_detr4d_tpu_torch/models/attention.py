@@ -51,6 +51,13 @@ from ..utils.math import inverse_sigmoid
 from .layers import Linear, dropout, ln_mlp
 
 
+def camera_slice(shard, n: int) -> slice:
+    """The cameras [first, first + n) of the rig that a camera shard
+    holding n of them reads (all n without a shard)."""
+    first = 0 if shard is None else shard.cam_index * n
+    return slice(first, first + n)
+
+
 def offset_bias_init(num_heads: int, num_points: int) -> np.ndarray:
     """Circular-cone 3D offset bias (deform3d_cross_attn.py:138-148)."""
     thetas = np.arange(num_heads, dtype=np.float32) * (
@@ -180,9 +187,7 @@ class Deform3DCrossAttn(nn.Module):
         # cameras after the view.
         gate = torch.sigmoid(gate_logits.float()).reshape(B, N, Q, 1)
         shard = self.cam_shard
-        if shard is not None:
-            gate = gate[:, shard.cam_index * n:(shard.cam_index + 1) * n]
-        out = (sampled.float() * gate).sum(dim=1)
+        out = (sampled.float() * gate[:, camera_slice(shard, n)]).sum(dim=1)
         if shard is not None:
             out = all_reduce_sum(out, shard.cam_group)
             overflow = all_reduce_sum(overflow.detach(), shard.cam_group)

@@ -20,6 +20,18 @@ graph_detr4d_tpu/models/attention_variants.py):
 As for deform3d, sampling locations and attention weights enter K1 in
 fp32 (the JAX modules cast them to the compute dtype first). Each module
 returns (query update, cam_overflow), the overflow 0: none compacts.
+
+Camera parallelism (`cam_shard`, a parallel/mesh.py Mesh with a cam
+group, set by models/detector.py::shard_cameras): the rank holds cameras
+[cam_index * n, (cam_index + 1) * n) of the N, projects into and samples
+only those, and sums its part of each camera sum over the cam group
+(`all_reduce_sum`). DETR3D's weights and DETR3D-v2's weights and offsets
+are laid out (B, Q, N, ...) by the projection itself, so a rank takes its
+cameras of that axis. MP's two gates are the reference's (B, Q, N) and
+(B, K * Q, N) memory read as (B, N, .), so a rank takes its cameras after
+that view, as Deform3DCrossAttn does; its neighbour sum is all-reduced
+before the sum over neighbours, and the learned fusion sees the summed
+branches.
 """
 
 import math
@@ -31,7 +43,9 @@ import torch.nn as nn
 
 from ..geometry.projection import denormalize_points
 from ..ops import msda as msda_ops
+from ..parallel.mesh import all_reduce_sum
 from ..utils.math import inverse_sigmoid
+from .attention import camera_slice
 from .layers import Linear, dropout, ln_mlp
 
 PC_RANGE = (-51.2, -51.2, -5.0, 51.2, 51.2, 3.0)
@@ -49,6 +63,13 @@ def project_to_cams(pts, lidar2img, img_shape, eps=1e-5):
     valid = ((z > eps) & (loc[..., 0:1] > 0.0) & (loc[..., 0:1] < 1.0)
              & (loc[..., 1:2] > 0.0) & (loc[..., 1:2] < 1.0))[..., 0]
     return loc, valid.float()
+
+
+def sum_cameras(x: torch.Tensor, shard) -> torch.Tensor:
+    """x (B, n, ...) summed over its camera axis and, on a camera shard,
+    over the cam group."""
+    x = x.sum(dim=1)
+    return x if shard is None else all_reduce_sum(x, shard.cam_group)
 
 
 def _position_feat(mlp, ref01, dtype):
@@ -77,6 +98,7 @@ class Detr3DCrossAtten(nn.Module):
         self.num_levels, self.num_points, self.num_cams = (
             num_levels, num_points, num_cams)
         self.pc_range = tuple(pc_range)
+        self.cam_shard = None  # a Mesh with a cam group, or None
         self.attention_weights = Linear(
             embed_dims, num_cams * num_levels * num_points)
         self.output_proj = Linear(embed_dims, embed_dims)
@@ -88,9 +110,11 @@ class Detr3DCrossAtten(nn.Module):
         reference_points (B, Q, 3) in [0, 1]."""
         B, Q, C = query.shape
         N, L, P = self.num_cams, self.num_levels, self.num_points
+        n = lidar2img.shape[1]  # the cameras this rank holds
         residual = query
         q = query + query_pos
-        w = torch.sigmoid(self.attention_weights(q).float()).view(B, Q, N, P, L)
+        w = torch.sigmoid(self.attention_weights(q).float()).view(
+            B, Q, N, P, L)[:, :, camera_slice(self.cam_shard, n)]
         loc, mask = project_to_cams(
             denormalize_points(reference_points.float(), self.pc_range),
             lidar2img, img_shape)
@@ -100,12 +124,12 @@ class Detr3DCrossAtten(nn.Module):
         # K1 skips corners outside the image and points of weight 0, so
         # finite features give finite sums: the reference's nan_to_num of
         # the samples changes nothing.
-        loc = loc.reshape(B * N, Q, 1, 1, 1, 2).expand(B * N, Q, 1, L, 1, 2)
-        attn = w.sum(3).permute(0, 2, 1, 3).reshape(B * N, Q, 1, L, 1)
+        loc = loc.reshape(B * n, Q, 1, 1, 1, 2).expand(B * n, Q, 1, L, 1, 2)
+        attn = w.sum(3).permute(0, 2, 1, 3).reshape(B * n, Q, 1, L, 1)
         sampled = msda_ops.msda_forward(
-            value.reshape(B * N, -1, 1, C), spatial_shapes, loc.contiguous(),
+            value.reshape(B * n, -1, 1, C), spatial_shapes, loc.contiguous(),
             attn.contiguous())
-        out = sampled.view(B, N, Q, C).float().sum(dim=1)
+        out = sum_cameras(sampled.view(B, n, Q, C).float(), self.cam_shard)
         out = dropout(self.output_proj(out.to(query.dtype)), self.dropout,
                       generator)
         pos = _position_feat(self.position_encoder, reference_points, query.dtype)
@@ -130,6 +154,7 @@ class Deform3DCrossAttnMP(nn.Module):
         self.num_points, self.num_cams = num_points, num_cams
         self.num_neighbors = num_neighbors
         self.pc_range = tuple(pc_range)
+        self.cam_shard = None  # a Mesh with a cam group, or None
         pn = max(num_points // 4, 1)
         self.cam_attention_weights = Linear(C, num_cams)
         self.deform_sampling_offsets = Linear(C, num_heads * num_points * 3)
@@ -142,17 +167,17 @@ class Deform3DCrossAttnMP(nn.Module):
 
     def _sample(self, value, spatial_shapes, lidar2img, img_shape, pts, logits):
         """K1 over the rows of pts (B, rows, heads, L, P, 3), metric, with
-        attention logits (B, rows, heads, L * P), projected into every
-        camera. Returns (B, N, rows, C)."""
+        attention logits (B, rows, heads, L * P), projected into each of
+        the n cameras of lidar2img (B, n, 4, 4). Returns (B, n, rows, C)."""
         B, rows, nh, L, P, _ = pts.shape
-        N = self.num_cams
+        n = lidar2img.shape[1]
         loc, mask = project_to_cams(pts.reshape(B, -1, 3), lidar2img, img_shape)
-        loc = loc.reshape(B * N, rows, nh, L, P, 2)
+        loc = loc.reshape(B * n, rows, nh, L, P, 2)
         attn = torch.softmax(logits.float(), dim=-1).view(B, 1, rows, nh, L, P)
-        attn = attn * mask.view(B, N, rows, nh, L, P)
+        attn = attn * mask.view(B, n, rows, nh, L, P)
         out = msda_ops.msda_forward(value, spatial_shapes, loc.contiguous(),
-                                    attn.reshape(B * N, rows, nh, L, P).contiguous())
-        return out.view(B, N, rows, -1)
+                                    attn.reshape(B * n, rows, nh, L, P).contiguous())
+        return out.view(B, n, rows, -1)
 
     def forward(self, query, value, spatial_shapes, query_pos,
                 reference_points, lidar2img, img_shape, generator=None):
@@ -162,9 +187,11 @@ class Deform3DCrossAttnMP(nn.Module):
         nh, L, P, N, K = (self.num_heads, self.num_levels, self.num_points,
                           self.num_cams, self.num_neighbors)
         pn = max(P // 4, 1)
+        n = lidar2img.shape[1]  # the cameras this rank holds
+        cams = camera_slice(self.cam_shard, n)
         residual, q = query, query
         ref_c, ref_n = reference_points[:, :Q], reference_points[:, Q:]
-        value = self.value_proj(value).reshape(B * N, -1, nh, C // nh)
+        value = self.value_proj(value).reshape(B * n, -1, nh, C // nh)
 
         offsets = self.deform_sampling_offsets(q).view(B, Q, nh, 1, P, 3)
         pts = denormalize_points(ref_c.float(), self.pc_range)[
@@ -172,7 +199,8 @@ class Deform3DCrossAttnMP(nn.Module):
         centre = self._sample(value, spatial_shapes, lidar2img, img_shape, pts,
                               self.attention_weights(q).view(B, Q, nh, L * P))
         gate = self.cam_attention_weights(q).float()  # (B, Q, N)
-        centre = (centre.float() * torch.sigmoid(gate).reshape(B, N, Q, 1)).sum(dim=1)
+        gate_c = torch.sigmoid(gate).reshape(B, N, Q, 1)[:, cams]
+        centre = (centre.float() * gate_c).sum(dim=1)
 
         # neighbour row j * Q + q takes query q's logits and raw gate; the
         # gate's (B, K * Q, N) rows are read as (B, N, K * Q) as the centre's
@@ -181,8 +209,14 @@ class Deform3DCrossAttnMP(nn.Module):
         logits_n = self.attention_weights_neighbor(q).repeat(1, K, 1)
         nb = self._sample(value, spatial_shapes, lidar2img, img_shape, pts_n,
                           logits_n.view(B, K * Q, nh, L * pn))
-        gate_n = gate.repeat(1, K, 1).reshape(B, N, K * Q, 1)
-        nb = (nb.float() * gate_n).sum(dim=1).reshape(B, K, Q, C).sum(dim=1)
+        gate_n = gate.repeat(1, K, 1).reshape(B, N, K * Q, 1)[:, cams]
+        nb = (nb.float() * gate_n).sum(dim=1)  # (B, K * Q, C)
+        if self.cam_shard is not None:
+            # both camera sums in one all-reduce, before the neighbour sum
+            both = all_reduce_sum(torch.cat([centre, nb], dim=1),
+                                  self.cam_shard.cam_group)
+            centre, nb = both[:, :Q], both[:, Q:]
+        nb = nb.reshape(B, K, Q, C).sum(dim=1)
 
         # learned global 2-way fusion, per sample (multi_point.py:436-439)
         fuse = self.output_weight(torch.cat([centre, nb], -1).to(query.dtype))
@@ -204,6 +238,7 @@ class Detr3DCrossAttenV2(nn.Module):
         self.num_heads, self.num_levels = num_heads, num_levels
         self.num_points, self.num_cams = num_points, num_cams
         self.pc_range = tuple(pc_range)
+        self.cam_shard = None  # a Mesh with a cam group, or None
         n = num_cams * num_heads * num_levels * num_points
         self.attention_weights = Linear(C, n)
         self.sampling_offsets = Linear(C, 2 * n)
@@ -216,12 +251,15 @@ class Detr3DCrossAttenV2(nn.Module):
         B, Q, C = query.shape
         N, nh, L, P = (self.num_cams, self.num_heads, self.num_levels,
                        self.num_points)
+        n = lidar2img.shape[1]  # the cameras this rank holds
+        cams = camera_slice(self.cam_shard, n)
         residual = query
         q = query + query_pos
         attn = torch.softmax(
-            self.attention_weights(q).float().view(B, Q, N, nh, L * P), dim=-1
-        ).view(B, Q, N, nh, L, P)
-        offsets = self.sampling_offsets(q).view(B, Q, N, nh, L, P, 2).float()
+            self.attention_weights(q).float().view(B, Q, N, nh, L * P)[:, :, cams],
+            dim=-1).view(B, Q, n, nh, L, P)
+        offsets = self.sampling_offsets(q).view(
+            B, Q, N, nh, L, P, 2)[:, :, cams].float()
         centre, mask = project_to_cams(
             denormalize_points(reference_points.float(), self.pc_range),
             lidar2img, img_shape)
@@ -232,12 +270,12 @@ class Detr3DCrossAttenV2(nn.Module):
         norm = torch.tensor([[2.0 * w, 2.0 * h] for h, w in spatial_shapes],
                             device=query.device)
         loc = centre[:, :, :, None, None, None, :] + offsets / norm[:, None, :]
-        loc = loc.permute(0, 2, 1, 3, 4, 5, 6).reshape(B * N, Q, nh, L, P, 2)
-        attn = attn.permute(0, 2, 1, 3, 4, 5).reshape(B * N, Q, nh, L, P)
+        loc = loc.permute(0, 2, 1, 3, 4, 5, 6).reshape(B * n, Q, nh, L, P, 2)
+        attn = attn.permute(0, 2, 1, 3, 4, 5).reshape(B * n, Q, nh, L, P)
         sampled = msda_ops.msda_forward(
-            value.reshape(B * N, -1, nh, C // nh), spatial_shapes,
+            value.reshape(B * n, -1, nh, C // nh), spatial_shapes,
             loc.contiguous(), attn.contiguous())
-        out = sampled.view(B, N, Q, C).float().sum(dim=1)
+        out = sum_cameras(sampled.view(B, n, Q, C).float(), self.cam_shard)
         out = dropout(self.output_proj(out.to(query.dtype)), self.dropout,
                       generator)
         pos = _position_feat(self.position_encoder, reference_points, query.dtype)

@@ -22,11 +22,13 @@ import torch.nn as nn
 from ..config import ModelConfig
 from ..utils.device import resolve_device
 from .attention import Deform3DCrossAttn
+from .attention_variants import (Deform3DCrossAttnMP, Detr3DCrossAtten,
+                                 Detr3DCrossAttenV2)
 from .fpn import FPN
 from .grid_mask import apply_grid_mask, grid_mask_params
 from .head import Detr3DHeadPE
 from .mobilenet import MobileNetV2
-from .petr_head import PETRHead
+from .petr_head import CrossAttention, PETRHead
 from .petr_seg import PETRHeadSeg
 from .resnet import ResNet
 from .transformer import ATTN_TYPES
@@ -44,6 +46,10 @@ def model_extras(batch: dict) -> dict:
     GraphDETR4D.forward (the JAX steps' batch.get)."""
     return {k: batch[k] for k in MODEL_EXTRAS if batch.get(k) is not None}
 
+
+# the modules that mix cameras, each reading its slice from `cam_shard`
+CAM_MIXING = (Deform3DCrossAttn, Deform3DCrossAttnMP, Detr3DCrossAtten,
+              Detr3DCrossAttenV2, CrossAttention)
 
 BACKBONE_TYPES = ("resnet", "vovnet", "mobilenetv2")
 HEAD_TYPES = ("detr4d_pe", "petr", "petrv2", "petr_seg")
@@ -101,34 +107,28 @@ def check_supported(cfg: ModelConfig):
         )
 
 
-# the ROADMAP item that queues camera parallelism for the other heads
-CAM_PARALLEL_ITEM = "ROADMAP Queue 1 item 7"
-
-
 def shard_cameras(model: nn.Module, mesh) -> nn.Module:
-    """Put `model` on the cam group of a parallel/mesh.py Mesh: its head
-    and every Deform3DCrossAttn read their camera slice from the mesh
-    (the identity for mesh.cam 1). Only the gated camera sum of
-    Deform3DCrossAttn mixes cameras in these heads (the flagship, H-DETR,
-    the camera-aware heads, MixDistill's student); the other heads raise,
-    naming the ROADMAP item that queues them."""
+    """Put `model` on the cam group of a parallel/mesh.py Mesh (the
+    identity for mesh.cam 1): its head and every module of it that mixes
+    cameras read their camera slice from the mesh. Those are the
+    cross-attentions of models/attention.py and attention_variants.py
+    (the Detr3DHeadPE family: the flagship, H-DETR, the camera-aware
+    heads, MP, DETR3D, DETR3D-v2, MixDistill's student) and the PETR
+    heads' dense cross-attentions (PETR, PETRv2, PETR-seg). Any other
+    model, ObjDGCNN among them, raises: it has no camera axis to shard."""
     if mesh is None or mesh.cam == 1:
         return model
-    cfg = getattr(model, "cfg", None)
-    if (not isinstance(model, GraphDETR4D) or cfg.head_type != "detr4d_pe"
-            or cfg.head.attn_type != "deform3d"):
-        what = (type(model).__name__ if cfg is None else
-                f"head_type={cfg.head_type!r}, attn_type="
-                f"{cfg.head.attn_type!r}")
+    if not isinstance(model, GraphDETR4D):
         raise NotImplementedError(
-            f"camera parallelism (cam={mesh.cam}) covers the "
-            f"Deform3DCrossAttn heads only, not {what}: {CAM_PARALLEL_ITEM}")
+            f"camera parallelism (cam={mesh.cam}) shards the camera axis of "
+            f"a GraphDETR4D; {type(model).__name__} has none")
+    cfg = model.cfg
     if cfg.head.num_cams % mesh.cam:
         raise ValueError(f"{cfg.head.num_cams} cameras not divisible by "
                          f"cam={mesh.cam}")
     model.pts_bbox_head.cam_shard = mesh
     for m in model.modules():
-        if isinstance(m, Deform3DCrossAttn):
+        if isinstance(m, CAM_MIXING):
             m.cam_shard = mesh
     return model
 

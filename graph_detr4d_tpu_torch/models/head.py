@@ -51,6 +51,19 @@ from .positional import (coords_position_3d, lid_depth_bins,
 from .transformer import DecoderLayer
 
 
+def rig_cameras(shard, n: int, num_cams: int):
+    """(the rig's camera count, the first of the n cameras this rank
+    holds): (n, 0) without a camera shard (models/detector.py::
+    shard_cameras), which must hold num_cams / cam of them."""
+    if shard is None:
+        return n, 0
+    if n * shard.cam != num_cams:
+        raise ValueError(f"a camera shard of {shard.cam} takes "
+                         f"{num_cams // shard.cam} cameras, got {n}: "
+                         "pass parallel/mesh.py::shard_batch's slice")
+    return n * shard.cam, shard.cam_index * n
+
+
 def cls_branch(embed_dims: int, num_classes: int, num_fcs: int = 2):
     layers = []
     for _ in range(num_fcs):
@@ -220,12 +233,7 @@ class Detr3DHeadPE(nn.Module):
                           for f in mlvl_feats]
         # a camera shard (models/detector.py::shard_cameras) holds cameras
         # [first, first + N) of cfg.num_cams
-        shard = self.cam_shard
-        first = 0 if shard is None else shard.cam_index * N
-        if shard is not None and N * shard.cam != cfg.num_cams:
-            raise ValueError(f"a camera shard of {shard.cam} takes "
-                             f"{cfg.num_cams // shard.cam} cameras, got {N}: "
-                             "pass parallel/mesh.py::shard_batch's slice")
+        rig, first = rig_cameras(self.cam_shard, N, cfg.num_cams)
         past = min(max(cfg.num_frame_cams - first, 0), N)
         if cfg.with_detach and past < N and mlvl_feats[0].requires_grad:
             f0 = mlvl_feats[0]
@@ -246,8 +254,7 @@ class Detr3DHeadPE(nn.Module):
                 # network size (:524-539)
                 # the camera axis is one of its axes: a shard encodes its
                 # cameras of the whole rig
-                mask = torch.zeros(B, N if shard is None else N * shard.cam,
-                                   H, W, device=feat.device)
+                mask = torch.zeros(B, rig, H, W, device=feat.device)
                 sin = sine_positional_encoding_3d(
                     mask, num_feats=cfg.pe_num_feats,
                     cams=slice(first, first + N))

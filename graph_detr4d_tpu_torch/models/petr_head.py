@@ -35,6 +35,15 @@ PETRv2 holds a branch per layer, its reg branch the grouped `RegLayer`.
 The dense heads have no per-camera compaction: `cam_overflow` is 0.
 Public tensors keep the JAX layouts: features L x (B, N, H, W, C),
 outputs (layers, B, Q, .).
+
+Camera parallelism (`cam_shard` on the head and on each CrossAttention,
+set by models/detector.py::shard_cameras): the rank holds cameras [first,
+first + n) of the rig. The input projection, the coordinate PE and its
+gate are per pixel and run on those; the sine PE normalises its camera
+axis over the rig, so the rank builds the whole rig's padding mask and
+encodes its cameras; the cross-attention merges its softmax over the
+keys of every rank (models/transformer.py::MultiheadAttention). The
+self-attention, the queries and the decode have no camera axis.
 """
 
 import math
@@ -45,7 +54,7 @@ import torch.nn as nn
 
 from ..config import HeadConfig
 from ..utils.math import inverse_sigmoid
-from .head import Decoder, cls_branch, reg_branch
+from .head import Decoder, cls_branch, reg_branch, rig_cameras
 from .layers import LayerNorm, Linear, PointwiseConv, SELayer, dropout, two_layer_mlp
 from .positional import (coords_position_3d, lid_depth_bins,
                          sine_positional_encoding_3d)
@@ -94,12 +103,13 @@ class CrossAttention(nn.Module):
     def __init__(self, embed_dims: int, num_heads: int, dropout: float = 0.1):
         super().__init__()
         self.dropout = dropout
+        self.cam_shard = None  # a Mesh with a cam group, or None
         self.attn = MultiheadAttention(embed_dims, num_heads, dropout)
 
     def forward(self, query, query_pos, memory, key_pos, generator=None,
                 mask=None):
         out = self.attn(query + query_pos, memory + key_pos, memory,
-                        generator, mask)
+                        generator, mask, shard=self.cam_shard)
         return query + dropout(out, self.dropout, generator)
 
 
@@ -188,6 +198,7 @@ class PETRHead(nn.Module):
         self.cfg = cfg
         self.img_shape = tuple(img_shape)
         self.with_time = with_time
+        self.cam_shard = None  # a Mesh with a cam group, or None
         C, L = cfg.embed_dims, cfg.num_decoder_layers
         self.input_proj = PointwiseConv(in_channels, C)
         self.position_encoder = two_layer_mlp(cfg.depth_num * 3, 4 * C, C)
@@ -228,10 +239,17 @@ class PETRHead(nn.Module):
 
     def memory(self, feat, lidar2img, img_valid_hw=None):
         """(memory (B, K, C), key_pos (B, K, C), key_mask) of level-0
-        features (B, N, H, W, Cin) in the compute dtype, K = N*H*W."""
+        features (B, N, H, W, Cin) in the compute dtype, K = N*H*W. On a
+        camera shard feat and lidar2img hold the rank's N cameras and
+        img_valid_hw, if given, the whole rig's."""
         cfg = self.cfg
         B, N, H, W, _ = feat.shape
         dtype, dev = feat.dtype, feat.device
+        rig, first = rig_cameras(self.cam_shard, N, cfg.num_cams)
+        if img_valid_hw is not None and img_valid_hw.shape[1] != rig:
+            raise ValueError(f"img_valid_hw holds {img_valid_hw.shape[1]} "
+                             f"cameras, the rig {rig}: a shard reads the "
+                             "whole rig's")
         x = self.input_proj(feat)
         p3d = coords_position_3d(lidar2img, H, W, self.img_shape,
                                  depth_bins(cfg, dev), cfg.petr_position_range)
@@ -239,9 +257,15 @@ class PETRHead(nn.Module):
         gate = getattr(self, self.GATE, None)
         if gate is not None:
             pos3d = gate(pos3d, x)
-        mask, key_mask = self.padding_mask(B, N, H, W, img_valid_hw, dev)
+        # the sine PE's camera axis is normalised over the rig: a shard
+        # encodes its cameras of the whole rig's mask
+        mask, key_mask = self.padding_mask(B, rig, H, W, img_valid_hw, dev)
         sin = sine_positional_encoding_3d(mask, num_feats=cfg.pe_num_feats,
-                                          offset=0.0)
+                                          offset=0.0,
+                                          cams=slice(first, first + N))
+        if key_mask is not None and rig != N:
+            key_mask = key_mask.view(B, 1, 1, rig, H * W)[
+                :, :, :, first:first + N].reshape(B, 1, 1, N * H * W)
         key_pos = pos3d + self.adapt_pos3d(sin.to(dtype))
         return (x.reshape(B, N * H * W, -1), key_pos.reshape(B, N * H * W, -1),
                 key_mask)
@@ -276,7 +300,8 @@ class PETRHead(nn.Module):
         read); lidar2img (B, N, 4, 4); generator: dropout's random source
         in training, None in eval; mean_time_stamp (B,) seconds (PETRv2);
         img_valid_hw (B, N, 2) for inputs whose true image is smaller than
-        the padded canvas, None for every shipped config. Returns
+        the padded canvas (on a camera shard the whole rig's), None for
+        every shipped config. Returns
         {'all_cls_scores' (layers, B, Q, classes), 'all_bbox_preds'
         (layers, B, Q, code), 'cam_overflow' 0}."""
         memory, key_pos, key_mask = self.memory(mlvl_feats[0], lidar2img,

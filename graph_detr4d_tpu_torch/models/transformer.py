@@ -20,6 +20,7 @@ import torch.nn.functional as F
 from .attention import Deform3DCrossAttn
 from .attention_variants import (Deform3DCrossAttnMP, Detr3DCrossAtten,
                                  Detr3DCrossAttenV2)
+from ..parallel.mesh import all_reduce_max, all_reduce_sum
 from .layers import LayerNorm, Linear, dropout
 
 ATTN_TYPES = ("deform3d", "deform3d_mp", "detr3d", "detr3d_v2")
@@ -53,7 +54,20 @@ class MultiheadAttention(nn.Module):
     (B, heads, Q, T): a (Q, T) query-key mask, or a (B, 1, 1, T) key mask
     (the PETR heads' padded pixels). It fills the logits it leaves out
     with -inf before the softmax: every row attends to some key, so those
-    weights are exact zeros, as flax's finfo.min fill gives."""
+    weights are exact zeros, as flax's finfo.min fill gives.
+
+    `shard` (a parallel/mesh.py Mesh with a cam group; PETR's dense
+    cross-attention under models/detector.py::shard_cameras): the rank
+    holds keys [cam_index * T, (cam_index + 1) * T) of the rig's cam * T,
+    camera-major, and the softmax over all keys is merged across the
+    group: m = the group's row max (detached: the softmax does not depend
+    on it), den = the group's sum of exp(l - m), this rank's weights
+    exp(l - m) / den, and the group's sum of their products with its
+    values. A rank whose keys are all masked contributes zeros. Dropout
+    draws the whole (Q, cam * T) mask from the generator, equal across
+    the group, and keeps this rank's columns: one process draws the same
+    bits. The merge sums in another order than one softmax, a rounding
+    difference only."""
 
     def __init__(self, embed_dims: int, num_heads: int, dropout: float = 0.1):
         super().__init__()
@@ -63,7 +77,8 @@ class MultiheadAttention(nn.Module):
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * embed_dims))
         self.out_proj = Linear(embed_dims, embed_dims)
 
-    def forward(self, query, key, value, generator=None, mask=None):
+    def forward(self, query, key, value, generator=None, mask=None,
+                shard=None):
         B, Q, C = query.shape
         h = self.num_heads
         w = self.in_proj_weight.to(query.dtype)
@@ -78,10 +93,25 @@ class MultiheadAttention(nn.Module):
         logits = (q @ k.transpose(-1, -2)).float()
         if mask is not None:
             logits = logits.masked_fill(~mask, float("-inf"))
-        weights = torch.softmax(logits, dim=-1)
-        weights = dropout(weights, self.dropout, generator,
-                          shape=weights.shape[-2:])
-        out = (weights.to(v.dtype) @ v).transpose(1, 2).reshape(B, Q, C)
+        if shard is None:
+            weights = torch.softmax(logits, dim=-1)
+            weights = dropout(weights, self.dropout, generator,
+                              shape=weights.shape[-2:])
+            out = weights.to(v.dtype) @ v
+        else:
+            group, T = shard.cam_group, logits.shape[-1]
+            m = all_reduce_max(logits.amax(dim=-1, keepdim=True), group)
+            e = torch.exp(logits - m)
+            weights = e / all_reduce_sum(e.sum(dim=-1, keepdim=True), group)
+            if generator is not None and self.dropout > 0.0:
+                first = shard.cam_index * T
+                keep = torch.rand((Q, T * shard.cam), generator=generator,
+                                  device=weights.device)[:, first:first + T]
+                weights = torch.where(keep < 1.0 - self.dropout,
+                                      weights / (1.0 - self.dropout), 0.0)
+            out = all_reduce_sum((weights.to(v.dtype) @ v).float(), group)
+            out = out.to(v.dtype)
+        out = out.transpose(1, 2).reshape(B, Q, C)
         return self.out_proj(out)
 
 

@@ -15,9 +15,11 @@ the collectives; here they are explicit:
   * every gradient is averaged over all ranks in one coalesced all-reduce
     (train/step.py), before the clip, so the clip sees the global norm;
   * on a `cam` group each rank holds N / cam of the cameras: the conv stack
-    and K1's sampling run on them, and the cross-attention's gated camera
-    sum is an all-reduce over the group whose backward also sums
-    (`all_reduce_sum`; models/attention.py).
+    and K1's sampling run on them, and every camera sum of a head is an
+    all-reduce over the group whose backward also sums (`all_reduce_sum`:
+    the gated sums of models/attention.py and attention_variants.py, the
+    dense attention's softmax numerator and denominator of
+    models/transformer.py, whose stabilising row max is `all_reduce_max`).
 The JAX package's `constrain` (a GSPMD sharding annotation) has no
 counterpart: torch has no such annotation, and the model reads the
 camera slice it holds from the attention's `cam_shard`.
@@ -37,7 +39,10 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
-# batch keys whose second axis is the camera axis (B, N, ...)
+# batch keys whose second axis is the camera axis (B, N, ...). The PETR
+# heads' optional img_valid_hw (B, N, 2) is not one: their padding mask
+# encodes its camera axis over the whole rig, so a shard reads the whole
+# rig's value (models/petr_head.py::PETRHead.memory)
 _CAM_KEYS = ("images", "lidar2img", "intrinsics", "ida_scale", "depth_factors")
 
 
@@ -198,6 +203,15 @@ def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
     replicated + cam * local_r; averaged over the group (train/step.py)
     it is replicated + sum_r local_r, the one-process gradient."""
     return _AllReduceSum.apply(x, group)
+
+
+def all_reduce_max(x: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise max of x over `group`, detached: a value that needs
+    no gradient (the row max that stabilises a softmax split over ranks,
+    whose result does not depend on it)."""
+    y = x.detach().clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(y, op=dist.ReduceOp.MAX, group=group)
+    return y
 
 
 def all_reduce_mean_(tensors, group=None) -> int:

@@ -23,7 +23,8 @@ rank::world and writes that file atomically; rank 0 merges them in
 sample order and computes the metrics. `--cam-parallel C` lays the ranks
 on a (data, cam) grid, data = world / C (`--cam-parallel N` on N ranks
 is the JAX CLI's serving layout, data 1, cam N): each rank of a cam group
-holds N / C cameras of the same samples. TTA runs on one rank, as in the
+holds N / C cameras of the same samples, for every registry config
+(models/detector.py::shard_cameras). TTA runs on one rank, as in the
 JAX CLI.
 
 Host decoding of the next samples runs on a thread (PrefetchIterator)

@@ -20,8 +20,8 @@ every global batch (`local_bs = batch / world`), the synthetic seed a
 rank is `seed + rank * 100003` and the augmentation seed
 `seed + 7919 * rank`; `--cam-parallel C` lays the ranks on a (data, cam)
 grid (parallel/mesh.py), each rank of a cam group holding N / C cameras
-of the same samples (the heads that Deform3DCrossAttn serves; the others
-raise, naming ROADMAP Queue 1 item 7). Rank 0 writes the log and the
+of the same samples, for every registry config
+(models/detector.py::shard_cameras). Rank 0 writes the log and the
 checkpoints.
 
 `main(argv)` returns the Trainer, its input threads stopped.

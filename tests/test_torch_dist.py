@@ -22,20 +22,34 @@ and against the JAX package.
     logits by camera before the view gives other gates); the camera-aware
     head (camconv gate, scale_pred) and H-DETR's forward at cam=2 within
     1e-5 absolute plus 1e-5 relative;
+  * the MP, DETR3D, DETR3D-v2, PETR, PETRv2 and PETR-seg heads at cam=2
+    (3 cameras a rank; MP's camera gate random, so its view quirk shows)
+    against one process: every decoder output within 1e-5 absolute plus
+    1e-5 relative; PETRv2's decode against the JAX package's own cam=2
+    mesh eval step on two virtual CPU devices within 2e-4; one cam=2
+    step each of MP and PETRv2 with dropout on (the dense attention's
+    weight mask drawn whole and sliced by rank): losses 1e-5 relative,
+    grad_norm 1e-4;
+  * the dense attention's online-softmax merge of two key halves, run
+    by two threads in one process with a thread-backed collective,
+    against the one softmax over all keys, with a key mask (one half
+    wholly masked) and dropout: 1e-5; the merge without the global row
+    max breaks that bound;
   * the test CLI on 2 ranks (samples rank::2, rank 0 merging the partial
     files) against 1 rank on a fixture: identical results and metrics;
   * a 2-rank Trainer (grid mask and dropout on) saved at step 2 and
     resumed to 3 against the uninterrupted run: identical weights; rank
     0 alone logs; the input threads stop;
   * make_mesh_2d's divisibility error, shard_batch's camera slice and TTA
-    refusal, the heads camera parallelism refuses, the launcher's
-    environment mapping.
+    refusal, shard_cameras accepting every head family and refusing
+    ObjDGCNN (no camera axis), the launcher's environment mapping.
 """
 
 import dataclasses
 import os
 import pickle
 import sys
+import threading
 
 import jax
 import jax.numpy as jnp
@@ -50,13 +64,17 @@ from tools.convert_checkpoint import convert_state_dict  # noqa: E402
 
 from graph_detr4d_tpu import config as jax_config  # noqa: E402
 from graph_detr4d_tpu.models import GraphDETR4D as JaxGraphDETR4D  # noqa: E402
-from graph_detr4d_tpu.parallel.step import TrainState, build_train_step  # noqa: E402
+from graph_detr4d_tpu.parallel import mesh as jax_mesh  # noqa: E402
+from graph_detr4d_tpu.parallel.step import (  # noqa: E402
+    TrainState, build_eval_step, build_train_step)
 from graph_detr4d_tpu.train.optim import build_optimizer  # noqa: E402
 from graph_detr4d_tpu_torch import config as port_config  # noqa: E402
 from graph_detr4d_tpu_torch.data.fixture import write_nuscenes_fixture  # noqa: E402
 from graph_detr4d_tpu_torch.data.synthetic import synthetic_batch  # noqa: E402
+from graph_detr4d_tpu_torch.models import transformer as transformer_mod  # noqa: E402
 from graph_detr4d_tpu_torch.models.detector import (  # noqa: E402
-    CAM_PARALLEL_ITEM, GraphDETR4D, shard_cameras)
+    CAM_MIXING, GraphDETR4D, shard_cameras)
+from graph_detr4d_tpu_torch.models.dgcnn import ObjDGCNN  # noqa: E402
 from graph_detr4d_tpu_torch.parallel.mesh import (  # noqa: E402
     Mesh, make_mesh_2d, shard_batch, spawn_ranks)
 from graph_detr4d_tpu_torch.tools import launch_multihost  # noqa: E402
@@ -131,6 +149,46 @@ def cam_variants():
     return out
 
 
+# the head families shard_cameras gained beyond Deform3DCrossAttn's:
+# (head_type, head fields) on the tiny config (6 cameras, 3 past-frame)
+CAM_HEADS = {
+    "mp": ("detr4d_pe", dict(attn_type="deform3d_mp")),
+    "detr3d": ("detr4d_pe", dict(with_pe=False, attn_type="detr3d")),
+    "detr3d_v2": ("detr4d_pe", dict(with_pe=False, attn_type="detr3d_v2")),
+    "petr": ("petr", {}),
+    "petrv2": ("petrv2", {}),
+    "petr_seg": ("petr_seg", {}),
+}
+CAM_STEPS = ("mp", "petrv2")  # a cam=2 train step each, dropout on
+MTS = np.array([0.5], np.float32)  # PETRv2's mean_time_stamp
+
+
+def cam_head_config(c, name, dropout=0.0):
+    """A CAM_HEADS config from either package's config module."""
+    head_type, head = CAM_HEADS[name]
+    cfg = step_config(c, **head)
+    return dataclasses.replace(cfg, head_type=head_type,
+                               head=dataclasses.replace(cfg.head,
+                                                        dropout=dropout))
+
+
+def cam_head_batch(cfg, seed):
+    batch = synthetic_batch(cfg, 1, seed=seed, num_gt=5)
+    if cfg.head_type == "petrv2":
+        batch["mean_time_stamp"] = MTS
+    return batch
+
+
+def cam_heads(dropout=0.0, names=tuple(CAM_HEADS)):
+    """(cfg, weights, batch) of each CAM_HEADS config, seeded random
+    weights (init_weights: MP's camera gate random)."""
+    out = {}
+    for i, name in enumerate(names):
+        cfg = cam_head_config(port_config, name, dropout)
+        out[name] = (cfg, random_sd(cfg, 30 + i), cam_head_batch(cfg, 40 + i))
+    return out
+
+
 @pytest.fixture(scope="module")
 def spec(tmp_path_factory):
     root = tmp_path_factory.mktemp("dist")
@@ -150,6 +208,8 @@ def spec(tmp_path_factory):
         "uneven": uneven, "cam_cfg": cam_cfg, "cam_sd": random_sd(cam_cfg, 1),
         "batch1": synthetic_batch(cam_cfg, 1, seed=3, num_gt=5),
         "train_cfg": train_cfg, "cam_variants": cam_variants(),
+        "cam_heads": cam_heads(), "decode": ("petrv2",),
+        "cam_steps": cam_heads(dropout=0.1, names=CAM_STEPS),
         "train_batches": [[synthetic_batch(train_cfg, 1, seed=10 * s + r,
                                            num_gt=4) for r in range(2)]
                           for s in range(3)],
@@ -279,6 +339,189 @@ def test_cam_parallel_serves_the_other_deform3d_heads(spec, ranks):
                                            atol=1e-5, err_msg=f"{name} {k}")
 
 
+@pytest.mark.parametrize("name", list(CAM_HEADS))
+def test_cam_parallel_serves_every_head_family(spec, ranks, name):
+    """MP (camera gate random, sliced after its view), DETR3D / DETR3D-v2
+    (their per-camera weights and offsets sliced), PETR / PETRv2 /
+    PETR-seg (the sine PE over the rig's mask, the dense attention's
+    merged softmax): cam=2 against one process, every decoder output."""
+    from graph_detr4d_tpu_torch.models.detector import model_extras
+
+    cfg, sd, batch = spec["cam_heads"][name]
+    b = tensors(batch)
+    with torch.no_grad():
+        want = port_model(cfg, sd).eval()(b["images"], b["lidar2img"],
+                                          **model_extras(b))
+    keys = sorted(k for k in want if k.startswith("all_"))
+    assert len(keys) == (3 if name == "petr_seg" else 2)
+    for r in ranks:
+        got = r["cam_variants"][name]
+        assert sorted(k for k in got if k != "decode") == keys
+        for k in keys:
+            for layer in range(want[k].shape[0]):
+                np.testing.assert_allclose(
+                    got[k][layer], want[k][layer].numpy(), rtol=1e-5,
+                    atol=1e-5, err_msg=f"{name} {k} layer {layer}")
+
+
+def test_cam_parallel_petrv2_matches_the_jax_cam_mesh(spec, ranks):
+    """PETRv2's cam=2 decode on the port's two ranks against the JAX
+    package's eval step on a (data 1, cam 2) mesh of two virtual CPU
+    devices (tests/test_parallel_cam.py's layout), the same weights
+    through tools/convert_checkpoint.py."""
+    cfg, sd, batch = spec["cam_heads"]["petrv2"]
+    jcfg = cam_head_config(jax_config, "petrv2")
+    h = jcfg.head
+    v = jax.tree_util.tree_map(jnp.asarray, convert_state_dict(
+        sd, num_decoder_layers=h.num_decoder_layers, nheads=h.num_heads))
+    mesh = jax_mesh.make_mesh_2d(jax.devices()[:2], cam=2)
+    keys = ("images", "lidar2img", "mean_time_stamp")
+    sharded = jax_mesh.shard_batch({k: batch[k] for k in keys}, mesh)
+    det = build_eval_step(JaxGraphDETR4D(jcfg), jcfg, mesh)(
+        v["params"], v["batch_stats"], sharded)
+    for r in ranks:
+        got = r["cam_variants"]["petrv2"]["decode"]
+        for k in ("valid", "labels"):
+            np.testing.assert_array_equal(got[k], np.asarray(getattr(det, k)),
+                                          err_msg=k)
+        for k in ("bboxes", "scores"):
+            np.testing.assert_allclose(got[k], np.asarray(getattr(det, k)),
+                                       rtol=2e-4, atol=2e-4, err_msg=k)
+
+
+@pytest.mark.parametrize("name", CAM_STEPS)
+def test_cam_parallel_step_with_dropout_matches_one_process(spec, ranks,
+                                                           name):
+    """One cam=2 step with dropout on against one process from the same
+    generator seed: the same dropout bits (the dense attention's (Q, T)
+    mask drawn whole, each rank keeping its keys' columns)."""
+    cfg, sd, batch = spec["cam_steps"][name]
+    assert cfg.head.dropout > 0.0
+    (want,), _ = one_process_steps(cfg, sd, batch, 1)
+    for r in ranks:
+        assert_metrics(r["cam_steps"][name], want, PORT_RTOL, 1e-4,
+                       LOSS_KEYS + ("grad_norm",))
+
+
+class ThreadGroup:
+    """A collective over `size` threads of one process: each reduce call
+    waits for every thread's value and returns their sum or max."""
+
+    def __init__(self, size):
+        self.barrier = threading.Barrier(size, timeout=60)
+        self.slots = [None] * size
+
+    def reduce(self, rank, x, op):
+        self.slots[rank] = x
+        self.barrier.wait()
+        out = self.slots[0]
+        for y in self.slots[1:]:
+            out = op(out, y)
+        self.barrier.wait()
+        return out
+
+
+def merged_attention(attn, query, key, value, key_mask, generator_seed,
+                     global_max=True):
+    """`attn` (a MultiheadAttention) over two halves of the keys, each in
+    a thread of its own as one rank of a cam=2 shard, with the module's
+    collectives backed by a ThreadGroup; without `global_max` each rank
+    stabilises with its own row max. Returns both threads' outputs, with
+    no gradient."""
+    group = ThreadGroup(2)
+    T = key.shape[1] // 2
+    outs = [None, None]
+
+    def rank_fn(r):
+        shard = Mesh(data=1, cam=2, rank=r, data_group=object(),
+                     cam_group=(group, r))
+        g = (None if generator_seed is None
+             else torch.Generator().manual_seed(generator_seed))
+        keys = slice(r * T, (r + 1) * T)
+        mask = None if key_mask is None else key_mask[..., keys]
+        with torch.no_grad():  # grad mode is a thread's own
+            outs[r] = attn(query, key[:, keys], value[:, keys], g, mask,
+                           shard=shard)
+
+    def reduce_sum(x, grp):
+        return grp[0].reduce(grp[1], x, torch.add)
+
+    def reduce_max(x, grp):
+        if not global_max:
+            return x.detach()
+        return grp[0].reduce(grp[1], x.detach(), torch.maximum)
+
+    real = transformer_mod.all_reduce_sum, transformer_mod.all_reduce_max
+    transformer_mod.all_reduce_sum, transformer_mod.all_reduce_max = (
+        reduce_sum, reduce_max)
+    try:
+        threads = [threading.Thread(target=rank_fn, args=(r,))
+                   for r in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+    finally:
+        transformer_mod.all_reduce_sum, transformer_mod.all_reduce_max = real
+    return outs
+
+
+def merge_case(seed=0):
+    """A MultiheadAttention of width 32 over 4 heads, 12 queries, 2 x 40
+    keys whose logits spread over several units (so the halves' row maxima
+    differ), a key mask that masks all of the second half for sample 1
+    and a few keys of the first half."""
+    torch.manual_seed(seed)
+    attn = transformer_mod.MultiheadAttention(32, 4, dropout=0.25)
+    with torch.no_grad():
+        attn.in_proj_weight.normal_(0.0, 0.5)
+        attn.in_proj_bias.normal_(0.0, 0.1)
+    query = torch.randn(2, 12, 32)
+    key = torch.randn(2, 80, 32) * 2.0
+    value = torch.randn(2, 80, 32)
+    mask = torch.ones(2, 1, 1, 80, dtype=torch.bool)
+    mask[1, ..., 40:] = False
+    mask[0, ..., 3:7] = False
+    return attn, query, key, value, mask
+
+
+@pytest.mark.parametrize("masked,dropout", [(False, False), (True, False),
+                                            (True, True)])
+def test_dense_attention_merge_matches_one_softmax(masked, dropout):
+    """The online-softmax merge of two key halves (models/transformer.py
+    under a camera shard) equals the one softmax over all keys, with a
+    key mask (one rank's keys wholly masked for a sample: zeros there,
+    no NaN) and with dropout drawn from the same generator."""
+    attn, query, key, value, mask = merge_case()
+    mask = mask if masked else None
+    seed = 7 if dropout else None
+    g = None if seed is None else torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        want = attn(query, key, value, g, mask)
+        outs = merged_attention(attn, query, key, value, mask, seed)
+    assert torch.isfinite(want).all()
+    for got in outs:
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
+                                   atol=1e-5)
+
+
+def test_dense_attention_merge_needs_the_global_max():
+    """The planted fault: each rank stabilising its softmax with its own
+    row max mis-scales the halves against each other, far beyond the
+    merge's bound of 1e-5; with the key mask, the rank whose keys are all
+    masked divides -inf by -inf and gives NaN."""
+    attn, query, key, value, mask = merge_case()
+    with torch.no_grad():
+        want = attn(query, key, value, None, None)
+        outs = merged_attention(attn, query, key, value, None, None,
+                                global_max=False)
+        err = max(float((got - want).abs().max()) for got in outs)
+        assert err > 1e-2, err
+        outs = merged_attention(attn, query, key, value, mask, None,
+                                global_max=False)
+        assert not all(torch.isfinite(got).all() for got in outs)
+
+
 def test_cam_parallel_step_matches_one_process(spec, ranks):
     (want,), want_params = one_process_steps(spec["cam_cfg"], spec["cam_sd"],
                                              spec["batch1"], 1)
@@ -352,13 +595,18 @@ def test_mesh_errors_and_camera_slice():
     assert out["gt_bboxes"] is batch["gt_bboxes"]
     with pytest.raises(ValueError, match="TTA"):
         shard_batch({"images": np.zeros((2, 1, 6, 4, 4, 3))}, Mesh())
-    # heads whose cameras mix elsewhere than Deform3DCrossAttn's gate
-    cfg = port_config.tiny_test_config()
-    for bad in (dataclasses.replace(cfg, head_type="petrv2"),
-                dataclasses.replace(cfg, head=dataclasses.replace(
-                    cfg.head, attn_type="deform3d_mp"))):
-        with pytest.raises(NotImplementedError, match=CAM_PARALLEL_ITEM):
-            shard_cameras(GraphDETR4D(bad, device="cpu"), mesh)
+    # every head family takes the shard on each module that mixes cameras
+    for name in CAM_HEADS:
+        model = shard_cameras(GraphDETR4D(
+            cam_head_config(port_config, name), device="cpu"), mesh)
+        mixing = [m for m in model.modules() if isinstance(m, CAM_MIXING)]
+        assert model.pts_bbox_head.cam_shard is mesh
+        assert mixing and all(m.cam_shard is mesh for m in mixing), name
+    # ObjDGCNN has no camera axis: refused, without citing a queue item
+    tiny_head = port_config.tiny_test_config().head
+    with pytest.raises(NotImplementedError, match="ObjDGCNN has none") as e:
+        shard_cameras(ObjDGCNN(tiny_head, device="cpu"), mesh)
+    assert "ROADMAP" not in str(e.value)
 
 
 def test_launcher_maps_flags_to_the_environment():

@@ -119,20 +119,37 @@ def cam_parallel(spec, mesh2, rank):
 
 
 def cam_variants(spec, mesh2):
-    """Eval forwards of the other heads camera parallelism serves (the
-    camera-aware head with the camconv gate and scale_pred, H-DETR),
-    cam=2: every decoder output."""
+    """Eval forwards at cam=2 of the other heads camera parallelism serves
+    (the camera-aware head with the camconv gate and scale_pred, H-DETR,
+    MP, DETR3D, DETR3D-v2, PETR, PETRv2, PETR-seg): every decoder output,
+    and the decode of the heads spec["decode"] names."""
     from graph_detr4d_tpu_torch.models.detector import (model_extras,
                                                         shard_cameras)
+    from graph_detr4d_tpu_torch.parallel.step import build_eval_step
 
     out = {}
-    for name, (cfg, sd, batch) in spec["cam_variants"].items():
+    heads = {**spec["cam_variants"], **spec["cam_heads"]}
+    for name, (cfg, sd, batch) in heads.items():
         model = shard_cameras(model_from(cfg, sd).eval(), mesh2)
         b = tensors(shard_batch(batch, mesh2))
         with torch.no_grad():
             o = model(b["images"], b["lidar2img"], **model_extras(b))
         out[name] = {k: v.numpy() for k, v in o.items()
                      if k.startswith("all_")}
+        if name in spec["decode"]:
+            det, _ = build_eval_step(model, cfg)(b)
+            out[name]["decode"] = {k: v.numpy()
+                                   for k, v in det._asdict().items()}
+    return out
+
+
+def cam_steps(spec, mesh2):
+    """One train step at cam=2 (dropout on) of each config in
+    spec["cam_steps"]: its metrics."""
+    out = {}
+    for name, (cfg, sd, batch) in spec["cam_steps"].items():
+        step = TrainStep(model_from(cfg, sd), cfg, mesh=mesh2)
+        out[name] = floats(step.step(tensors(shard_batch(batch, mesh2))))
     return out
 
 
@@ -187,5 +204,6 @@ def run(rank, world, spec_path):
             "uneven": uneven(spec, mesh, rank),
             "cam": cam_parallel(spec, mesh2, rank),
             "cam_variants": cam_variants(spec, mesh2),
+            "cam_steps": cam_steps(spec, mesh2),
             "test_cli": eval_cli(spec, rank),
             "resume": resume(spec, mesh, rank)}
