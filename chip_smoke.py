@@ -265,10 +265,35 @@ IoU, and prints one JSON line per phase:
               collectives' ms; one step each of MP and of PETRv2 (its
               800x320 config, dropout on) within train_plain's bounds,
               assignments identical, peak memory a rank; the planted MP
-              gate sliced before its view breaks the bound (the merge
-              without the global max is reported). Each rank prints its
-              card's name and power limit; a rank's failure or timeout
-              fails the phase.
+              gate sliced before its view breaks the bound; the merge
+              without the global max is reported on PETRv2 and, on
+              petr_r50dcn_gridmask_p4 with every cross-attention's q and
+              k scaled by MERGE_FAULT_QK_SCALE (the halves' row maxima
+              apart), breaks layer 0's bound while the sound merge stays
+              within phase plain's. Each rank prints its card's name and
+              power limit; a rank's failure or timeout fails the phase.
+ 19. tools    the host tools and the profilers: (a) the flagship's
+              weights with backbone BN statistics uniform(0.5, 1.5)
+              through tools.fuse_conv_bn's CLI (44 pairs; VoVNet-99 0 and
+              MobileNetV2 50 on their models), the fp32 backbone and neck
+              on 6 x 640x1600 with the folded weights within 1e-4 of each
+              FPN level's magnitude, and 3 bf16 requests timed with either
+              weights; (b) tools.publish_model twice: one name, the file
+              loads strict and equals its source; (c) the helpers no model
+              path reaches (nms_free_cls_decode, project_points_to_cameras
+              and the inline project_to_cams, points_img2cam,
+              LearnedPositionalEncoding3D) on CUDA against the CPU; (d)
+              tools.profile_breakdown's rows bench, no dcn, 12-cam,
+              batch-4 (and batch-4 cap off), cam_overflow 0; (e)
+              tools.profile_ops at B = 1 and 2: the summed device time no
+              more than the traced span, K1 and K2 in the trace (launches
+              counted from 0 before (a)).
+Phase `data` also reports what it leaves allocated, after the cuBLAS
+workspaces of its threads' handles are cleared too (ROADMAP Queue 3).
+`python3 chip_smoke.py --probe petr_fp32` runs only the build and one
+probe (ROADMAP Queue 3 question 1): a PETRv2 forward in fp32 (TF32 off)
+and in bf16 profiled by tools.profile_ops, the fp32 FLOPs, the fp32
+backbone on both layouts, and its peak under a ballast.
 Phase `kernels` also holds K3 (the fused int8-table conv, fp32 within
 1e-4 and bf16 within one bf16 step of the output's magnitude, both
 strides, the flagship's 7 int8 DCN shapes, with `gemm_ref_ms` as K2's),
@@ -4301,15 +4326,20 @@ DIST_SPAWN_TIMEOUT_S = 600.0
 # mp_plain and variants do, and also run free (FREE_RUNNING_ATOL). MP's
 # 2-way fusion projection is zeroed so both branches weigh 0.5: random
 # weights saturate its softmax over the summed queries and hide a branch.
-# Two planted faults, each in a replayed or dense forward of a rank: MP's
+# Planted faults, each in a replayed or dense forward of a rank: MP's
 # centre gate sliced by camera before the (B, Q, N) -> (B, N, Q) view,
-# which must break the bound, and PETRv2's merge without the global row
-# max, reported (its random-weight attention is near-uniform, so the two
+# which must break the bound; PETRv2's merge without the global row max,
+# reported (its random-weight attention is near-uniform, so the two
 # halves' row maxima nearly agree; tests/test_torch_dist.py breaks it at
-# tiny width). PETRv2's step runs its
+# tiny width); and the same merge fault on PETR R50-DCN with every
+# cross-attention's q and k projections scaled by MERGE_FAULT_QK_SCALE
+# (its logits by the square: the halves' row maxima then differ), which
+# must break the bound from layer 0 while its sound merge stays within
+# it. PETRv2's step runs its
 # 800x320 config (`step_config`): at 640x1600 in fp32 the two ranks' steps
 # did not fit the card together (a rank held 22.9 GB when the card's 79 GB
 # were taken; PERF.md).
+MERGE_FAULT_QK_SCALE = 2.0
 DIST_HEADS = {
     "mp": dict(config=MP_CONFIG, overrides=[], replay=True, step=True,
                fault="gate"),
@@ -4321,6 +4351,8 @@ DIST_HEADS = {
                    step_config="petrv2_vovnet_gridmask_p4_800x320"),
     "petr_r50dcn": dict(config=PETR_V1[0], overrides=[]),
     "petr_seg": dict(config=PETR_SEG, overrides=[]),
+    "petr_r50dcn_sharp": dict(config=PETR_V1[0], overrides=[], fault="merge",
+                              qk_scale=MERGE_FAULT_QK_SCALE),
 }
 # (d): the offsets' update against AdamW's pure decay, relative
 FIX_OFFSET_RTOL = 1e-6
@@ -4454,6 +4486,8 @@ def dist_heads_one_process(tmp):
     for name, h in DIST_HEADS.items():
         cfg = dist_head_config(h)
         sd = random_state_dict(get_config(h["config"], h["overrides"]))
+        if h.get("qk_scale"):
+            sd = scaled_cross_qk(sd, h["qk_scale"])
         if name == "mp":  # both fusion branches weigh 0.5
             sd = {k: torch.zeros_like(v) if ".output_weight." in k else v
                   for k, v in sd.items()}
@@ -4496,6 +4530,19 @@ def dist_heads_one_process(tmp):
                       if step_refs else []}
         want[name] = rec
     return spec, want
+
+
+def scaled_cross_qk(sd, scale):
+    """sd with every dense cross-attention's q and k projections (rows
+    [0, 2C) of `attentions.1.attn.in_proj_weight` and `_bias`) times
+    `scale`."""
+    out = dict(sd)
+    for k, v in sd.items():
+        if ".attentions.1.attn.in_proj_" in k:
+            v = v.clone()
+            v[: 2 * (v.shape[0] // 3)] *= scale
+            out[k] = v
+    return out
 
 
 @contextlib.contextmanager
@@ -4653,6 +4700,7 @@ def check_dist_heads(ranks, want, path):
         h = DIST_HEADS[name]
         cfg = get_config(h["config"], h["overrides"])
         rec = {"config": h["config"], "overrides": h["overrides"],
+               "qk_scale": h.get("qk_scale"),
                "one_process": {"forward_ms": w["ms"],
                                "forward_peak_memory_bytes": w["peak"],
                                "forward_launches": w["launches"]}}
@@ -4703,6 +4751,10 @@ def check_dist_heads(ranks, want, path):
                 if h["fault"] == "gate" and not rr["fault_breaks_the_bound"]:
                     failed.append(f"{tag}: the gate sliced before its view "
                                   f"stays within the bounds: {ferrs}")
+                if h.get("qk_scale") and not any(
+                        e[0] > PLAIN_EARLY_ATOL for e in ferrs.values()):
+                    failed.append(f"{tag}: the merge without the global max "
+                                  f"stays within layer 0's bound: {ferrs}")
             if h.get("step"):
                 rr["rel_err"] = check(check_step_against, tag,
                                       got["metrics"], w["metrics"])
@@ -4973,7 +5025,315 @@ def phase_dist(cfg, sd):
     return path
 
 
-def main():
+# ------------------------------------------------------------------ tools
+# phase tools: the host tools and the profilers.
+# (a) the fold on the flagship's R50-DCN backbone and neck, fp32 (TF32
+# off), 6 x 640x1600, BN statistics uniform(0.5, 1.5): every FPN level of
+# the folded weights within FOLD_RTOL of its unfolded magnitude
+FOLD_CAMS, FOLD_RTOL = 6, 1e-4
+FOLD_COUNTS = {CONFIG: 44, VOVNET_CONFIG: 0, M2_CONFIG: 50}
+PROFILE_ROWS = ["bench", "no dcn", "12-cam", "batch-4"]
+PROFILE_BATCHES = [1, 2]
+
+
+def random_bn_statistics(sd, seed=0):
+    """sd with every backbone BN buffer (weight, bias, running_mean,
+    running_var) drawn uniform(0.5, 1.5), as tests/test_tools.py does."""
+    gen = torch.Generator().manual_seed(seed)
+    bns = {k.rsplit(".", 1)[0] for k in sd
+           if k.startswith("img_backbone.") and k.endswith(".running_mean")}
+    return {k: 0.5 + torch.rand(v.shape, generator=gen)
+            if k.rsplit(".", 1)[0] in bns else v for k, v in sd.items()}
+
+
+def fold_feature_errors(cfg32, sd, fused, images):
+    """The fp32 backbone and neck on `images` with sd's and with fused's
+    weights: per FPN level, max |folded - unfolded| / max |unfolded|, and
+    each extract_feats' CUDA-event ms."""
+    feats, ms = [], []
+    for weights_ in (sd, fused):
+        model = GraphDETR4D(cfg32)
+        model.load_state_dict(weights_, strict=True)
+        model.eval()
+        with torch.no_grad():
+            ms.append(cuda_ms(lambda: model.extract_feats(images), 2))
+            feats.append([f.float() for f in model.extract_feats(images)])
+        del model
+    errs = [float((b - a).abs().max() / a.abs().max())
+            for a, b in zip(*feats)]
+    return errs, ms
+
+
+def helpers_on_cuda():
+    """The helpers no model path reaches, on CUDA tensors against the same
+    call on the CPU, at the CPU tests' tolerances
+    (tests/test_torch_helpers.py). Returns the max errors."""
+    from graph_detr4d_tpu_torch.core.coder import nms_free_cls_decode
+    from graph_detr4d_tpu_torch.geometry import projection
+    from graph_detr4d_tpu_torch.models.attention_variants import project_to_cams
+    from graph_detr4d_tpu_torch.models.positional import (
+        LearnedPositionalEncoding3D)
+
+    rng = np.random.RandomState(0)
+    rec, failed = {}, []
+    logits = torch.as_tensor((rng.randn(2, 900, 11) * 2).astype(np.float32))
+    logits[:, 1::3] = logits[:, 0::3]  # tied scores
+    codes = torch.as_tensor(rng.randn(2, 900, 10).astype(np.float32))
+    want = nms_free_cls_decode(logits, codes, max_num=300)
+    got = nms_free_cls_decode(logits.cuda(), codes.cuda(), max_num=300)
+    rec["cls_decode_scores"] = float((got.scores.cpu() - want.scores).abs().max())
+    if not (torch.equal(got.labels.cpu(), want.labels)
+            and torch.equal(got.valid.cpu(), want.valid)
+            and rec["cls_decode_scores"] <= 1e-6):
+        failed.append(f"nms_free_cls_decode {rec['cls_decode_scores']}")
+    cfg = get_config(CONFIG)
+    l2i = torch.as_tensor(synthetic_batch(cfg, 2, seed=1)["lidar2img"])
+    pcr = cfg.head.pc_range
+    lo, hi = np.asarray(pcr[:3]), np.asarray(pcr[3:])
+    pts = torch.as_tensor(rng.uniform(lo, hi, (2, 2000, 3)).astype(np.float32))
+    loc_c, mask_c = projection.project_points_to_cameras(pts, l2i, cfg.img_size)
+    loc, mask = projection.project_points_to_cameras(pts.cuda(), l2i.cuda(),
+                                                     cfg.img_size)
+    inline = project_to_cams(pts.cuda(), l2i.cuda(), cfg.img_size)
+    away = ((loc_c.abs() > 1e-3) & ((loc_c - 1).abs() > 1e-3)).all(-1)
+    valid = mask_c > 0
+    rec["project_loc"] = float((loc.cpu() - loc_c)[valid].abs().max())
+    if not (torch.equal(mask.cpu()[away], mask_c[away])
+            and rec["project_loc"] <= 1e-5
+            and torch.equal(inline[0], loc) and torch.equal(inline[1], mask)):
+        failed.append(f"project_points_to_cameras {rec['project_loc']}")
+    K = torch.eye(4)
+    K[0, 0], K[1, 1], K[0, 2], K[1, 2] = 1260.0, 1250.0, 800.0, 450.0
+    uvd = torch.as_tensor(np.stack([rng.uniform(0, 1600, 64),
+                                    rng.uniform(0, 900, 64),
+                                    rng.uniform(1, 60, 64)], 1).astype(np.float32))
+    rec["img2cam"] = max(float((projection.points_img2cam(uvd.cuda(), K[:r, :c].cuda())
+                                .cpu() - projection.points_img2cam(uvd, K[:r, :c]))
+                               .abs().max()) for r, c in ((3, 3), (3, 4), (4, 4)))
+    if rec["img2cam"] > 1e-4:
+        failed.append(f"points_img2cam {rec['img2cam']}")
+    pe = LearnedPositionalEncoding3D(device="cuda")
+    pe_cpu = LearnedPositionalEncoding3D(device="cpu")
+    rec["learned_pe_equal"] = torch.equal(pe(1, 12, 20, 50).cpu(),
+                                          pe_cpu(1, 12, 20, 50))
+    if not rec["learned_pe_equal"]:
+        failed.append("LearnedPositionalEncoding3D differs")
+    if failed:
+        raise AssertionError(f"tools (c): {failed}")
+    return rec
+
+
+def phase_tools(cfg, sd):
+    """(a) the fold: the flagship's weights with random BN statistics
+    through tools.fuse_conv_bn's CLI (44 pairs; VoVNet-99 0, MobileNetV2
+    50 counted on their models), the fp32 backbone and neck on 6 x
+    640x1600 within FOLD_RTOL a level, and bf16 requests timed with
+    either weights; (b) tools.publish_model twice: one name, the file
+    loads strict and equals its source; (c) the helpers on CUDA against
+    the CPU; (d) tools.profile_breakdown's rows PROFILE_ROWS (cam_overflow
+    0); (e) tools.profile_ops at PROFILE_BATCHES (the device sum no more
+    than the traced span, K1 and K2 in the trace). Returns the launches,
+    counted from 0 before (a)."""
+    from graph_detr4d_tpu_torch.tools import (fuse_conv_bn, profile_breakdown,
+                                              profile_ops, publish_model)
+    from graph_detr4d_tpu_torch.train.checkpoint import CheckpointManager
+
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    rec = {"card": smi_line()}
+    tmp = tempfile.mkdtemp(prefix="tools_")
+    try:
+        # (a)
+        bn_sd = random_bn_statistics(sd)
+        src, dst = os.path.join(tmp, "src"), os.path.join(tmp, "fused")
+        CheckpointManager(src, cfg).save_weights(0, bn_sd)
+        counts = {CONFIG: fuse_conv_bn.main(["--in-dir", src, "--out-dir", dst,
+                                             "--config", CONFIG])}
+        for name in (VOVNET_CONFIG, M2_CONFIG):
+            model = GraphDETR4D(get_config(name))
+            counts[name] = fuse_conv_bn.fuse_state_dict(
+                dict(model.state_dict()), model.img_backbone)
+            del model
+        fused = CheckpointManager(dst).load_weights()
+        cfg32 = dataclasses.replace(cfg, bf16=False)
+        images = torch.as_tensor(synthetic_batch(cfg, seed=0)["images"][:, :FOLD_CAMS]).cuda()
+        errs, fp32_ms = fold_feature_errors(cfg32, bn_sd, fused, images)
+        batch = synthetic_batch(cfg, seed=0)
+        request_ms = {}
+        for label, weights_ in (("unfolded", bn_sd), ("folded", fused)):
+            engine = Engine(cfg, weights_)
+            request_ms[label], _, _, _ = timed_requests(
+                engine.infer, [(batch["images"], batch["lidar2img"])] * 3)
+            del engine
+        torch.cuda.empty_cache()
+        rec["fold"] = {"pairs": counts,
+                       "level_rel_err": errs, "bound": FOLD_RTOL,
+                       "fp32_feats_ms": dict(zip(("unfolded", "folded"), fp32_ms)),
+                       "bf16_request_ms": request_ms}
+        if counts != FOLD_COUNTS:
+            raise AssertionError(f"tools (a): pairs {counts} != {FOLD_COUNTS}")
+        if not max(errs) <= FOLD_RTOL:
+            raise AssertionError(f"tools (a): folded levels off by {errs}")
+        # (b)
+        pubs = [publish_model.main(["--in-dir", dst, "--out-dir",
+                                    os.path.join(tmp, f"pub{i}"),
+                                    "--config", CONFIG]) for i in range(2)]
+        names = [os.path.basename(p) for p in pubs]
+        pub = CheckpointManager(pubs[0]).restore()
+        model = GraphDETR4D(cfg)
+        model.load_state_dict(pub["state_dict"], strict=True)
+        unequal = [k for k, v in model.state_dict().items()
+                   if not torch.equal(v.cpu(), fused[k])]
+        del model
+        rec["publish"] = {"names": names, "keys": sorted(pub),
+                          "tensors": len(pub["state_dict"]),
+                          "unequal": unequal}
+        if names[0] != names[1] or unequal or sorted(pub) != ["meta", "state_dict"]:
+            raise AssertionError(f"tools (b): {rec['publish']}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    # (c)
+    rec["helpers"] = helpers_on_cuda()
+    # (d)
+    rows = profile_breakdown.main(PROFILE_ROWS)
+    rec["profile_breakdown"] = rows
+    gc.collect()
+    torch.cuda.empty_cache()
+    if sorted(rows) != sorted(t for t, _ in profile_breakdown.ABLATIONS
+                              if any(f in t for f in PROFILE_ROWS)):
+        raise AssertionError(f"tools (d): rows {sorted(rows)}")
+    if any(r["cam_overflow"] != 0 for r in rows.values()):
+        raise AssertionError(f"tools (d): cam_overflow {rows}")
+    # (e)
+    ops = profile_ops.main(["--b", *map(str, PROFILE_BATCHES), "--top", "12"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["profile_ops"] = {str(b): ops[b] for b in PROFILE_BATCHES}
+    rec["profile_ops"]["excess_top"] = ops["excess"][:8]
+    for b in PROFILE_BATCHES:
+        o = ops[b]
+        if not o["device_ms"] <= o["span_ms"]:
+            raise AssertionError(f"tools (e): B={b} device {o['device_ms']} ms "
+                                 f"> span {o['span_ms']} ms")
+        if not (o["buckets"].get("msda", 0) > 0
+                and o["buckets"].get("deform_conv", 0) > 0):
+            raise AssertionError(f"tools (e): B={b} buckets {o['buckets']}")
+    launches = launch_counts()
+    rec.update(launches=launches, seconds=time.perf_counter() - t0)
+    emit({"phase": "tools", **rec})
+    return launches
+
+
+def live_cuda_tensors():
+    """{id: (bytes, shape, dtype)} of the CUDA tensors the collector sees."""
+    out = {}
+    for obj in gc.get_objects():
+        try:
+            if isinstance(obj, torch.Tensor) and obj.is_cuda:
+                out[id(obj)] = (obj.untyped_storage().nbytes(),
+                                list(obj.shape), str(obj.dtype))
+        except Exception:  # a proxy object can raise on the check
+            continue
+    return out
+
+
+# ------------------------------------------------------------------ probe
+# `python3 chip_smoke.py --probe petr_fp32`: ROADMAP Queue 3 question 1,
+# not part of the default run
+PROBE_FREE_GB = 30.0
+
+
+def probe_backbone_layouts(model, images, iters=1):
+    """The fp32 backbone alone on the channels-last NCHW view that
+    extract_feats builds, on the same input made contiguous NCHW, and on
+    channels-last with cudnn.benchmark on: CUDA-event ms a call each."""
+    B, N, H, W, _ = images.shape
+    x = images.reshape(B * N, H, W, 3).float().permute(0, 3, 1, 2)
+    out = {}
+    with torch.no_grad():
+        out["channels_last_ms"] = cuda_ms(lambda: model.img_backbone(x), iters)
+        xc = x.contiguous()
+        out["contiguous_nchw_ms"] = cuda_ms(lambda: model.img_backbone(xc), iters)
+        torch.backends.cudnn.benchmark = True
+        try:
+            out["channels_last_benchmark_ms"] = cuda_ms(
+                lambda: model.img_backbone(x), iters)
+        finally:
+            torch.backends.cudnn.benchmark = False
+    return out
+
+
+def probe_petr_fp32():
+    """One PETRv2 forward (PETR_MAIN, 12 x 640x1600, seeded random weights)
+    in fp32 with TF32 off and one in bf16, each traced by tools.profile_ops
+    after a warm-up: device ms, buckets, top kernels, peak memory; the fp32
+    model's FLOPs (tools.get_flops.count_forward) over the card's fp32 and
+    bf16 peak rates; the fp32 backbone on channels-last and contiguous
+    input (probe_backbone_layouts); the fp32 forward's peak with a ballast
+    holding all but PROBE_FREE_GB of the card, beside its peak alone."""
+    from graph_detr4d_tpu_torch.tools import get_flops, profile_ops
+
+    dev = torch.device("cuda")
+    rec = {"card": smi_line(), "config": PETR_MAIN}
+    cfg16 = get_config(PETR_MAIN)
+    sd = random_state_dict(cfg16)
+    for label, cfg in (("bf16", cfg16),
+                       ("fp32", dataclasses.replace(cfg16, bf16=False))):
+        model = GraphDETR4D(cfg)
+        model.load_state_dict(sd, strict=True)
+        model.eval()
+        batch = cuda_batch({**synthetic_batch(cfg, seed=0),
+                            **petr_train_extras(cfg)})
+        extras = model_extras(batch)
+
+        def forward():
+            return model(batch["images"], batch["lidar2img"], **extras)
+
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            prof, span = profile_ops.trace_forward(forward, dev, steps=1)
+            peak = torch.cuda.max_memory_allocated()
+        r = profile_ops.report(profile_ops.kernel_records(prof.events()), span,
+                               profile_ops.busy_us(prof.events()) / 1e3,
+                               top=12, steps=1)
+        del prof
+        r["peak_memory_bytes"] = peak
+        if label == "fp32":
+            flops = get_flops.count_forward(model, batch["images"],
+                                            batch["lidar2img"], **extras)
+            r["gflops"] = flops["total"] / 1e9
+            r["fp32_peak_bound_ms"] = flops["total"] / PEAK_FP32_FLOPS * 1e3
+            r["bf16_peak_bound_ms"] = flops["total"] / PEAK_BF16_TENSOR_FLOPS * 1e3
+            r["backbone"] = probe_backbone_layouts(model, batch["images"])
+            torch.cuda.empty_cache()
+            free = torch.cuda.mem_get_info()[0]
+            ballast = torch.empty(max(0, int(free - PROBE_FREE_GB * 1e9)),
+                                  dtype=torch.uint8, device=dev)
+            torch.cuda.reset_peak_memory_stats()
+            with torch.no_grad():
+                forward()
+            torch.cuda.synchronize()
+            r["peak_with_ballast_bytes"] = (torch.cuda.max_memory_allocated()
+                                            - ballast.numel())
+            r["ballast_bytes"] = ballast.numel()
+            del ballast
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            with torch.no_grad():
+                forward()
+            torch.cuda.synchronize()
+            r["peak_alone_bytes"] = torch.cuda.max_memory_allocated()
+        rec[label] = r
+        del model, batch, extras
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit({"probe": "petr_fp32", **rec})
+
+
+def main(argv=None):
+    argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -4981,6 +5341,9 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = phase_build()
+    if argv[:1] == ["--probe"]:
+        {"petr_fp32": probe_petr_fp32}[argv[1]]()
+        return 0
     kernels = phase_kernels(dev)
     cfg = get_config(CONFIG)
     sd = random_state_dict(cfg)
@@ -5014,8 +5377,24 @@ def main():
     kernels["focal_loss"]["train_inputs"] = kernel_focal_loss_train(focal_inputs)
     phase_train_plain(cfg, sd)
     torch.cuda.empty_cache()
+    # ROADMAP Queue 3 question 3: what phase data leaves allocated
+    gc.collect()
+    before, live = torch.cuda.memory_allocated(), live_cuda_tensors()
     data_launches = phase_data(cfg)
+    gc.collect()
     torch.cuda.empty_cache()
+    left = [v for k, v in live_cuda_tensors().items() if k not in live]
+    left_bytes = torch.cuda.memory_allocated() - before
+    # each new thread's cuBLAS handle holds a workspace from the caching
+    # allocator (32 MiB on Hopper) until the workspaces are cleared
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear is not None:
+        clear()
+    emit({"phase": "data", "part": "left allocated", "bytes": left_bytes,
+          "bytes_after_clearing_cublas_workspaces":
+              torch.cuda.memory_allocated() - before if clear else None,
+          "new_live_tensors": len(left),
+          "largest": sorted(left, reverse=True)[:8]})
     lidar_sd = lidar_state_dict()
     lidar_engine, clouds, lidar_launches = phase_lidar(lidar_sd)
     iou_launches = phase_iou(lidar_engine, clouds[0])
@@ -5038,13 +5417,16 @@ def main():
     petr_launches = phase_petr(dev)
     torch.cuda.empty_cache()
     dist_launches = phase_dist(cfg, sd)
+    torch.cuda.empty_cache()
+    tools_launches = phase_tools(cfg, sd)
 
     paths = {**serving, "serve_int8": int8_launches, "train": train_launches,
              "data": data_launches, "lidar": lidar_launches, "iou": iou_launches,
              "lidar_grad": lidar_grad_launches, "hdetr": hdetr_launches,
              "camaware": camaware_launches, "http": http_launches,
              "backbones": backbone_launches, "distill": distill_launches,
-             "petr": petr_launches, "dist": dist_launches}
+             "petr": petr_launches, "dist": dist_launches,
+             "tools": tools_launches}
     serving_total = {k: sum(c[k] for c in serving.values())
                      for k in serve_launches}
     table = []

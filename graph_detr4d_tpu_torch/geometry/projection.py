@@ -1,6 +1,34 @@
-"""Camera-matrix math (counterpart of graph_detr4d_tpu/geometry/projection.py)."""
+"""Camera-matrix math (counterpart of graph_detr4d_tpu/geometry/projection.py).
+
+`project_points_to_cameras` and `points_img2cam` are the geometry API;
+no model path calls them: the cross-attentions project with their own
+inline copy (models/attention_variants.py::project_to_cams, held equal to
+`project_points_to_cameras` by tests/test_torch_helpers.py).
+"""
 
 import torch
+
+
+def inv3x3(m: torch.Tensor) -> torch.Tensor:
+    """Closed-form adjugate inverse of batched (..., 3, 3) matrices, fp32,
+    with the JAX package's arithmetic (no LU)."""
+    m = m.float()
+    a, b, c = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    d, e, f = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    g, h, i = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+    co_a = e * i - f * h
+    co_b = f * g - d * i
+    co_c = d * h - e * g
+    det = a * co_a + b * co_b + c * co_c
+    adj = torch.stack(
+        [
+            torch.stack([co_a, c * h - b * i, b * f - c * e], dim=-1),
+            torch.stack([co_b, a * i - c * g, c * d - a * f], dim=-1),
+            torch.stack([co_c, b * g - a * h, a * e - b * d], dim=-1),
+        ],
+        dim=-2,
+    )
+    return adj / det[..., None, None]
 
 
 def inv4x4(m: torch.Tensor) -> torch.Tensor:
@@ -65,3 +93,52 @@ def denormalize_points(pts01: torch.Tensor, pc_range) -> torch.Tensor:
     lo = torch.tensor(pc_range[:3], dtype=pts01.dtype, device=pts01.device)
     hi = torch.tensor(pc_range[3:], dtype=pts01.dtype, device=pts01.device)
     return pts01 * (hi - lo) + lo
+
+
+def normalize_points(pts: torch.Tensor, pc_range) -> torch.Tensor:
+    """Metric lidar coords -> [0,1] normalized by pc_range."""
+    lo = torch.tensor(pc_range[:3], dtype=pts.dtype, device=pts.device)
+    hi = torch.tensor(pc_range[3:], dtype=pts.dtype, device=pts.device)
+    return (pts - lo) / (hi - lo)
+
+
+def project_points_to_cameras(points: torch.Tensor, lidar2img: torch.Tensor,
+                              img_shape, eps: float = 1e-5):
+    """Project metric 3D points into every camera (reference
+    deform3d_cross_attn.py:232-258: homogeneous product, eps-guarded depth
+    divide, in front of the camera and strictly inside the image).
+
+    points (B, P, 3) metric lidar-frame points; lidar2img (B, N, 4, 4);
+    img_shape (img_h, img_w), the network input's size. Returns loc (B, N,
+    P, 2) in [0, 1] (x, y) and mask (B, N, P) in points' dtype.
+    """
+    img_h, img_w = img_shape
+    hom = torch.cat([points, torch.ones_like(points[..., :1])], dim=-1)
+    cam = torch.einsum("bnij,bpj->bnpi", lidar2img, hom)
+    z = cam[..., 2:3]
+    in_front = z > eps
+    xy = cam[..., 0:2] / z.clamp(min=eps)
+    loc = xy / torch.tensor([img_w, img_h], dtype=xy.dtype, device=xy.device)
+    valid = (
+        in_front
+        & (loc[..., 0:1] > 0.0)
+        & (loc[..., 0:1] < 1.0)
+        & (loc[..., 1:2] > 0.0)
+        & (loc[..., 1:2] < 1.0)
+    )
+    return loc, valid[..., 0].to(points.dtype)
+
+
+def points_img2cam(points: torch.Tensor, cam2img: torch.Tensor) -> torch.Tensor:
+    """2.5D image points (u, v, depth) (P, 3) -> 3D camera coordinates (P,
+    3) (core/bbox/util.py points_img2cam:5-35). cam2img may be (3, 3),
+    (3, 4) or (4, 4); it is padded into a 4x4 identity before inversion."""
+    points = points.float()
+    cam2img = cam2img.float()
+    pad = torch.eye(4, dtype=torch.float32, device=cam2img.device)
+    pad[: cam2img.shape[0], : cam2img.shape[1]] = cam2img
+    xys = points[:, :2]
+    depths = points[:, 2:3]
+    unnormed = torch.cat([xys * depths, depths], dim=1)
+    homo = torch.cat([unnormed, torch.ones_like(depths)], dim=1)
+    return (homo @ inv4x4(pad).T)[:, :3]

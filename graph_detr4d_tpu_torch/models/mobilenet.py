@@ -94,6 +94,15 @@ class MobileNetV2(nn.Module):
         either; mmdet's `layer1` is flax's `stage0`."""
         return name.split(".")[0] == "conv1"
 
+    @staticmethod
+    def bn_folded(conv_name: str) -> bool:
+        """Whether tools/fuse_conv_bn.py folds the BN after this conv, as
+        the JAX tool does: the inverted residuals' (flax `expand`, `dw`,
+        `project` and `*_bn`), not the stem (`stem`, `stem_bn`) or the
+        final conv (`conv2`, `conv2_bn`), whose names match none of its
+        FUSE_PAIRS (ROADMAP Queue 3 logs the departure)."""
+        return conv_name.split(".")[0] not in ("conv1", "conv2")
+
     def forward(self, x):
         """x: (B, 3, H, W) -> the outputs of out_indices."""
         x = self.conv1(x)

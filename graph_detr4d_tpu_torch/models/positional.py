@@ -7,15 +7,19 @@ offset=-0.5, temperature 10000; output (B, N, H, W, 3*num_feats).
 `sine_positional_encoding_2d` is mmdet's 2-axis SinePositionalEncoding of
 the LiDAR head (dgcnn3d_head.py:140-141), interleaved sin / cos.
 `coords_position_3d` is the PETR-style per-pixel 3D coordinates that the
-flagship head and the PETR heads embed.
+flagship head and the PETR heads embed. `LearnedPositionalEncoding3D`
+(positional_encoding.py:103-167) is the learned 3-axis table, which no
+config selects.
 """
 
 import math
 from typing import Sequence, Tuple
 
 import torch
+import torch.nn as nn
 
 from ..geometry.projection import inv4x4
+from ..utils.device import resolve_device
 from ..utils.math import inverse_sigmoid
 
 
@@ -128,3 +132,38 @@ def coords_position_3d(lidar2img: torch.Tensor, H: int, W: int,
     hi = torch.tensor(position_range[3:], device=dev)
     p3d = inverse_sigmoid((p3d - lo) / (hi - lo))
     return p3d.reshape(B, N, H, W, D * 3)
+
+
+class LearnedPositionalEncoding3D(nn.Module):
+    """Learned 3-axis PE (positional_encoding.py:103-167): row, column and
+    camera tables (`row_embed`, `col_embed`, `cam_embed`, nn.Embedding as
+    the reference names them), concatenated per position in the order
+    camera, row, column. The tables are drawn uniform in [0, 1), as the
+    reference's Uniform init and flax's `uniform(1.0)`, from a generator
+    seeded by `seed`."""
+
+    def __init__(self, num_feats: int = 128, row_num_embed: int = 50,
+                 col_num_embed: int = 50, cam_num_embed: int = 12,
+                 seed: int = 0, device="cuda"):
+        super().__init__()
+        dev = resolve_device(device)
+        self.num_feats = num_feats
+        g = torch.Generator().manual_seed(seed)
+        for name, rows in (("row_embed", row_num_embed),
+                           ("col_embed", col_num_embed),
+                           ("cam_embed", cam_num_embed)):
+            table = nn.Embedding(rows, num_feats)
+            with torch.no_grad():
+                table.weight.copy_(torch.rand(rows, num_feats, generator=g))
+            self.add_module(name, table)
+        self.to(dev)
+
+    def forward(self, bs: int, n: int, h: int, w: int) -> torch.Tensor:
+        """-> (bs, n, h, w, 3 * num_feats)."""
+        shape = (n, h, w, self.num_feats)
+        pos = torch.cat([
+            self.cam_embed.weight[:n, None, None, :].expand(shape),
+            self.row_embed.weight[None, :h, None, :].expand(shape),
+            self.col_embed.weight[None, None, :w, :].expand(shape),
+        ], dim=-1)
+        return pos[None].expand(bs, *pos.shape)

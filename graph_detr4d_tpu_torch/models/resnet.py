@@ -155,6 +155,13 @@ class ResNet(nn.Module):
         backbone: the stem (`conv1`, `bn1`) and `layer1`."""
         return name.split(".")[0] in ("conv1", "bn1", "layer1")
 
+    @staticmethod
+    def bn_folded(conv_name: str) -> bool:
+        """Whether tools/fuse_conv_bn.py folds the BN after this conv, as
+        the JAX tool does: its flax names (`stem_conv`, `conv{1,2,3}`,
+        `downsample_conv` and their BNs) all match its FUSE_PAIRS."""
+        return True
+
     def forward(self, x):
         """x: (B, 3, H, W) -> list of (B, C, H/4..H/32, W/4..W/32)."""
         x = F.relu(self.bn1(self.conv1(x)))

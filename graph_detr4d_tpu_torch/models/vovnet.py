@@ -151,6 +151,14 @@ class VoVNet(nn.Module):
         parts = name.split(".")
         return parts[0] == "stem" or parts[2:4] == ["layers", "1"]
 
+    @staticmethod
+    def bn_folded(conv_name: str) -> bool:
+        """Whether tools/fuse_conv_bn.py folds the BN after this conv, as
+        the JAX tool does: never, since its flax names (`{name}_conv`,
+        `{name}_bn`) match none of its FUSE_PAIRS (upstream mmcv would fold
+        them all; ROADMAP Queue 3 logs the departure)."""
+        return False
+
     def forward(self, x):
         """x: (B, 3, H, W) -> the stages of out_indices, (B, C, H/4..H/32,
         W/4..W/32)."""

@@ -29,6 +29,9 @@ detector `models/dgcnn.py::ObjDGCNN`, under names that mirror the JAX tree
 checkpoint loads into it, nor into the JAX ObjDGCNN: their LayerNorms in
 place of BatchNorm (pillar and SECOND layers) change the parameters.
 
+`learned_pe_state_dict(params)` maps a flax LearnedPositionalEncoding3D
+(models/positional.py; no config selects it) to its three tables.
+
 `load_reference_checkpoint(path)` reads a `.pth` in that layout (an
 upstream checkpoint, or one the port saved) for `load_state_dict`.
 
@@ -417,6 +420,14 @@ def head_state_dict(params, stats=None):
             decoder_layer_state_dict(params[f"decoder_layer{lid}"])))
         lid += 1
     return w.sd
+
+
+def learned_pe_state_dict(params) -> "OrderedDict[str, torch.Tensor]":
+    """flax LearnedPositionalEncoding3D params -> the port module's
+    (reference) names, `{row,col,cam}_embed.weight`."""
+    return to_torch(OrderedDict(
+        (f"{name}.weight", _arr(params, [name]))
+        for name in ("row_embed", "col_embed", "cam_embed")))
 
 
 def state_dict_from_jax(variables) -> "OrderedDict[str, torch.Tensor]":
