@@ -1,0 +1,16 @@
+"""engine_idle_ms.serve: device idle ms a request whose gap midpoint falls
+inside the program's range `gd4d::engine.request` but outside both model
+ranges (the Engine's inputs, lock, stream cache, decode and copy back),
+in the profiled requests. Moves frames_per_s."""
+
+from harness.spans import idle_ms, install as install_spans
+
+PROFILED = True
+
+
+def install(run):
+    install_spans(run, PROFILED)
+
+
+def read(run):
+    return idle_ms(run, "engine")

@@ -19,6 +19,7 @@ are.
 import torch
 import torch.nn as nn
 
+from .. import tracing
 from ..config import ModelConfig
 from ..utils.device import resolve_device
 from .attention import Deform3DCrossAttn
@@ -160,25 +161,28 @@ class GraphDETR4D(nn.Module):
         """images (B, N, H, W, 3) -> L x (B, N, h, w, C) in the compute
         dtype. generator: training's random source for the grid mask;
         None in eval."""
-        B, N, H, W, _ = images.shape
-        if self.cfg.device_normalize:
-            mean = torch.tensor(self.cfg.img_mean, device=images.device)
-            std = torch.tensor(self.cfg.img_std, device=images.device)
-            images = (images.float() - mean) / std
-        tc = self.cfg.train
-        if generator is not None and tc.use_grid_mask:
-            # after normalisation, so a masked pixel is 0 in normalized space
-            apply, d, l, st_h, st_w = grid_mask_params(
-                generator, H, tc.grid_mask_prob)
-            images = apply_grid_mask(images, d, l, st_h, st_w, apply)
-        x = images.reshape(B * N, H, W, 3).to(self.dtype).permute(0, 3, 1, 2)
-        feats = self.img_backbone(x)
-        if self.img_neck is not None:
-            feats = self.img_neck(feats)
-        return [
-            f.permute(0, 2, 3, 1).reshape(B, N, f.shape[2], f.shape[3], -1)
-            for f in feats
-        ]
+        with tracing.span("model.backbone", device=True):
+            B, N, H, W, _ = images.shape
+            if self.cfg.device_normalize:
+                mean = torch.tensor(self.cfg.img_mean, device=images.device)
+                std = torch.tensor(self.cfg.img_std, device=images.device)
+                images = (images.float() - mean) / std
+            tc = self.cfg.train
+            if generator is not None and tc.use_grid_mask:
+                # after normalisation, so a masked pixel is 0 in normalized
+                # space
+                apply, d, l, st_h, st_w = grid_mask_params(
+                    generator, H, tc.grid_mask_prob)
+                images = apply_grid_mask(images, d, l, st_h, st_w, apply)
+            x = images.reshape(B * N, H, W, 3).to(self.dtype).permute(
+                0, 3, 1, 2)
+            feats = self.img_backbone(x)
+            if self.img_neck is not None:
+                feats = self.img_neck(feats)
+            return [
+                f.permute(0, 2, 3, 1).reshape(B, N, f.shape[2], f.shape[3], -1)
+                for f in feats
+            ]
 
     def forward_feats(self, feats, lidar2img: torch.Tensor, generator=None,
                       depth_factors=None, mean_time_stamp=None,
@@ -190,13 +194,14 @@ class GraphDETR4D(nn.Module):
         PETR family and the camera-aware head. teacher_query_embed:
         MixDistill's (Qt, 2C) teacher query table, decoded a second time
         (models/head.py)."""
-        if self.cfg.head_type in PETR_HEADS:
-            return self.pts_bbox_head(feats, lidar2img, generator,
-                                      mean_time_stamp=mean_time_stamp)
-        return self.pts_bbox_head(feats, lidar2img, generator,
-                                  depth_factors=depth_factors,
-                                  intrinsics=intrinsics, ida_scale=ida_scale,
-                                  teacher_query_embed=teacher_query_embed)
+        with tracing.span("model.head", device=True):
+            if self.cfg.head_type in PETR_HEADS:
+                return self.pts_bbox_head(feats, lidar2img, generator,
+                                          mean_time_stamp=mean_time_stamp)
+            return self.pts_bbox_head(
+                feats, lidar2img, generator, depth_factors=depth_factors,
+                intrinsics=intrinsics, ida_scale=ida_scale,
+                teacher_query_embed=teacher_query_embed)
 
     def aug_forward(self, images_list, lidar2img, **extras):
         """Test-time augmentation (graph_detr4d_tpu/models/detector.py:

@@ -31,6 +31,11 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
 
+# nvcc runs made by build() and their summed seconds (plain counters;
+# serve.Engine.counters reads them: a kernel built again shows here)
+builds = 0
+build_s = 0.0
+
 
 def nvcc_path() -> str:
     cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
@@ -61,9 +66,11 @@ def library_path(name: str) -> Path:
 def build(names: Sequence[str] = SOURCES) -> Dict[str, float]:
     """Compile the named sources that are not built yet, in parallel.
 
-    Returns the seconds each nvcc took (0.0 for a library already built).
-    Raises with nvcc's output if a compile fails.
+    Returns the seconds each nvcc took (0.0 for a library already built),
+    and adds them to `builds` and `build_s`. Raises with nvcc's output if
+    a compile fails.
     """
+    global builds, build_s
     BUILD_DIR.mkdir(exist_ok=True)
     jobs, seconds = {}, {}
     for name in names:
@@ -82,6 +89,8 @@ def build(names: Sequence[str] = SOURCES) -> Dict[str, float]:
     for name, (proc, tmp, out, t0) in jobs.items():
         log, _ = proc.communicate()
         seconds[name] = time.perf_counter() - t0
+        builds += 1
+        build_s += seconds[name]
         if proc.returncode != 0:
             failures.append(f"nvcc failed for {name}.cu:\n{log}")
             tmp.unlink(missing_ok=True)

@@ -27,11 +27,13 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
+from . import tracing
 from .config import CoderConfig
 from .configs import get_config
 from .core.coder import decode_batch
 from .models.detector import GraphDETR4D
 from .models.dgcnn import ObjDGCNN
+from .ops import build, launch_counters
 from .utils.device import resolve_device
 
 MANIFEST, WEIGHTS = "manifest.json", "weights.pth"
@@ -110,10 +112,14 @@ class Engine:
     One lock serializes the device calls and the cache's mutations, so
     server threads may share an Engine; the host-to-device copy of a
     request happens before it, outside the lock, and the device-to-host
-    read after it. `served` counts the answered requests. An Engine made
-    from a streaming artifact (`from_artifact`) answers infer by encoding
-    the two frame halves separately, then running the head, as the JAX
-    engine runs its two programs.
+    read after it. `served` counts the answered requests; `stream_hits`,
+    `stream_misses` (a stream's first request, or its first after a reset
+    or an eviction) and `stream_evictions` count the stream cache's work
+    (`counters()` reads them all). Each request is a `tracing` span
+    `engine.request`. An Engine made from a streaming artifact
+    (`from_artifact`) answers infer by encoding the two frame halves
+    separately, then running the head, as the JAX engine runs its two
+    programs.
     """
 
     def __init__(self, config, state_dict, device="cuda", max_streams=16,
@@ -134,19 +140,24 @@ class Engine:
         self.max_streams = max_streams
         self._streams = OrderedDict()  # stream id -> features, LRU order
         self._lock = threading.Lock()
-        self.served = 0
+        self.served = self.stream_hits = self.stream_misses = 0
+        self.stream_evictions = 0
         # warm-up: cuDNN / cuBLAS heuristics, kernel build and load
         h = self.cfg.head
         N, nf, (H, W) = h.num_cams, h.num_frame_cams, self.cfg.img_size
         img_dtype = np.uint8 if self.cfg.device_normalize else np.float32
         l2i = np.tile(np.eye(4, dtype=np.float32), (B, N, 1, 1))
         extras = [synth_extra(n, s) for n, s in self.extras_spec]
-        self.infer(np.zeros((B, N, H, W, 3), img_dtype), l2i, extras)
+        with tracing.span("engine.warm.infer", always=True):
+            self.infer(np.zeros((B, N, H, W, 3), img_dtype), l2i, extras)
         if N == 2 * nf:  # the backbone at one frame's cameras
-            self.infer_stream(np.zeros((B, nf, H, W, 3), img_dtype), l2i,
-                              extras, stream=None)
+            with tracing.span("engine.warm.infer_stream", always=True):
+                self.infer_stream(np.zeros((B, nf, H, W, 3), img_dtype), l2i,
+                                  extras, stream=None)
             self._streams.clear()
-        self.served = 0  # the warm-up is not a request (JAX counts it)
+        # the warm-up is not a request (JAX counts it)
+        self.served = self.stream_hits = self.stream_misses = 0
+        self.stream_evictions = 0
 
     @classmethod
     def from_artifact(cls, artifact_dir, device="cuda", max_streams=16):
@@ -201,18 +212,32 @@ class Engine:
         prev = self.model.extract_feats(images[:, nf:])
         return [torch.cat([c, p], dim=1) for c, p in zip(cur, prev)]
 
+    def counters(self) -> dict:
+        """Every counter of the serving path in one flat dict: the
+        Engine's, the live streams, the kernel builds (ops/build.py) and
+        the kernels' launch counters (which stay in their modules)."""
+        return {
+            "served": self.served, "stream_hits": self.stream_hits,
+            "stream_misses": self.stream_misses,
+            "stream_evictions": self.stream_evictions,
+            "streams": len(self._streams),
+            "builds": build.builds, "build_s": build.build_s,
+            **launch_counters(),
+        }
+
     @torch.inference_mode()
     def infer(self, images, lidar2img, extras=()) -> dict:
-        images, lidar2img, kw = self._inputs(images, lidar2img, extras)
-        with self._device_calls():
-            if self.streaming:
-                out = self.model.forward_feats(self._halves(images),
-                                               lidar2img, **kw)
-            else:
-                out = self.model(images, lidar2img, **kw)
-            answer = self._answer(out)
-            self.served += 1
-        return self._to_host(answer)
+        with tracing.span("engine.request"):
+            images, lidar2img, kw = self._inputs(images, lidar2img, extras)
+            with self._device_calls():
+                if self.streaming:
+                    out = self.model.forward_feats(self._halves(images),
+                                                   lidar2img, **kw)
+                else:
+                    out = self.model(images, lidar2img, **kw)
+                answer = self._answer(out)
+                self.served += 1
+            return self._to_host(answer)
 
     @torch.inference_mode()
     def infer_stream(self, images, lidar2img, extras=(),
@@ -228,20 +253,27 @@ class Engine:
             raise ValueError(f"infer_stream needs a temporal config (num_cams "
                              f"{h.num_cams} = 2 x num_frame_cams "
                              f"{h.num_frame_cams})")
-        images, lidar2img, kw = self._inputs(images, lidar2img, extras)
-        with self._device_calls():
-            cur = self.model.extract_feats(images)
-            prev = self._streams.get(stream, cur)
-            out = self.model.forward_feats(
-                [torch.cat([c, p], dim=1) for c, p in zip(cur, prev)],
-                lidar2img, **kw)
-            self._streams[stream] = cur
-            self._streams.move_to_end(stream)
-            while len(self._streams) > self.max_streams:
-                self._streams.popitem(last=False)
-            answer = self._answer(out)
-            self.served += 1
-        return self._to_host(answer)
+        with tracing.span("engine.request"):
+            images, lidar2img, kw = self._inputs(images, lidar2img, extras)
+            with self._device_calls():
+                cur = self.model.extract_feats(images)
+                prev = self._streams.get(stream)
+                if prev is None:
+                    self.stream_misses += 1
+                    prev = cur
+                else:
+                    self.stream_hits += 1
+                out = self.model.forward_feats(
+                    [torch.cat([c, p], dim=1) for c, p in zip(cur, prev)],
+                    lidar2img, **kw)
+                self._streams[stream] = cur
+                self._streams.move_to_end(stream)
+                while len(self._streams) > self.max_streams:
+                    self._streams.popitem(last=False)
+                    self.stream_evictions += 1
+                answer = self._answer(out)
+                self.served += 1
+            return self._to_host(answer)
 
     def reset_stream(self, stream="default") -> bool:
         """Drop a stream's cached frame; whether it had one."""

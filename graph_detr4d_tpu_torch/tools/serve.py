@@ -14,6 +14,9 @@ artifacts from graph_detr4d_tpu_torch/tools/export_model.py).
   POST /reset_stream?stream=ID   drop a stream's cached features
   GET  /manifest  the artifact's manifest
   GET  /healthz   liveness and the served-request counter
+  GET  /stats     every counter of the serving path (Engine.counters():
+                  requests, the stream cache's hits, misses and
+                  evictions, kernel builds and launches)
 
 Status codes and error texts are the JAX handler's: 404 for an unknown
 path; 400 for a missing npz key, an images dtype of another kind than the
@@ -93,6 +96,8 @@ def make_handler(engine):
                 self._send(200, {"ok": True, "served": engine.served})
             elif self.path == "/manifest":
                 self._send(200, engine.manifest)
+            elif self.path == "/stats":
+                self._send(200, engine.counters())
             else:
                 self._send(404, {"error": "unknown path"})
 

@@ -14,6 +14,7 @@
 * every error route's status code and error text against the JAX
   handler's, and the server keeps serving after a 500;
 * /infer_stream bootstrap, LRU eviction and /reset_stream;
+* /stats reads the engine's counters;
 * 4 concurrent clients answer as serial ones, bit for bit;
 * the bench client's JSON keys.
 """
@@ -254,6 +255,25 @@ def test_stream_bootstrap_lru_and_reset(servers):
     assert status == 200 and health == {"ok": True, "served": 6}
 
 
+def test_stats_reads_the_engine_counters(servers):
+    urls, _, _, sengine = servers
+    url = urls["stream"]
+    a, _ = request(seed=7, n_cams=3)
+    before = sengine.counters()
+    serve.post(url + "/reset_stream?stream=w", b"")
+    for _ in range(2):  # a miss, then a hit
+        assert serve.post(url + "/infer_stream?stream=w", a)[0] == 200
+    status, stats = serve.get(url + "/stats")
+    assert status == 200 and stats == sengine.counters()
+    assert stats["served"] == before["served"] + 2
+    assert stats["stream_misses"] == before["stream_misses"] + 1
+    assert stats["stream_hits"] == before["stream_hits"] + 1
+    assert stats["streams"] <= 2 and stats["builds"] == 0
+    # /healthz keeps the JAX handler's body
+    assert serve.get(url + "/healthz") == (
+        200, {"ok": True, "served": stats["served"]})
+
+
 def test_concurrent_clients_answer_as_serial_ones(servers):
     urls, *_ = servers
     bodies = [request(seed=10 + i)[0] for i in range(4)]
@@ -278,14 +298,15 @@ def test_bench_client_keys(servers, capsys):
 
 
 def test_engine_lock_under_thread_stress(servers):
-    """More threads than cores mutate one engine's stream cache and served
-    counter at a short switch interval: no update is lost, the LRU bound
+    """More threads than cores mutate one engine's stream cache and its
+    counters at a short switch interval: no update is lost, the LRU bound
     holds, and every thread's answers equal a serial call's."""
     _, _, _, sengine = servers
     _, b = request(seed=6)
     frame, l2i = b["images"][:, :3], b["lidar2img"]
     want = sengine.infer_stream(frame, l2i, stream="ref")
     before = sengine.served
+    lookups = sengine.stream_hits + sengine.stream_misses
     threads = 2 * (os.cpu_count() or 4)
     saved = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)
@@ -301,6 +322,7 @@ def test_engine_lock_under_thread_stress(servers):
     finally:
         sys.setswitchinterval(saved)
     assert sengine.served == before + 2 * threads
+    assert sengine.stream_hits + sengine.stream_misses == lookups + 2 * threads
     assert len(sengine._streams) <= sengine.max_streams
     # a stream's second request may see another thread's frame as its
     # previous one: the same frame, so every answer is the bootstrap's
