@@ -8,6 +8,8 @@ inline copy (models/attention_variants.py::project_to_cams, held equal to
 
 import torch
 
+from ..utils.device import device_constant
+
 
 def inv3x3(m: torch.Tensor) -> torch.Tensor:
     """Closed-form adjugate inverse of batched (..., 3, 3) matrices, fp32,
@@ -90,15 +92,15 @@ def inv4x4(m: torch.Tensor) -> torch.Tensor:
 
 def denormalize_points(pts01: torch.Tensor, pc_range) -> torch.Tensor:
     """[0,1]-normalized 3D points -> metric lidar coords in pc_range."""
-    lo = torch.tensor(pc_range[:3], dtype=pts01.dtype, device=pts01.device)
-    hi = torch.tensor(pc_range[3:], dtype=pts01.dtype, device=pts01.device)
+    lo = device_constant(pc_range[:3], pts01.dtype, pts01.device)
+    hi = device_constant(pc_range[3:], pts01.dtype, pts01.device)
     return pts01 * (hi - lo) + lo
 
 
 def normalize_points(pts: torch.Tensor, pc_range) -> torch.Tensor:
     """Metric lidar coords -> [0,1] normalized by pc_range."""
-    lo = torch.tensor(pc_range[:3], dtype=pts.dtype, device=pts.device)
-    hi = torch.tensor(pc_range[3:], dtype=pts.dtype, device=pts.device)
+    lo = device_constant(pc_range[:3], pts.dtype, pts.device)
+    hi = device_constant(pc_range[3:], pts.dtype, pts.device)
     return (pts - lo) / (hi - lo)
 
 
@@ -118,7 +120,7 @@ def project_points_to_cameras(points: torch.Tensor, lidar2img: torch.Tensor,
     z = cam[..., 2:3]
     in_front = z > eps
     xy = cam[..., 0:2] / z.clamp(min=eps)
-    loc = xy / torch.tensor([img_w, img_h], dtype=xy.dtype, device=xy.device)
+    loc = xy / device_constant((img_w, img_h), xy.dtype, xy.device)
     valid = (
         in_front
         & (loc[..., 0:1] > 0.0)

@@ -47,6 +47,7 @@ import torch.nn.functional as F
 from ..geometry.projection import denormalize_points
 from ..ops import msda as msda_ops
 from ..parallel.mesh import all_reduce_sum
+from ..utils.device import device_constant
 from ..utils.math import inverse_sigmoid
 from .layers import Linear, dropout, ln_mlp
 
@@ -115,12 +116,23 @@ class Deform3DCrossAttn(nn.Module):
     ):
         """Returns (query update (B, Q, C), cam_overflow scalar tensor):
         the overflow counts in-view queries the compaction dropped (0 means
-        the compaction was exact)."""
+        the compaction was exact). `prepare`, K1, then `finish`."""
+        k1_args, state = self.prepare(query, value, spatial_shapes,
+                                      query_pos, reference_points, lidar2img,
+                                      img_shape)
+        return self.finish(msda_ops.msda_forward(*k1_args), state, generator)
+
+    def prepare(self, query, value, spatial_shapes, query_pos,
+                reference_points, lidar2img, img_shape):
+        """The attention up to K1 (forward's arguments but the generator):
+        the gate logits, the offsets and their projection into every
+        camera, the validity mask, the softmax, value_proj and the
+        compaction's query list. Returns (K1's arguments (value,
+        spatial_shapes, loc, attn, index or None), the state `finish`
+        reads)."""
         B, Q, C = query.shape
-        nh, L, P, N = (self.num_heads, self.num_levels, self.num_points,
-                       self.num_cams)
+        nh, L, P = self.num_heads, self.num_levels, self.num_points
         n = lidar2img.shape[1]  # the cameras this rank holds
-        residual = query
         q = query + query_pos
         gate_logits = self.cam_attention_weights(q)  # (B, Q, N)
         lin = self.deform_sampling_offsets
@@ -143,8 +155,7 @@ class Deform3DCrossAttn(nn.Module):
         eps = 1e-5
         z = cam[..., 2:3]
         xy = cam[..., 0:2] / z.clamp(min=eps)
-        loc = xy / torch.tensor([img_w, img_h], dtype=xy.dtype,
-                                device=xy.device)
+        loc = xy / device_constant((img_w, img_h), xy.dtype, xy.device)
         valid = (
             (z > eps)
             & (loc[..., 0:1] > 0.0) & (loc[..., 0:1] < 1.0)
@@ -170,14 +181,26 @@ class Deform3DCrossAttn(nn.Module):
                              stable=True).indices[..., :K]
             overflow = (anyv.sum(-1) - K).clamp(min=0.0).sum()
             sel = sel.reshape(B * n, K).contiguous()
-            sampled_sel = msda_ops.msda_forward(value, spatial_shapes, loc,
-                                                attn, sel)
+        else:
+            sel = None
+            overflow = torch.zeros((), device=query.device)
+        return ((value, spatial_shapes, loc, attn, sel),
+                (query, gate_logits, sel, overflow, reference_points))
+
+    def finish(self, sampled, state, generator=None):
+        """The attention after K1: `sampled`, K1's output for `prepare`'s
+        arguments, scattered back to every query, the camera gate's sum,
+        output_proj, dropout, the residual and the positional MLP. Returns
+        forward's (query update, cam_overflow)."""
+        query, gate_logits, sel, overflow, reference_points = state
+        B, Q, C = query.shape
+        N = self.num_cams
+        n = sampled.shape[0] // B  # the cameras this rank holds
+        if sel is not None:
+            sampled_sel = sampled
             sampled = torch.zeros(B * n, Q, C, dtype=sampled_sel.dtype,
                                   device=sampled_sel.device)
             sampled.scatter_(1, sel[..., None].expand(-1, -1, C), sampled_sel)
-        else:
-            overflow = torch.zeros((), device=query.device)
-            sampled = msda_ops.msda_forward(value, spatial_shapes, loc, attn)
         sampled = sampled.view(B, n, Q, C)
 
         # REFERENCE QUIRK (checkpoint-parity load-bearing): the (B, Q, N)
@@ -200,4 +223,4 @@ class Deform3DCrossAttn(nn.Module):
             ref_n = torch.cat([ref_n, rho], dim=-1)
         pe = inverse_sigmoid(ref_n)
         pos_feat = self.position_encoder(pe.to(query.dtype))
-        return out + residual + pos_feat, overflow
+        return out + query + pos_feat, overflow

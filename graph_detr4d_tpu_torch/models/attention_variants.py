@@ -44,6 +44,7 @@ import torch.nn as nn
 from ..geometry.projection import denormalize_points
 from ..ops import msda as msda_ops
 from ..parallel.mesh import all_reduce_sum
+from ..utils.device import device_constant
 from ..utils.math import inverse_sigmoid
 from .attention import camera_slice
 from .layers import Linear, dropout, ln_mlp
@@ -59,7 +60,7 @@ def project_to_cams(pts, lidar2img, img_shape, eps=1e-5):
     cam = torch.einsum("bnij,bsj->bnsi", lidar2img.float(), hom)
     z = cam[..., 2:3]
     xy = cam[..., 0:2] / z.clamp(min=eps)
-    loc = xy / torch.tensor([img_w, img_h], dtype=xy.dtype, device=xy.device)
+    loc = xy / device_constant((img_w, img_h), xy.dtype, xy.device)
     valid = ((z > eps) & (loc[..., 0:1] > 0.0) & (loc[..., 0:1] < 1.0)
              & (loc[..., 1:2] > 0.0) & (loc[..., 1:2] < 1.0))[..., 0]
     return loc, valid.float()
@@ -267,8 +268,9 @@ class Detr3DCrossAttenV2(nn.Module):
         attn = attn * mask.transpose(1, 2)[..., None, None, None]
         # the reference's [-1, 1]-space offset / (W_l, H_l) (:699-702) is
         # offset / (2 W_l, 2 H_l) in [0, 1]
-        norm = torch.tensor([[2.0 * w, 2.0 * h] for h, w in spatial_shapes],
-                            device=query.device)
+        norm = device_constant(
+            tuple((2.0 * w, 2.0 * h) for h, w in spatial_shapes),
+            torch.float32, query.device)
         loc = centre[:, :, :, None, None, None, :] + offsets / norm[:, None, :]
         loc = loc.permute(0, 2, 1, 3, 4, 5, 6).reshape(B * n, Q, nh, L, P, 2)
         attn = attn.permute(0, 2, 1, 3, 4, 5).reshape(B * n, Q, nh, L, P)

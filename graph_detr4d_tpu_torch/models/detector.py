@@ -21,7 +21,7 @@ import torch.nn as nn
 
 from .. import tracing
 from ..config import ModelConfig
-from ..utils.device import resolve_device
+from ..utils.device import device_constant, resolve_device
 from .attention import Deform3DCrossAttn
 from .attention_variants import (Deform3DCrossAttnMP, Detr3DCrossAtten,
                                  Detr3DCrossAttenV2)
@@ -164,8 +164,10 @@ class GraphDETR4D(nn.Module):
         with tracing.span("model.backbone", device=True):
             B, N, H, W, _ = images.shape
             if self.cfg.device_normalize:
-                mean = torch.tensor(self.cfg.img_mean, device=images.device)
-                std = torch.tensor(self.cfg.img_std, device=images.device)
+                mean = device_constant(self.cfg.img_mean, torch.float32,
+                                       images.device)
+                std = device_constant(self.cfg.img_std, torch.float32,
+                                      images.device)
                 images = (images.float() - mean) / std
             tc = self.cfg.train
             if generator is not None and tc.use_grid_mask:

@@ -35,6 +35,19 @@ Options of the head family:
     sharing the student's layers, branches and reference-point
     projection; returned as `all_cls_scores_guided` /
     `all_bbox_preds_guided` with its own `cam_overflow_guided`.
+
+The forward is written once, as `steps`, a generator that yields each
+decoder layer's K1 call (models/k1_graph.py). An eval forward on the card
+without autograd, a generator, a camera shard or MixDistill's pass, with
+every layer's cross-attention deform3d (the flagship's, with any of the
+options above), replays it as CUDA graphs between its K1 calls, K1 still
+launched eagerly: the first call of an input signature (B, N, the level
+shapes, the dtype, which extras are given) runs eagerly, the second
+captures, later calls replay. A replayed call copies its inputs into the
+graphs' own and keeps none of them; every tensor it returns,
+`cam_overflow` included, is fresh and is not written again. The MP,
+DETR3D and DETR3D-v2 cross-attentions, training, camera shards and
+MixDistill run eagerly.
 """
 
 from typing import Sequence, Tuple
@@ -45,6 +58,7 @@ import torch.nn as nn
 from ..config import HeadConfig
 from ..utils.math import inverse_sigmoid
 from .camera_aware import DepthNet, SELayerCAMConv
+from .k1_graph import K1Graphs, run_k1
 from .layers import LayerNorm, Linear, SELayer, two_layer_mlp
 from .positional import (coords_position_3d, lid_depth_bins,
                          sine_positional_encoding_3d)
@@ -121,6 +135,7 @@ class Detr3DHeadPE(nn.Module):
         self.cfg = cfg
         self.img_shape = tuple(img_shape)
         self.cam_shard = None  # a Mesh with a cam group, or None
+        self.graphs = K1Graphs()  # the eval forward's CUDA graphs
         C = cfg.embed_dims
         self.query_embedding = nn.Embedding(
             cfg.num_query + cfg.num_query_one2many, 2 * C)
@@ -162,11 +177,12 @@ class Detr3DHeadPE(nn.Module):
                          device=device) >= cfg.num_query
         return g[:, None] == g[None, :]
 
-    def decode(self, query_embed, value, shapes, lidar2img, generator,
-               attn_mask, df):
+    def decode_steps(self, query_embed, value, shapes, lidar2img, generator,
+                     attn_mask, df):
         """The decoder stack with iterative box refinement on a (Qx, 2C)
-        query table: (cls (layers, B, Qx, classes), boxes (layers, B, Qx,
-        code), cam_overflow)."""
+        query table, as a generator of its layers' K1 calls
+        (models/k1_graph.py): returns (cls (layers, B, Qx, classes), boxes
+        (layers, B, Qx, code), cam_overflow)."""
         cfg = self.cfg
         B, dtype = value.shape[0], value.dtype
         query_pos, query = query_embed.split(cfg.embed_dims, dim=1)
@@ -179,9 +195,9 @@ class Detr3DHeadPE(nn.Module):
         pc = cfg.pc_range
         cls_scores, bbox_preds, overflow = [], [], 0.0
         for lid, layer in enumerate(self.transformer.decoder.layers):
-            query, ov = layer(query, query_pos, value, shapes,
-                              reference_points, lidar2img, self.img_shape,
-                              generator, attn_mask)
+            query, ov = yield from layer.steps(
+                query, query_pos, value, shapes, reference_points, lidar2img,
+                self.img_shape, generator, attn_mask)
             overflow = overflow + ov
             score = self.cls_branches[lid](query)
             tmp = self.reg_branches[lid](query).float()
@@ -216,8 +232,33 @@ class Detr3DHeadPE(nn.Module):
         one2many group 'all_cls_scores_one2many' /
         'all_bbox_preds_one2many', and with teacher_query_embed
         'all_cls_scores_guided' / 'all_bbox_preds_guided' (layers, B, Qt,
-        .) and 'cam_overflow_guided'.
+        .) and 'cam_overflow_guided'. Eagerly or as CUDA graphs
+        (`self.graphs`, models/k1_graph.py::K1Graphs), as the module's
+        docstring says; `graphed` decides.
         """
+        mlvl_feats = list(mlvl_feats)
+        if self.graphed(mlvl_feats[0], generator, teacher_query_embed):
+            L = len(mlvl_feats)
+            return self.graphs(
+                lambda *t: self.steps(list(t[:L]), *t[L:]),
+                [*mlvl_feats, lidar2img, depth_factors, intrinsics, ida_scale])
+        return run_k1(self.steps(mlvl_feats, lidar2img, depth_factors,
+                                 intrinsics, ida_scale, generator,
+                                 teacher_query_embed))
+
+    def graphed(self, feat, generator, teacher_query_embed) -> bool:
+        """Whether forward replays CUDA graphs (see forward)."""
+        return (feat.is_cuda and not self.training
+                and not torch.is_grad_enabled() and generator is None
+                and teacher_query_embed is None and self.cam_shard is None
+                and all(layer.attn_type == "deform3d"
+                        and layer.attentions[1].cam_shard is None
+                        for layer in self.transformer.decoder.layers))
+
+    def steps(self, mlvl_feats, lidar2img, depth_factors=None,
+              intrinsics=None, ida_scale=None, generator=None,
+              teacher_query_embed=None):
+        """forward as a generator of its K1 calls (models/k1_graph.py)."""
         cfg = self.cfg
         dtype = mlvl_feats[0].dtype
         B, N = mlvl_feats[0].shape[:2]
@@ -268,7 +309,7 @@ class Detr3DHeadPE(nn.Module):
         attn_mask = self.self_attn_mask(dev)
         df = (None if not cfg.scale_pred or depth_factors is None
               else depth_factors.float()[:, None, None])
-        all_cls, all_bbox, overflow = self.decode(
+        all_cls, all_bbox, overflow = yield from self.decode_steps(
             self.query_embedding.weight, value, shapes, lidar2img, generator,
             attn_mask, df)
         if attn_mask is None:
@@ -284,7 +325,7 @@ class Detr3DHeadPE(nn.Module):
                 "cam_overflow": overflow,
             }
         if teacher_query_embed is not None:
-            g_cls, g_bbox, g_overflow = self.decode(
+            g_cls, g_bbox, g_overflow = yield from self.decode_steps(
                 teacher_query_embed.detach(), value, shapes, lidar2img,
                 generator, None, df)
             out.update(all_cls_scores_guided=g_cls,

@@ -1,0 +1,130 @@
+"""Running a forward written as a generator of K1 calls.
+
+A `steps` generator (DecoderLayer.steps, Detr3DHeadPE.steps) yields the
+arguments of each K1 call it needs (ops/msda.py::msda_forward) and is
+sent the call's output back; what it returns is the forward's result.
+The kernel is launched by whoever drives the generator, which chooses how
+the code between two K1 calls runs:
+
+  * `run_k1`: eagerly, launching msda_ops.msda_forward at each yield;
+  * `K1Graphs`: as CUDA graphs, one for each stretch of the generator
+    before, between and after its K1 calls, replayed in that order with
+    the K1 launches eager between them.
+
+K1 is launched through the module attribute `msda_ops.msda_forward` in
+both, never a reference kept from an earlier call, so its launch counter
+and whatever wraps the attribute see every call.
+"""
+
+import torch
+
+from ..ops import msda as msda_ops
+
+
+def run_k1(steps):
+    """Drive a `steps` generator eagerly: K1 launched at each yield, its
+    output sent back. Returns the generator's result."""
+    try:
+        args = next(steps)
+        while True:
+            args = steps.send(msda_ops.msda_forward(*args))
+    except StopIteration as done:
+        return done.value
+
+
+def _signature(inputs):
+    """What a set of graphs is captured for: each input's shape, dtype and
+    device, or None for an absent one. Not its strides: a replay copies
+    the input into a contiguous tensor of the graphs' own."""
+    return tuple(None if t is None else (t.shape, t.dtype, t.device)
+                 for t in inputs)
+
+
+class K1Graphs:
+    """CUDA graphs of a `steps` generator, split at its K1 calls, one set
+    per input signature (each input's shape, dtype and device).
+
+    A signature's first call runs eagerly (`run_k1`); its second captures
+    the graphs and replays them; later calls replay. So a shape seen once
+    never pays for a capture. A call that replays copies the caller's
+    tensors into the graphs' own inputs (it neither keeps nor aliases
+    them), replays each graph in turn with K1 launched eagerly on the
+    arguments the graph before it left, its output copied into the
+    graph after it, and returns a fresh copy of the result dict, never
+    the graphs' memory. Every graph of a signature shares one memory pool,
+    which holds the intermediates the graphs pass each other.
+
+    The generator must make no host synchronisation (a capture cannot
+    hold one) and must read nothing but its inputs, the module's
+    parameters and buffers, and device constants: the graphs see weights
+    loaded in place (`load_state_dict`), not tensors the module is given
+    afterwards (`.to()` of its parameters). `captures` and `replays` count
+    the calls that captured and that replayed graphs made earlier."""
+
+    def __init__(self):
+        self.captures = self.replays = 0
+        self._seen = set()
+        self._sets = {}
+
+    def __call__(self, make_steps, inputs):
+        """make_steps(*inputs) -> a `steps` generator whose result is a
+        dict of tensors; inputs: tensors on one CUDA device, or None."""
+        key = _signature(inputs)
+        graphs = self._sets.get(key)
+        if graphs is None and key not in self._seen:
+            self._seen.add(key)
+            return run_k1(make_steps(*inputs))
+        device = next(t for t in inputs if t is not None).device
+        with torch.cuda.device(device):
+            if graphs is None:
+                graphs = self._sets[key] = _Segments(make_steps, inputs)
+                self.captures += 1
+            else:
+                self.replays += 1
+            return graphs.replay(inputs)
+
+
+class _Segments:
+    """One signature's graphs and the tensors they read and leave."""
+
+    def __init__(self, make_steps, inputs):
+        # normal tensors, not inference tensors: a replay may then write
+        # them under inference mode and outside it alike
+        with torch.inference_mode(False), torch.no_grad():
+            self.inputs = [None if t is None else
+                           torch.empty(t.shape, dtype=t.dtype, device=t.device)
+                           for t in inputs]
+            self.graphs, self.k1_args, self.k1_outs = [], [], []
+            steps = make_steps(*self.inputs)
+            pool = torch.cuda.graph_pool_handle()
+            sent = None
+            while True:
+                graph = torch.cuda.CUDAGraph()
+                # thread_local: another thread's host-to-device copy (an
+                # HTTP thread's request) does not break the capture
+                with torch.cuda.graph(graph, pool=pool,
+                                      capture_error_mode="thread_local"):
+                    try:
+                        args = steps.send(sent)
+                    except StopIteration as done:
+                        args, self.result = None, done.value
+                self.graphs.append(graph)
+                if args is None:
+                    break
+                value, _, loc, _, index = args
+                rows = loc.shape[1] if index is None else index.shape[1]
+                sent = torch.empty(value.shape[0], rows,
+                                   value.shape[2] * value.shape[3],
+                                   dtype=value.dtype, device=value.device)
+                self.k1_args.append(args)
+                self.k1_outs.append(sent)
+
+    def replay(self, inputs):
+        for static, t in zip(self.inputs, inputs):
+            if static is not None:
+                static.copy_(t)
+        for i, graph in enumerate(self.graphs):
+            graph.replay()
+            if i < len(self.k1_args):
+                self.k1_outs[i].copy_(msda_ops.msda_forward(*self.k1_args[i]))
+        return {k: v.clone() for k, v in self.result.items()}

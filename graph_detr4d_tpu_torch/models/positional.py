@@ -19,7 +19,7 @@ import torch
 import torch.nn as nn
 
 from ..geometry.projection import inv4x4
-from ..utils.device import resolve_device
+from ..utils.device import device_constant, resolve_device
 from ..utils.math import inverse_sigmoid
 
 
@@ -128,8 +128,8 @@ def coords_position_3d(lidar2img: torch.Tensor, H: int, W: int,
     ], dim=-1)  # (H, W, D, 4) homogeneous (x*d, y*d, d, 1)
     img2lidar = inv4x4(lidar2img.float())
     p3d = torch.einsum("bnij,hwdj->bnhwdi", img2lidar, coords)[..., :3]
-    lo = torch.tensor(position_range[:3], device=dev)
-    hi = torch.tensor(position_range[3:], device=dev)
+    lo = device_constant(position_range[:3], p3d.dtype, dev)
+    hi = device_constant(position_range[3:], p3d.dtype, dev)
     p3d = inverse_sigmoid((p3d - lo) / (hi - lo))
     return p3d.reshape(B, N, H, W, D * 3)
 

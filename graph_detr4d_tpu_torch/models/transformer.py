@@ -21,6 +21,7 @@ from .attention import Deform3DCrossAttn
 from .attention_variants import (Deform3DCrossAttnMP, Detr3DCrossAtten,
                                  Detr3DCrossAttenV2)
 from ..parallel.mesh import all_reduce_max, all_reduce_sum
+from .k1_graph import run_k1
 from .layers import LayerNorm, Linear, dropout
 
 ATTN_TYPES = ("deform3d", "deform3d_mp", "detr3d", "detr3d_v2")
@@ -186,7 +187,13 @@ class DecoderLayer(nn.Module):
         self.ffns = nn.ModuleList([FFN(embed_dims, ffn_dims, dropout)])
         self.norms = nn.ModuleList([LayerNorm(embed_dims) for _ in range(3)])
 
-    def forward(
+    def forward(self, *args, **kwargs):
+        """steps' arguments; returns (query, cam_overflow) (see
+        Deform3DCrossAttn; the other cross-attentions compact nothing and
+        report 0)."""
+        return run_k1(self.steps(*args, **kwargs))
+
+    def steps(
         self,
         query: torch.Tensor,
         query_pos: torch.Tensor,
@@ -198,19 +205,28 @@ class DecoderLayer(nn.Module):
         generator=None,
         self_attn_mask=None,
     ):
-        """Returns (query, cam_overflow) (see Deform3DCrossAttn; the other
-        cross-attentions compact nothing and report 0). Dropout draws from
-        `generator`; None (eval) turns it off. self_attn_mask: (Q, Q) bool,
-        True = attend (H-DETR's group mask), or None."""
+        """The layer as a generator (models/k1_graph.py): with the deform3d
+        cross-attention it yields K1's arguments once, between the
+        attention's `prepare` and `finish`, and takes K1's output back; the
+        other cross-attentions launch their own kernels and it yields
+        nothing. Returns (query, cam_overflow). Dropout draws from
+        `generator`; None (eval) turns it off. self_attn_mask: (Q, Q)
+        bool, True = attend (H-DETR's group mask), or None."""
         query = self.norms[0](self.attentions[0](query, query_pos, generator,
                                                  self_attn_mask))
-        if self.attn_type == "deform3d_mp":
-            reference_points = graph_reference_points(reference_points,
-                                                       self.num_neighbors)
-        query, overflow = self.attentions[1](
-            query, value, spatial_shapes, query_pos, reference_points,
-            lidar2img, img_shape, generator,
-        )
+        cross = self.attentions[1]
+        if self.attn_type == "deform3d":
+            k1_args, state = cross.prepare(query, value, spatial_shapes,
+                                           query_pos, reference_points,
+                                           lidar2img, img_shape)
+            query, overflow = cross.finish((yield k1_args), state, generator)
+        else:
+            if self.attn_type == "deform3d_mp":
+                reference_points = graph_reference_points(
+                    reference_points, self.num_neighbors)
+            query, overflow = cross(query, value, spatial_shapes, query_pos,
+                                    reference_points, lidar2img, img_shape,
+                                    generator)
         query = self.norms[1](query)
         query = self.norms[2](self.ffns[0](query, generator))
         return query, overflow

@@ -120,6 +120,20 @@ class Engine:
     (`from_artifact`) answers infer by encoding the two frame halves
     separately, then running the head, as the JAX engine runs its two
     programs.
+
+    The flagship's head (models/head.py::Detr3DHeadPE, every decoder layer
+    with the deform3d cross-attention) answers as CUDA graphs between its
+    K1 calls: the first request of an input signature runs it eagerly,
+    the second captures the graphs, later ones replay them. A temporal
+    config's two warm-ups (`infer`, then `infer_stream`) send the head the
+    one signature of a full rig twice, so the capture happens in __init__
+    and every request replays. A replay copies the
+    request's tensors into the graphs' inputs and returns fresh tensors,
+    `cam_overflow` included, that no later request writes. The PETR heads
+    and the other cross-attentions run eagerly. `head_graph_captures` and
+    `head_graph_replays` count it (`counters()`); the warm-ups' capture
+    stays counted, so replays / served is the share of requests that
+    replayed.
     """
 
     def __init__(self, config, state_dict, device="cuda", max_streams=16,
@@ -215,13 +229,18 @@ class Engine:
     def counters(self) -> dict:
         """Every counter of the serving path in one flat dict: the
         Engine's, the live streams, the kernel builds (ops/build.py) and
-        the kernels' launch counters (which stay in their modules)."""
+        the kernels' launch counters (which stay in their modules), and
+        the head's CUDA graphs: the calls that captured them and the calls
+        that replayed them (0 for a head that runs eagerly)."""
+        graphs = getattr(self.model.pts_bbox_head, "graphs", None)
         return {
             "served": self.served, "stream_hits": self.stream_hits,
             "stream_misses": self.stream_misses,
             "stream_evictions": self.stream_evictions,
             "streams": len(self._streams),
             "builds": build.builds, "build_s": build.build_s,
+            "head_graph_captures": graphs.captures if graphs else 0,
+            "head_graph_replays": graphs.replays if graphs else 0,
             **launch_counters(),
         }
 

@@ -16,7 +16,8 @@ artifacts from graph_detr4d_tpu_torch/tools/export_model.py).
   GET  /healthz   liveness and the served-request counter
   GET  /stats     every counter of the serving path (Engine.counters():
                   requests, the stream cache's hits, misses and
-                  evictions, kernel builds and launches)
+                  evictions, kernel builds and launches, the head's
+                  CUDA-graph captures and replays)
 
 Status codes and error texts are the JAX handler's: 404 for an unknown
 path; 400 for a missing npz key, an images dtype of another kind than the

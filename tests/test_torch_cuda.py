@@ -1282,3 +1282,139 @@ def test_tiny_obj_dgcnn_differentiates_on_the_card_as_on_the_cpu(cuda):
         assert scale > 0, name
         err = (grads["cuda"][name] - want).abs().max().item()
         assert err <= 1e-3 * scale, (name, err, scale)
+
+
+def _tiny_flagship_head(dev, **head_kw):
+    """Detr3DHeadPE at a tiny width (12 cameras, 2 decoder layers,
+    cam_capacity 0.25: the compaction keeps 6 of 24 queries a camera and
+    drops some), seeded weights, in eval mode."""
+    from graph_detr4d_tpu_torch import config as c
+    from graph_detr4d_tpu_torch.models.head import Detr3DHeadPE
+    from graph_detr4d_tpu_torch.weights import init_weights
+
+    kw = dict(num_query=24, embed_dims=32, num_decoder_layers=2, num_heads=4,
+              num_points=2, num_cams=12, num_frame_cams=6, ffn_dims=64,
+              depth_num=8, pe_num_feats=16, with_detach=False,
+              cam_capacity=0.25)
+    kw.update(head_kw)
+    head = Detr3DHeadPE(c.HeadConfig(**kw), (64, 160))
+    init_weights(head, seed=0)
+    return head.to(dev).eval()
+
+
+def _head_request(dev, seed):
+    """One request's head inputs: 4 levels of (1, 12, h, w, 32) features
+    and the synthetic rig's lidar2img, both from the seed."""
+    from graph_detr4d_tpu_torch.data.synthetic import synthetic_camera_rig
+
+    g = torch.Generator().manual_seed(seed)
+    feats = [torch.randn(1, 12, h, w, 32, generator=g).to(dev)
+             for h, w in ((8, 20), (4, 10), (2, 5), (1, 3))]
+    l2i = torch.from_numpy(synthetic_camera_rig(12, (64, 160), seed=seed))
+    return feats, l2i[None].to(dev)
+
+
+# the options of the head family that take the graphs too: H-DETR's
+# one2many group and its mask, the camera-aware head with its extras,
+# scale_pred's depth factors, depth_encode
+HEAD_VARIANTS = {
+    "flagship": {},
+    "hdetr_camaware_scale": dict(num_query_one2many=12, cam_aware=True,
+                                 scale_pred=True, depth_encode=True),
+}
+
+
+def _head_extras(head, dev, seed):
+    if not head.cfg.scale_pred:
+        return {}
+    g = torch.Generator().manual_seed(seed)
+    intr = torch.eye(4).repeat(1, 12, 1, 1)
+    intr[..., 0, 0] = intr[..., 1, 1] = 100.0 + 10.0 * torch.rand(1, 12,
+                                                                 generator=g)
+    intr[..., 0, 2], intr[..., 1, 2] = 80.0, 32.0
+    return {"depth_factors": (1.0 + 0.1 * torch.rand(1, generator=g)).to(dev),
+            "intrinsics": intr.to(dev),
+            "ida_scale": (0.8 + 0.4 * torch.rand(1, 12, generator=g)).to(dev)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", sorted(HEAD_VARIANTS))
+def test_head_graphs_replay_the_eager_head(cuda, variant):
+    """The head's eval forward as CUDA graphs between its K1 calls: its
+    first call runs eagerly, the second captures, the third and fourth
+    replay; over three requests after the first the outputs,
+    cam_overflow included, equal the eager head's (models/k1_graph.py::
+    run_k1 over head.steps) within 1e-6, and K1 launches once a layer."""
+    from graph_detr4d_tpu_torch.models.k1_graph import run_k1
+
+    head = _tiny_flagship_head(cuda, **HEAD_VARIANTS[variant])
+    with torch.no_grad():
+        head(*_head_request(cuda, 0), **_head_extras(head, cuda, 0))
+        assert (head.graphs.captures, head.graphs.replays) == (0, 0)
+        overflow = 0.0
+        for i, seed in enumerate((1, 2, 3)):
+            feats, l2i = _head_request(cuda, seed)
+            extras = _head_extras(head, cuda, seed)
+            want = run_k1(head.steps(feats, l2i, **extras))
+            launches = msda_ops.launches
+            got = head(feats, l2i, **extras)
+            torch.cuda.synchronize()
+            assert msda_ops.launches - launches == 2
+            assert (head.graphs.captures, head.graphs.replays) == (1, i)
+            assert got.keys() == want.keys()
+            for k in want:
+                torch.testing.assert_close(got[k], want[k], rtol=0,
+                                           atol=1e-6, msg=k)
+            overflow += float(got["cam_overflow"])
+    assert overflow > 0  # the compaction dropped queries
+
+
+@pytest.mark.cuda
+def test_head_graph_outputs_are_the_callers_own(cuda):
+    """A replay's outputs are fresh tensors: the next request does not
+    write them, and a change to the caller's inputs after the call
+    changes nothing returned."""
+    head = _tiny_flagship_head(cuda)
+    with torch.no_grad():
+        for seed in (0, 1):  # eager, then the capture
+            head(*_head_request(cuda, seed))
+        feats, l2i = _head_request(cuda, 2)
+        first = head(feats, l2i)
+        kept = {k: v.clone() for k, v in first.items()}
+        for f in feats:
+            f.add_(1.0)
+        l2i.mul_(2.0)
+        second = head(*_head_request(cuda, 3))
+        torch.cuda.synchronize()
+    assert head.graphs.replays == 2
+    for k in first:
+        assert first[k].data_ptr() != second[k].data_ptr(), k
+        assert torch.equal(first[k], kept[k]), k
+
+
+@pytest.mark.cuda
+def test_head_graphs_leave_other_forwards_eager(cuda, monkeypatch):
+    """Training with a generator, the MP cross-attention and a camera
+    shard run eagerly: three calls each, no capture, no replay."""
+    from graph_detr4d_tpu_torch.models import attention
+    from graph_detr4d_tpu_torch.parallel.mesh import Mesh
+
+    feats, l2i = _head_request(cuda, 0)
+    head = _tiny_flagship_head(cuda).train()
+    g = torch.Generator(device=cuda).manual_seed(0)
+    for _ in range(3):
+        head(feats, l2i, generator=g)["all_cls_scores"].sum().backward()
+    mp = _tiny_flagship_head(cuda, attn_type="deform3d_mp")
+    # one cam=1 shard: the shard's code path with an identity all-reduce
+    monkeypatch.setattr(attention, "all_reduce_sum", lambda x, group: x)
+    shard = _tiny_flagship_head(cuda)
+    shard.cam_shard = Mesh()
+    for layer in shard.transformer.decoder.layers:
+        layer.attentions[1].cam_shard = Mesh()
+    with torch.no_grad():
+        for _ in range(3):
+            mp(feats, l2i)
+            shard(feats, l2i)
+    torch.cuda.synchronize()
+    for h in (head, mp, shard):
+        assert (h.graphs.captures, h.graphs.replays) == (0, 0)

@@ -30,6 +30,7 @@ from graph_detr4d_tpu_torch import weights
 from graph_detr4d_tpu_torch.config import HeadConfig
 from graph_detr4d_tpu_torch.models import attention, fpn, head, positional
 from graph_detr4d_tpu_torch.models import resnet, transformer
+from graph_detr4d_tpu_torch.ops import msda as msda_ops
 
 ATOL = 1e-4
 PC_RANGE = (-51.2, -51.2, -5.0, 51.2, 51.2, 3.0)
@@ -177,12 +178,16 @@ def _flat_levels(levels):
         [v.reshape(*v.shape[:2], -1, v.shape[-1]) for v in levels], axis=2))
 
 
+@pytest.mark.parametrize("route", ["forward", "split"])
 @pytest.mark.parametrize("overflow", [False, True])
-def test_deform3d_cross_attn_matches_jax(overflow):
+def test_deform3d_cross_attn_matches_jax(overflow, route):
     """cam_capacity=0.5 compaction. With overflow every query is in view
     of camera 0 (all tied), so the result also holds the port's selection
     to jax.lax.top_k's tie order: lower query index first. torch.topk
-    promises no order among ties; the port sorts stably."""
+    promises no order among ties; the port sorts stably. The split route
+    calls `prepare`, K1 (msda_forward's plain version here) and `finish`
+    itself, as the head's CUDA graphs do (models/k1_graph.py), and must
+    equal `forward` bit for bit."""
     jcfg, _ = _head_cfg()
     d = _attn_inputs(jcfg, overflow)
     mod = jax_attention.Deform3DCrossAttn(
@@ -204,11 +209,18 @@ def test_deform3d_cross_attn_matches_jax(overflow):
         num_cams=jcfg.num_cams, pc_range=PC_RANGE,
         cam_capacity=jcfg.cam_capacity),
         weights.cross_attn_state_dict(v["params"]))
-    with torch.no_grad():
-        got, got_overflow = port(
-            torch.from_numpy(d["query"]), _flat_levels(d["levels"]),
+    args = (torch.from_numpy(d["query"]), _flat_levels(d["levels"]),
             d["shapes"], torch.from_numpy(d["query_pos"]),
             torch.from_numpy(d["ref"]), torch.from_numpy(d["l2i"]), d["img"])
+    with torch.no_grad():
+        got, got_overflow = port(*args)
+        if route == "split":
+            k1_args, state = port.prepare(*args)
+            split, split_overflow = port.finish(
+                msda_ops.msda_forward(*k1_args), state)
+            assert torch.equal(split, got)
+            assert torch.equal(split_overflow, got_overflow)
+            got, got_overflow = split, split_overflow
     assert float(got_overflow) == want_overflow
     assert (want_overflow > 0) == overflow
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,

@@ -167,3 +167,6 @@ def test_stream_counters_are_exact(engine):
     # the kernels' launch counters and the builds sit beside them
     assert {"msda.launches", "deform_conv.forward_launches", "builds",
             "build_s"} <= set(after)
+    # the head's CUDA graphs: none on the CPU
+    assert (after["head_graph_captures"], after["head_graph_replays"]) == (
+        0, 0)
