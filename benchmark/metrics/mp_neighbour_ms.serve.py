@@ -1,0 +1,18 @@
+"""mp_neighbour_ms.serve: ms a request between the CUDA events of the
+program's span `model.head.neighbours` (MP's neighbour branch, from the
+projection into the cameras through the raw gate, K1 and the sums over
+cameras and neighbours, models/attention_variants.py::
+Deform3DCrossAttnMP), summed over the layers, in requests sent without
+the profiler. Moves frames_per_s."""
+
+from harness.spans import install as install_spans, span_ms
+
+PROFILED = False  # timed in requests sent before the profiled ones
+
+
+def install(run):
+    install_spans(run, PROFILED)
+
+
+def read(run):
+    return span_ms(run, "model.head.neighbours")

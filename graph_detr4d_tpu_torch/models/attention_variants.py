@@ -41,6 +41,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from .. import tracing
 from ..geometry.projection import denormalize_points
 from ..ops import msda as msda_ops
 from ..parallel.mesh import all_reduce_sum
@@ -50,6 +51,10 @@ from .attention import camera_slice
 from .layers import Linear, dropout, ln_mlp
 
 PC_RANGE = (-51.2, -51.2, -5.0, 51.2, 51.2, 3.0)
+
+# query rows MP's neighbour branch handed to K1, B x K x Q a layer
+# (serve.Engine.counters)
+mp_neighbour_rows = 0
 
 
 def project_to_cams(pts, lidar2img, img_shape, eps=1e-5):
@@ -205,19 +210,22 @@ class Deform3DCrossAttnMP(nn.Module):
 
         # neighbour row j * Q + q takes query q's logits and raw gate; the
         # gate's (B, K * Q, N) rows are read as (B, N, K * Q) as the centre's
-        pts_n = denormalize_points(ref_n.float(), self.pc_range)[
-            :, :, None, None, None, :].expand(B, K * Q, nh, L, pn, 3)
-        logits_n = self.attention_weights_neighbor(q).repeat(1, K, 1)
-        nb = self._sample(value, spatial_shapes, lidar2img, img_shape, pts_n,
-                          logits_n.view(B, K * Q, nh, L * pn))
-        gate_n = gate.repeat(1, K, 1).reshape(B, N, K * Q, 1)[:, cams]
-        nb = (nb.float() * gate_n).sum(dim=1)  # (B, K * Q, C)
-        if self.cam_shard is not None:
-            # both camera sums in one all-reduce, before the neighbour sum
-            both = all_reduce_sum(torch.cat([centre, nb], dim=1),
-                                  self.cam_shard.cam_group)
-            centre, nb = both[:, :Q], both[:, Q:]
-        nb = nb.reshape(B, K, Q, C).sum(dim=1)
+        global mp_neighbour_rows
+        with tracing.span("model.head.neighbours", device=True):
+            pts_n = denormalize_points(ref_n.float(), self.pc_range)[
+                :, :, None, None, None, :].expand(B, K * Q, nh, L, pn, 3)
+            logits_n = self.attention_weights_neighbor(q).repeat(1, K, 1)
+            nb = self._sample(value, spatial_shapes, lidar2img, img_shape,
+                              pts_n, logits_n.view(B, K * Q, nh, L * pn))
+            gate_n = gate.repeat(1, K, 1).reshape(B, N, K * Q, 1)[:, cams]
+            nb = (nb.float() * gate_n).sum(dim=1)  # (B, K * Q, C)
+            if self.cam_shard is not None:
+                # both camera sums in one all-reduce, before the neighbour sum
+                both = all_reduce_sum(torch.cat([centre, nb], dim=1),
+                                      self.cam_shard.cam_group)
+                centre, nb = both[:, :Q], both[:, Q:]
+            nb = nb.reshape(B, K, Q, C).sum(dim=1)
+        mp_neighbour_rows += B * K * Q
 
         # learned global 2-way fusion, per sample (multi_point.py:436-439)
         fuse = self.output_weight(torch.cat([centre, nb], -1).to(query.dtype))

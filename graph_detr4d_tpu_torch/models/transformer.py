@@ -17,6 +17,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from .. import tracing
 from .attention import Deform3DCrossAttn
 from .attention_variants import (Deform3DCrossAttnMP, Detr3DCrossAtten,
                                  Detr3DCrossAttenV2)
@@ -25,6 +26,9 @@ from .k1_graph import run_k1
 from .layers import LayerNorm, Linear, dropout
 
 ATTN_TYPES = ("deform3d", "deform3d_mp", "detr3d", "detr3d_v2")
+
+# MP query graphs built, one a sample a decoder layer (serve.Engine.counters)
+mp_graph_builds = 0
 
 
 def graph_neighbours(ref: torch.Tensor, k: int) -> torch.Tensor:
@@ -222,8 +226,11 @@ class DecoderLayer(nn.Module):
             query, overflow = cross.finish((yield k1_args), state, generator)
         else:
             if self.attn_type == "deform3d_mp":
-                reference_points = graph_reference_points(
-                    reference_points, self.num_neighbors)
+                global mp_graph_builds
+                with tracing.span("model.head.graph", device=True):
+                    reference_points = graph_reference_points(
+                        reference_points, self.num_neighbors)
+                mp_graph_builds += reference_points.shape[0]
             query, overflow = cross(query, value, spatial_shapes, query_pos,
                                     reference_points, lidar2img, img_shape,
                                     generator)

@@ -31,6 +31,7 @@ from . import tracing
 from .config import CoderConfig
 from .configs import get_config
 from .core.coder import decode_batch
+from .models import attention_variants, transformer
 from .models.detector import GraphDETR4D
 from .models.dgcnn import ObjDGCNN
 from .ops import build, launch_counters
@@ -134,6 +135,14 @@ class Engine:
     `head_graph_replays` count it (`counters()`); the warm-ups' capture
     stays counted, so replays / served is the share of requests that
     replayed.
+
+    The MP cross-attention (models/attention_variants.py::
+    Deform3DCrossAttnMP) builds a query graph in each decoder layer and
+    samples the K graph neighbours of each query in a K1 call of its own:
+    `mp_graph_builds` counts the graphs (one a sample a layer) and
+    `mp_neighbour_rows` the rows of those calls (B x K x Q a layer), the
+    warm-ups' included. Both count since the process started, so they
+    stay 0 in a process that runs no MP head.
     """
 
     def __init__(self, config, state_dict, device="cuda", max_streams=16,
@@ -229,9 +238,12 @@ class Engine:
     def counters(self) -> dict:
         """Every counter of the serving path in one flat dict: the
         Engine's, the live streams, the kernel builds (ops/build.py) and
-        the kernels' launch counters (which stay in their modules), and
-        the head's CUDA graphs: the calls that captured them and the calls
-        that replayed them (0 for a head that runs eagerly)."""
+        the kernels' launch counters (which stay in their modules), the
+        head's CUDA graphs: the calls that captured them and the calls
+        that replayed them (0 for a head that runs eagerly), and MP's
+        query graphs built and neighbour rows sampled (module ints of
+        models/transformer.py and models/attention_variants.py, counted
+        since the process started)."""
         graphs = getattr(self.model.pts_bbox_head, "graphs", None)
         return {
             "served": self.served, "stream_hits": self.stream_hits,
@@ -241,6 +253,8 @@ class Engine:
             "builds": build.builds, "build_s": build.build_s,
             "head_graph_captures": graphs.captures if graphs else 0,
             "head_graph_replays": graphs.replays if graphs else 0,
+            "mp_graph_builds": transformer.mp_graph_builds,
+            "mp_neighbour_rows": attention_variants.mp_neighbour_rows,
             **launch_counters(),
         }
 

@@ -17,7 +17,8 @@ artifacts from graph_detr4d_tpu_torch/tools/export_model.py).
   GET  /stats     every counter of the serving path (Engine.counters():
                   requests, the stream cache's hits, misses and
                   evictions, kernel builds and launches, the head's
-                  CUDA-graph captures and replays)
+                  CUDA-graph captures and replays, MP's query graphs
+                  built and neighbour rows sampled)
 
 Status codes and error texts are the JAX handler's: 404 for an unknown
 path; 400 for a missing npz key, an images dtype of another kind than the

@@ -34,6 +34,14 @@ The spans and what reads them (benchmark/harness/spans.py):
                           backbone_span_ms, backbone_idle_ms
   model.head              GraphDETR4D.forward_feats (device);
                           head_span_ms, head_idle_ms
+  model.head.graph        DecoderLayer.steps' MP query graph,
+                          graph_reference_points (device), one a
+                          decoder layer inside model.head; mp_graph_ms
+  model.head.neighbours   Deform3DCrossAttnMP's neighbour branch: the
+                          projection into the cameras, the raw gate,
+                          K1 and the sums over cameras and neighbours,
+                          before the fusion (device), one a decoder
+                          layer inside model.head; mp_neighbour_ms
   engine.warm.infer, engine.warm.infer_stream
                           Engine.__init__'s warm-up (always);
                           engine_warm_s
