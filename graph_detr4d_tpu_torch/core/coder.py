@@ -12,6 +12,7 @@ from typing import NamedTuple
 import torch
 
 from ..geometry.boxes import denormalize_bbox
+from ..utils.device import device_constant
 
 
 class Detections(NamedTuple):
@@ -35,8 +36,7 @@ def _gather_rows(x, idx):
 
 def _valid(boxes, top_scores, post_center_range, score_threshold):
     """Centre inside post_center_range (and score above the threshold)."""
-    pcr = torch.tensor(post_center_range, dtype=torch.float32,
-                       device=boxes.device)
+    pcr = device_constant(post_center_range, torch.float32, boxes.device)
     valid = (boxes[..., :3] >= pcr[:3]).all(-1) & (
         boxes[..., :3] <= pcr[3:]
     ).all(-1)

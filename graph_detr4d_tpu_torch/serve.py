@@ -35,6 +35,7 @@ from .models import attention_variants, transformer
 from .models.detector import GraphDETR4D
 from .models.dgcnn import ObjDGCNN
 from .ops import build, launch_counters
+from .parallel.transfer import StagedCopy, host_cast, host_tensor
 from .utils.device import resolve_device
 
 MANIFEST, WEIGHTS = "manifest.json", "weights.pth"
@@ -113,11 +114,20 @@ class Engine:
     One lock serializes the device calls and the cache's mutations, so
     server threads may share an Engine; the host-to-device copy of a
     request happens before it, outside the lock, and the device-to-host
-    read after it. `served` counts the answered requests; `stream_hits`,
+    read after it. The copy (parallel/transfer.py::StagedCopy) goes
+    through pinned buffers the warm-ups make and later requests reuse,
+    and is issued without waiting; float32 images cross as bfloat16,
+    cast on the host while they are written into the buffer, where the
+    model's first use of them is that cast (`transfer.host_cast`: a bf16
+    config without device_normalize).
+    `served` counts the answered requests; `h2d_staged` those whose
+    images went through the pinned buffers (none on the CPU) and
+    `h2d_host_cast` those whose images the host cast; `stream_hits`,
     `stream_misses` (a stream's first request, or its first after a reset
     or an eviction) and `stream_evictions` count the stream cache's work
     (`counters()` reads them all). Each request is a `tracing` span
-    `engine.request`. An Engine made from a streaming artifact
+    `engine.request`, its copy a host span `engine.h2d` inside it. An
+    Engine made from a streaming artifact
     (`from_artifact`) answers infer by encoding the two frame halves
     separately, then running the head, as the JAX engine runs its two
     programs.
@@ -163,8 +173,9 @@ class Engine:
         self.max_streams = max_streams
         self._streams = OrderedDict()  # stream id -> features, LRU order
         self._lock = threading.Lock()
+        self._staging = StagedCopy(self.device)
         self.served = self.stream_hits = self.stream_misses = 0
-        self.stream_evictions = 0
+        self.stream_evictions = self.h2d_staged = self.h2d_host_cast = 0
         # warm-up: cuDNN / cuBLAS heuristics, kernel build and load
         h = self.cfg.head
         N, nf, (H, W) = h.num_cams, h.num_frame_cams, self.cfg.img_size
@@ -180,7 +191,7 @@ class Engine:
             self._streams.clear()
         # the warm-up is not a request (JAX counts it)
         self.served = self.stream_hits = self.stream_misses = 0
-        self.stream_evictions = 0
+        self.stream_evictions = self.h2d_staged = self.h2d_host_cast = 0
 
     @classmethod
     def from_artifact(cls, artifact_dir, device="cuda", max_streams=16):
@@ -221,11 +232,27 @@ class Engine:
         return result
 
     def _inputs(self, images, lidar2img, extras):
-        kw = {name: torch.as_tensor(np.asarray(v, np.float32)).to(self.device)
-              for (name, _), v in zip(self.extras_spec, extras)}
-        return (torch.as_tensor(images).to(self.device),
-                torch.as_tensor(lidar2img, dtype=torch.float32).to(self.device),
-                kw)
+        """The request's inputs on the device: (images, lidar2img, the
+        extras by name, (staged, host cast): the route its images took,
+        for `_count`)."""
+        with tracing.span("engine.h2d"):
+            images = host_tensor(images)
+            dtype = host_cast(images.dtype, self.cfg.bf16,
+                              self.cfg.device_normalize)
+            on_host = images.device.type == "cpu"
+            route = (on_host and self._staging.pinned,
+                     on_host and dtype != images.dtype)
+            kw = {name: self._staging(v, torch.float32)
+                  for (name, _), v in zip(self.extras_spec, extras)}
+            return (self._staging(images, dtype),
+                    self._staging(lidar2img, torch.float32), kw, route)
+
+    def _count(self, route):
+        """One more request answered (under the lock)."""
+        staged, cast = route
+        self.served += 1
+        self.h2d_staged += staged
+        self.h2d_host_cast += cast
 
     def _halves(self, images):
         """extract_feats of the current and the previous frame's cameras
@@ -237,7 +264,8 @@ class Engine:
 
     def counters(self) -> dict:
         """Every counter of the serving path in one flat dict: the
-        Engine's, the live streams, the kernel builds (ops/build.py) and
+        Engine's (requests, their copies' routes, the stream cache), the
+        live streams, the kernel builds (ops/build.py) and
         the kernels' launch counters (which stay in their modules), the
         head's CUDA graphs: the calls that captured them and the calls
         that replayed them (0 for a head that runs eagerly), and MP's
@@ -250,6 +278,7 @@ class Engine:
             "stream_misses": self.stream_misses,
             "stream_evictions": self.stream_evictions,
             "streams": len(self._streams),
+            "h2d_staged": self.h2d_staged, "h2d_host_cast": self.h2d_host_cast,
             "builds": build.builds, "build_s": build.build_s,
             "head_graph_captures": graphs.captures if graphs else 0,
             "head_graph_replays": graphs.replays if graphs else 0,
@@ -261,7 +290,8 @@ class Engine:
     @torch.inference_mode()
     def infer(self, images, lidar2img, extras=()) -> dict:
         with tracing.span("engine.request"):
-            images, lidar2img, kw = self._inputs(images, lidar2img, extras)
+            images, lidar2img, kw, route = self._inputs(images, lidar2img,
+                                                        extras)
             with self._device_calls():
                 if self.streaming:
                     out = self.model.forward_feats(self._halves(images),
@@ -269,7 +299,7 @@ class Engine:
                 else:
                     out = self.model(images, lidar2img, **kw)
                 answer = self._answer(out)
-                self.served += 1
+                self._count(route)
             return self._to_host(answer)
 
     @torch.inference_mode()
@@ -287,7 +317,8 @@ class Engine:
                              f"{h.num_cams} = 2 x num_frame_cams "
                              f"{h.num_frame_cams})")
         with tracing.span("engine.request"):
-            images, lidar2img, kw = self._inputs(images, lidar2img, extras)
+            images, lidar2img, kw, route = self._inputs(images, lidar2img,
+                                                        extras)
             with self._device_calls():
                 cur = self.model.extract_feats(images)
                 prev = self._streams.get(stream)
@@ -305,7 +336,7 @@ class Engine:
                     self._streams.popitem(last=False)
                     self.stream_evictions += 1
                 answer = self._answer(out)
-                self.served += 1
+                self._count(route)
             return self._to_host(answer)
 
     def reset_stream(self, stream="default") -> bool:

@@ -30,6 +30,10 @@ The spans and what reads them (benchmark/harness/spans.py):
   engine.request          serve.Engine.infer / infer_stream, one a
                           request; device idle inside it and outside
                           both model spans: engine_idle_ms
+  engine.h2d              serve.Engine._inputs, first inside
+                          engine.request: the request's staged
+                          host-to-device copy (host only); its idle
+                          gaps are engine_idle_ms's
   model.backbone          GraphDETR4D.extract_feats (device);
                           backbone_span_ms, backbone_idle_ms
   model.head              GraphDETR4D.forward_feats (device);

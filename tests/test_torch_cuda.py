@@ -26,6 +26,8 @@ from graph_detr4d_tpu_torch.ops import msda as msda_ops  # noqa: E402
 from graph_detr4d_tpu_torch.ops import voxelize as vox_ops  # noqa: E402
 from graph_detr4d_tpu_torch.core import iou3d  # noqa: E402
 from lsa_iou_cases import RESIDENT_ROWS, iou_pairs, lsa_cases  # noqa: E402
+from test_torch_staging import (assert_same_answer, request,  # noqa: E402
+                                tiny_engine)
 
 LSA_CASES = lsa_cases()
 IOU_PAIRS = iou_pairs(iou3d.PRETEST_MARGIN)
@@ -1418,3 +1420,193 @@ def test_head_graphs_leave_other_forwards_eager(cuda, monkeypatch):
     torch.cuda.synchronize()
     for h in (head, mp, shard):
         assert (h.graphs.captures, h.graphs.replays) == (0, 0)
+
+
+# ---- serve.Engine's staged input copy (parallel/transfer.py::StagedCopy)
+
+
+def _pageable_inputs(engine):
+    """The Engine's route before the staged copy: one blocking pageable
+    copy of each input, the images in their own dtype."""
+    def inputs(images, lidar2img, extras):
+        kw = {name: torch.as_tensor(np.asarray(v, np.float32)).to(engine.device)
+              for (name, _), v in zip(engine.extras_spec, extras)}
+        return (torch.as_tensor(images).to(engine.device),
+                torch.as_tensor(lidar2img, dtype=torch.float32).to(engine.device),
+                kw, (False, False))
+    return inputs
+
+
+def _seen_images(engine, monkeypatch):
+    """The images extract_feats receives, call by call."""
+    seen, feats = [], engine.model.extract_feats
+
+    def extract_feats(images, *args, **kwargs):
+        seen.append(images.clone())
+        return feats(images, *args, **kwargs)
+
+    monkeypatch.setattr(engine.model, "extract_feats", extract_feats)
+    return seen
+
+
+def _both_routes(engine, monkeypatch, send):
+    """send(engine) through the staged route, then through the pageable
+    one: (answers, images extract_feats received) of each."""
+    seen = _seen_images(engine, monkeypatch)
+    staged = send("staged")
+    staged_in, seen[:] = list(seen), []
+    monkeypatch.setattr(engine, "_inputs", _pageable_inputs(engine))
+    pageable = send("pageable")
+    return (staged, staged_in), (pageable, list(seen))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", ["infer", "infer_stream"])
+def test_staged_copy_equals_the_pageable_route(cuda, monkeypatch, entry):
+    """A bf16 Engine: the images the backbone receives are the pageable
+    fp32 route's cast to bf16, bit for bit, and every answer (boxes,
+    scores, labels, valid, cam_overflow) is the same, over a stream's
+    first request and its hits; each request staged and host-cast."""
+    engine = tiny_engine(cuda, bf16=True)
+    h = engine.cfg.head
+    cams = h.num_cams if entry == "infer" else h.num_frame_cams
+    reqs = [request(engine, seed, cams) for seed in range(3)]
+
+    def send(stream):
+        if entry == "infer":
+            return [engine.infer(x, l2i) for x, l2i in reqs]
+        return [engine.infer_stream(x, l2i, stream=stream) for x, l2i in reqs]
+
+    (staged, staged_in), (pageable, pageable_in) = _both_routes(
+        engine, monkeypatch, send)
+    assert len(staged_in) == len(pageable_in) == len(reqs)
+    for s, p in zip(staged_in, pageable_in):
+        assert s.dtype == torch.bfloat16 and p.dtype == torch.float32
+        assert torch.equal(s.view(torch.int16),
+                           p.to(torch.bfloat16).view(torch.int16))
+    for a, b in zip(staged, pageable):
+        assert_same_answer(a, b)
+    counts = engine.counters()
+    assert counts["served"] == 2 * len(reqs)
+    assert counts["h2d_staged"] == counts["h2d_host_cast"] == len(reqs)
+
+
+@pytest.mark.cuda
+def test_staged_copy_takes_strided_numpy(cuda):
+    """Strided and negatively strided arrays of a frame's values answer
+    as the contiguous frame does."""
+    engine = tiny_engine(cuda, bf16=True)
+    x, l2i = request(engine, 0, engine.cfg.head.num_cams)
+    want = engine.infer(x, l2i)
+    strided = np.moveaxis(np.ascontiguousarray(np.moveaxis(x, 1, -1)), -1, 1)
+    flipped = np.flip(np.ascontiguousarray(np.flip(x, 2)), 2)
+    l2i_strided = np.ascontiguousarray(np.swapaxes(l2i, -1, -2)).swapaxes(-1, -2)
+    for images in (strided, flipped):
+        assert not images.flags.c_contiguous
+        assert_same_answer(engine.infer(images, l2i_strided), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("changes,dtype", [
+    ({"bf16": False}, np.float32),
+    ({"bf16": True, "device_normalize": True}, np.uint8),
+], ids=["fp32_config", "uint8_device_normalize"])
+def test_staged_copy_keeps_other_dtypes(cuda, monkeypatch, changes, dtype):
+    """A float32 config's images and device_normalize's uint8 pixels
+    reach the backbone in their own dtype, staged and not cast, and
+    answer as the pageable route does."""
+    engine = tiny_engine(cuda, **changes)
+    reqs = [request(engine, seed, engine.cfg.head.num_frame_cams,
+                            dtype) for seed in range(2)]
+
+    def send(stream):
+        return [engine.infer_stream(x, l2i, stream=stream) for x, l2i in reqs]
+
+    (staged, staged_in), (pageable, pageable_in) = _both_routes(
+        engine, monkeypatch, send)
+    for s, p in zip(staged_in, pageable_in):
+        assert s.dtype == p.dtype == torch.from_numpy(reqs[0][0]).dtype
+        assert torch.equal(s, p)
+    for a, b in zip(staged, pageable):
+        assert_same_answer(a, b)
+    counts = engine.counters()
+    assert (counts["h2d_staged"], counts["h2d_host_cast"]) == (len(reqs), 0)
+
+
+@pytest.mark.cuda
+def test_staged_copy_threads_get_their_own_answers(cuda):
+    """Four threads send four different rig frames at once, 25 times
+    each, with a short switch interval: every answer is the one its frame
+    gets alone, so no request's pinned buffer was written by another."""
+    import sys
+    import threading
+
+    engine = tiny_engine(cuda, bf16=True)
+    reqs = [request(engine, seed, engine.cfg.head.num_cams)
+            for seed in range(4)]
+    want = [engine.infer(x, l2i) for x, l2i in reqs]
+    wrong, done = [], []
+
+    def client(i):
+        for _ in range(25):
+            got = engine.infer(*reqs[i])
+            if any(not np.array_equal(got[k], want[i][k]) for k in got):
+                wrong.append(i)
+        done.append(i)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(len(reqs))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(interval)
+    assert sorted(done) == list(range(len(reqs))) and wrong == []
+    counts = engine.counters()
+    assert counts["served"] == counts["h2d_staged"] == 4 + 4 * 25
+
+
+# the heads of the benchmark's cells on the tiny config: the flagship's,
+# PETRv2's (with its mean_time_stamp extra) and MP's
+ENGINE_HEADS = {
+    "flagship": {},
+    "petrv2": {"head_type": "petrv2"},
+    "mp": {"attn_type": "deform3d_mp"},
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("head", sorted(ENGINE_HEADS))
+def test_staged_request_makes_no_pageable_copy(cuda, head):
+    """Under the profiler an infer and an infer_stream copy host to
+    device only from pinned memory: the inputs, the extras and whatever
+    the model and the decode make."""
+    import dataclasses
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from graph_detr4d_tpu_torch.config import tiny_test_config
+    from graph_detr4d_tpu_torch.serve import synth_extra
+
+    changes = dict(ENGINE_HEADS[head])
+    if "attn_type" in changes:
+        changes = {"head": dataclasses.replace(tiny_test_config().head,
+                                               **changes)}
+    engine = tiny_engine(cuda, bf16=True, **changes)
+    h = engine.cfg.head
+    rig, l2i = request(engine, 0, h.num_cams)
+    frame, _ = request(engine, 1, h.num_frame_cams)
+    extras = [synth_extra(n, s) for n, s in engine.extras_spec]
+    assert bool(extras) == (head == "petrv2")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        engine.infer(rig, l2i, extras)
+        engine.infer_stream(frame, l2i, extras)
+        torch.cuda.synchronize()
+    copies = [e.name for e in prof.events() if "HtoD" in e.name]
+    assert copies and not [n for n in copies if "Pageable" in n], copies

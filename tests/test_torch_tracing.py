@@ -4,8 +4,8 @@ cameras = 3 of the current frame + 3 of the previous, 64x128):
 
   * off, a span is the shared no-op object, nothing is recorded, and a
     request makes no record_function call and no CUDA event;
-  * on, an Engine call is one `engine.request` record with its model
-    spans inside it;
+  * on, an Engine call is one `engine.request` record with its copy's
+    span (`engine.h2d`) and its model spans inside it;
   * under a CPU torch.profiler each span is a `gd4d::` host range whose
     start, on the Unix clock, is within 1 ms of the record's;
   * the warm-up's spans are recorded with tracing off;
@@ -23,7 +23,8 @@ from graph_detr4d_tpu_torch.config import tiny_test_config
 from graph_detr4d_tpu_torch.models.detector import GraphDETR4D
 from graph_detr4d_tpu_torch.serve import Engine
 
-REQUEST_SPANS = ["model.backbone", "model.head", "engine.request"]
+REQUEST_SPANS = ["engine.h2d", "model.backbone", "model.head",
+                 "engine.request"]
 
 
 @pytest.fixture(scope="module")
@@ -77,13 +78,15 @@ def test_on_records_one_request_span_around_its_model_spans(engine, traced):
         engine.infer_stream(frame, l2i, stream="on")
     engine.infer(np.concatenate([frame, frame], axis=1), l2i)
     records = tracing.drain()
-    # in the order they ended: each call's model spans, then its request
+    # in the order they ended: each call's copy and model spans, then
+    # its request
     assert [r.name for r in records] == 3 * REQUEST_SPANS
-    for i in range(0, len(records), 3):
-        backbone, head, root = records[i:i + 3]
-        assert (root.start_ns <= backbone.start_ns <= backbone.end_ns
+    for i in range(0, len(records), 4):
+        h2d, backbone, head, root = records[i:i + 4]
+        assert (root.start_ns <= h2d.start_ns <= h2d.end_ns
+                <= backbone.start_ns <= backbone.end_ns
                 <= head.start_ns <= head.end_ns <= root.end_ns)
-    for a, b in zip(records[2::3], records[5::3]):  # requests do not overlap
+    for a, b in zip(records[3::4], records[7::4]):  # requests do not overlap
         assert a.end_ns <= b.start_ns
     # no CUDA here: a device span has no events
     assert all(r.events is None and r.device_ms() is None for r in records)
