@@ -279,10 +279,10 @@ IoU, and prints one JSON line per phase:
               on 6 x 640x1600 with the folded weights within 1e-4 of each
               FPN level's magnitude, and 3 bf16 requests timed with either
               weights; (b) tools.publish_model twice: one name, the file
-              loads strict and equals its source; (c) the helpers no model
-              path reaches (nms_free_cls_decode, project_points_to_cameras
-              and the inline project_to_cams, points_img2cam,
-              LearnedPositionalEncoding3D) on CUDA against the CPU; (d)
+              loads strict and equals its source; (c) the library helpers
+              (nms_free_cls_decode, project_points_to_cameras,
+              points_img2cam, LearnedPositionalEncoding3D) on CUDA
+              against the CPU; (d)
               tools.profile_breakdown's rows bench, no dcn, 12-cam,
               batch-4 (and batch-4 cap off), cam_overflow 0; (e)
               tools.profile_ops at B = 1 and 2: the summed device time no
@@ -5065,12 +5065,11 @@ def fold_feature_errors(cfg32, sd, fused, images):
 
 
 def helpers_on_cuda():
-    """The helpers no model path reaches, on CUDA tensors against the same
-    call on the CPU, at the CPU tests' tolerances
-    (tests/test_torch_helpers.py). Returns the max errors."""
+    """The library helpers, on CUDA tensors against the same call on the
+    CPU, at the CPU tests' tolerances (tests/test_torch_helpers.py).
+    Returns the max errors."""
     from graph_detr4d_tpu_torch.core.coder import nms_free_cls_decode
     from graph_detr4d_tpu_torch.geometry import projection
-    from graph_detr4d_tpu_torch.models.attention_variants import project_to_cams
     from graph_detr4d_tpu_torch.models.positional import (
         LearnedPositionalEncoding3D)
 
@@ -5094,13 +5093,11 @@ def helpers_on_cuda():
     loc_c, mask_c = projection.project_points_to_cameras(pts, l2i, cfg.img_size)
     loc, mask = projection.project_points_to_cameras(pts.cuda(), l2i.cuda(),
                                                      cfg.img_size)
-    inline = project_to_cams(pts.cuda(), l2i.cuda(), cfg.img_size)
     away = ((loc_c.abs() > 1e-3) & ((loc_c - 1).abs() > 1e-3)).all(-1)
     valid = mask_c > 0
     rec["project_loc"] = float((loc.cpu() - loc_c)[valid].abs().max())
     if not (torch.equal(mask.cpu()[away], mask_c[away])
-            and rec["project_loc"] <= 1e-5
-            and torch.equal(inline[0], loc) and torch.equal(inline[1], mask)):
+            and rec["project_loc"] <= 1e-5):
         failed.append(f"project_points_to_cameras {rec['project_loc']}")
     K = torch.eye(4)
     K[0, 0], K[1, 1], K[0, 2], K[1, 2] = 1260.0, 1250.0, 800.0, 450.0

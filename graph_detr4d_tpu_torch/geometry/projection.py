@@ -1,9 +1,8 @@
 """Camera-matrix math (counterpart of graph_detr4d_tpu/geometry/projection.py).
 
-`project_points_to_cameras` and `points_img2cam` are the geometry API;
-no model path calls them: the cross-attentions project with their own
-inline copy (models/attention_variants.py::project_to_cams, held equal to
-`project_points_to_cameras` by tests/test_torch_helpers.py).
+`project_points_to_cameras` is the one camera projection of the camera
+decoder's cross-attentions (models/attention.py, attention_variants.py);
+`points_img2cam` is the geometry API's.
 """
 
 import torch

@@ -41,14 +41,13 @@ from typing import Sequence, Tuple
 
 import numpy as np
 import torch
-import torch.nn as nn
 import torch.nn.functional as F
 
-from ..geometry.projection import denormalize_points
-from ..ops import msda as msda_ops
+from ..geometry.projection import (denormalize_points,
+                                   project_points_to_cameras)
 from ..parallel.mesh import all_reduce_sum
-from ..utils.device import device_constant
 from ..utils.math import inverse_sigmoid
+from .k1_graph import K1Module
 from .layers import Linear, dropout, ln_mlp
 
 
@@ -72,7 +71,36 @@ def offset_bias_init(num_heads: int, num_points: int) -> np.ndarray:
     return grid.reshape(-1)
 
 
-class Deform3DCrossAttn(nn.Module):
+def offset_points(reference_points, offsets, pc_range, num_levels):
+    """Each query's graph of offset points, metric, fp32 (B, Q, heads, L,
+    P, 3), the same at every level: reference_points (B, Q, 3) in [0, 1]
+    denormalised into pc_range plus offsets (B, Q, heads, 1, P, 3)."""
+    B, Q, nh, _, P, _ = offsets.shape
+    ref = denormalize_points(reference_points.float(), pc_range)
+    return ref[:, :, None, None, None, :] + offsets.float().expand(
+        B, Q, nh, num_levels, P, 3)
+
+
+def camera_samples(pts, logits, lidar2img, img_shape):
+    """K1's sampling locations and weights for the metric points pts (B,
+    rows, heads, L, P, 3) with attention logits (B, rows, heads, L * P):
+    every point projected into each of the n cameras of lidar2img (B, n,
+    4, 4) (geometry/projection.py), the logits' softmax over L * P, the
+    same for every camera, times the point's validity there. Returns (loc
+    (B * n, rows, heads, L, P, 2), attn (B * n, rows, heads, L, P), both
+    dense as K1 reads them, valid (B, n, rows, heads, L, P) float)."""
+    B, rows, nh, L, P, _ = pts.shape
+    n = lidar2img.shape[1]
+    loc, valid = project_points_to_cameras(pts.reshape(B, -1, 3),
+                                           lidar2img.float(), img_shape)
+    valid = valid.view(B, n, rows, nh, L, P)
+    attn = torch.softmax(logits.float(), dim=-1).view(B, 1, rows, nh, L, P)
+    attn = attn * valid
+    return (loc.reshape(B * n, rows, nh, L, P, 2).contiguous(),
+            attn.reshape(B * n, rows, nh, L, P).contiguous(), valid)
+
+
+class Deform3DCrossAttn(K1Module):
     def __init__(
         self,
         embed_dims: int = 256,
@@ -103,7 +131,7 @@ class Deform3DCrossAttn(nn.Module):
         self.output_proj = Linear(C, C)
         self.position_encoder = ln_mlp(4 if depth_encode else 3, C)
 
-    def forward(
+    def steps(
         self,
         query: torch.Tensor,  # (B, Q, C)
         value: torch.Tensor,  # (B, N, S, C): levels flattened, S = sum H*W
@@ -114,24 +142,17 @@ class Deform3DCrossAttn(nn.Module):
         img_shape: Tuple[int, int],  # network input (H_img, W_img)
         generator=None,  # dropout's random source; None = eval
     ):
-        """Returns (query update (B, Q, C), cam_overflow scalar tensor):
-        the overflow counts in-view queries the compaction dropped (0 means
-        the compaction was exact). `prepare`, K1, then `finish`."""
-        k1_args, state = self.prepare(query, value, spatial_shapes,
-                                      query_pos, reference_points, lidar2img,
-                                      img_shape)
-        return self.finish(msda_ops.msda_forward(*k1_args), state, generator)
-
-    def prepare(self, query, value, spatial_shapes, query_pos,
-                reference_points, lidar2img, img_shape):
-        """The attention up to K1 (forward's arguments but the generator):
-        the gate logits, the offsets and their projection into every
-        camera, the validity mask, the softmax, value_proj and the
-        compaction's query list. Returns (K1's arguments (value,
-        spatial_shapes, loc, attn, index or None), the state `finish`
-        reads)."""
+        """forward as a generator of its one K1 call (models/k1_graph.py).
+        Before it: the gate logits, the offsets and their projection into
+        every camera, the validity mask, the softmax, value_proj and the
+        compaction's query list; after it: K1's output scattered back to
+        every query, the camera gate's sum, output_proj, dropout, the
+        residual and the positional MLP. Returns (query update (B, Q, C),
+        cam_overflow scalar tensor): the overflow counts in-view queries
+        the compaction dropped (0 means the compaction was exact)."""
         B, Q, C = query.shape
-        nh, L, P = self.num_heads, self.num_levels, self.num_points
+        nh, L, P, N = (self.num_heads, self.num_levels, self.num_points,
+                       self.num_cams)
         n = lidar2img.shape[1]  # the cameras this rank holds
         q = query + query_pos
         gate_logits = self.cam_attention_weights(q)  # (B, Q, N)
@@ -141,36 +162,14 @@ class Deform3DCrossAttn(nn.Module):
                                lin.bias.detach().to(q.dtype))
         else:
             offsets = lin(q)
-        offsets = offsets.view(B, Q, nh, 1, P, 3)
-
-        ref_metric = denormalize_points(reference_points.float(),
-                                        self.pc_range)
-        pts = ref_metric[:, :, None, None, None, :] + offsets.float().expand(
-            B, Q, nh, L, P, 3
-        )
-        # project every node into every camera (deform3d_cross_attn.py:232-252)
-        img_h, img_w = img_shape
-        hom = torch.cat([pts, torch.ones_like(pts[..., :1])], dim=-1)
-        cam = torch.einsum("bnij,bqhlpj->bnqhlpi", lidar2img.float(), hom)
-        eps = 1e-5
-        z = cam[..., 2:3]
-        xy = cam[..., 0:2] / z.clamp(min=eps)
-        loc = xy / device_constant((img_w, img_h), xy.dtype, xy.device)
-        valid = (
-            (z > eps)
-            & (loc[..., 0:1] > 0.0) & (loc[..., 0:1] < 1.0)
-            & (loc[..., 1:2] > 0.0) & (loc[..., 1:2] < 1.0)
-        )[..., 0].float()  # (B, N, Q, heads, L, P)
-
-        # the same logits for every camera, softmax over L*P, times the mask
-        attn = self.attention_weights(q).view(B, Q, nh, L * P)
-        attn = torch.softmax(attn.float(), dim=-1).view(B, 1, Q, nh, L, P)
-        attn = attn * valid
-
+        # every node projected into every camera
+        # (deform3d_cross_attn.py:232-252), weighted by the same logits
+        loc, attn, valid = camera_samples(
+            offset_points(reference_points, offsets.view(B, Q, nh, 1, P, 3),
+                          self.pc_range, L),
+            self.attention_weights(q).view(B, Q, nh, L * P), lidar2img,
+            img_shape)
         value = self.value_proj(value).reshape(B * n, -1, nh, C // nh)
-        # einsum leaves the camera axis permuted in memory; K1 reads dense
-        loc = loc.reshape(B * n, Q, nh, L, P, 2).contiguous()
-        attn = attn.reshape(B * n, Q, nh, L, P).contiguous()
 
         K = min(Q, int(math.ceil(Q * self.cam_capacity)))
         if K < Q:
@@ -184,18 +183,8 @@ class Deform3DCrossAttn(nn.Module):
         else:
             sel = None
             overflow = torch.zeros((), device=query.device)
-        return ((value, spatial_shapes, loc, attn, sel),
-                (query, gate_logits, sel, overflow, reference_points))
 
-    def finish(self, sampled, state, generator=None):
-        """The attention after K1: `sampled`, K1's output for `prepare`'s
-        arguments, scattered back to every query, the camera gate's sum,
-        output_proj, dropout, the residual and the positional MLP. Returns
-        forward's (query update, cam_overflow)."""
-        query, gate_logits, sel, overflow, reference_points = state
-        B, Q, C = query.shape
-        N = self.num_cams
-        n = sampled.shape[0] // B  # the cameras this rank holds
+        sampled = yield value, spatial_shapes, loc, attn, sel
         if sel is not None:
             sampled_sel = sampled
             sampled = torch.zeros(B * n, Q, C, dtype=sampled_sel.dtype,

@@ -37,8 +37,10 @@ Options of the head family:
     `all_bbox_preds_guided` with its own `cam_overflow_guided`.
 
 The forward is written once, as `steps`, a generator that yields each
-decoder layer's K1 call (models/k1_graph.py). An eval forward on the card
-without autograd, a generator, a camera shard or MixDistill's pass, with
+decoder layer's K1 calls (models/k1_graph.py): every cross-attention is
+a `steps` generator itself, and K1 is launched only by what drives it.
+An eval forward on the card without autograd, a generator, a camera
+shard or MixDistill's pass, with
 every layer's cross-attention deform3d (the flagship's, with any of the
 options above), replays it as CUDA graphs between its K1 calls, K1 still
 launched eagerly: the first call of an input signature (B, N, the level

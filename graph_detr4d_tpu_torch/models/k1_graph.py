@@ -1,10 +1,13 @@
 """Running a forward written as a generator of K1 calls.
 
-A `steps` generator (DecoderLayer.steps, Detr3DHeadPE.steps) yields the
-arguments of each K1 call it needs (ops/msda.py::msda_forward) and is
-sent the call's output back; what it returns is the forward's result.
-The kernel is launched by whoever drives the generator, which chooses how
-the code between two K1 calls runs:
+A `steps` generator (every cross-attention of the camera decoder,
+DecoderLayer.steps, Detr3DHeadPE.steps) yields the arguments of each K1
+call it needs (ops/msda.py::msda_forward), the 5-tuple (value,
+spatial_shapes, loc, attn, index or None), and is sent the call's output
+back; what it returns is the forward's result. A generator that calls
+another's `yield from` it, so the camera decoder launches K1 nowhere
+else. The kernel is launched by whoever drives the generator, which
+chooses how the code between two K1 calls runs:
 
   * `run_k1`: eagerly, launching msda_ops.msda_forward at each yield;
   * `K1Graphs`: as CUDA graphs, one for each stretch of the generator
@@ -17,6 +20,7 @@ and whatever wraps the attribute see every call.
 """
 
 import torch
+import torch.nn as nn
 
 from ..ops import msda as msda_ops
 
@@ -30,6 +34,14 @@ def run_k1(steps):
             args = steps.send(msda_ops.msda_forward(*args))
     except StopIteration as done:
         return done.value
+
+
+class K1Module(nn.Module):
+    """A module written as a `steps` generator: forward takes steps'
+    arguments and runs it eagerly (`run_k1`)."""
+
+    def forward(self, *args, **kwargs):
+        return run_k1(self.steps(*args, **kwargs))
 
 
 def _signature(inputs):

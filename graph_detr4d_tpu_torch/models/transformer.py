@@ -22,13 +22,10 @@ from .attention import Deform3DCrossAttn
 from .attention_variants import (Deform3DCrossAttnMP, Detr3DCrossAtten,
                                  Detr3DCrossAttenV2)
 from ..parallel.mesh import all_reduce_max, all_reduce_sum
-from .k1_graph import run_k1
+from .k1_graph import K1Module
 from .layers import LayerNorm, Linear, dropout
 
 ATTN_TYPES = ("deform3d", "deform3d_mp", "detr3d", "detr3d_v2")
-
-# MP query graphs built, one a sample a decoder layer (serve.Engine.counters)
-mp_graph_builds = 0
 
 
 def graph_neighbours(ref: torch.Tensor, k: int) -> torch.Tensor:
@@ -149,7 +146,13 @@ class FFN(nn.Module):
         return x + dropout(self.layers[1](y), self.dropout, generator)
 
 
-class DecoderLayer(nn.Module):
+class DecoderLayer(K1Module):
+    """forward: steps' arguments; returns (query, cam_overflow) (see
+    Deform3DCrossAttn; the other cross-attentions compact nothing and
+    report 0). With the MP cross-attention `mp_graph_builds` counts the
+    query graphs the layer built (one a sample a forward) since it was
+    built (serve.Engine.counters)."""
+
     def __init__(
         self,
         embed_dims: int,
@@ -170,6 +173,7 @@ class DecoderLayer(nn.Module):
         if attn_type not in ATTN_TYPES:
             raise ValueError(f"unknown attn_type {attn_type!r}")
         self.attn_type, self.num_neighbors = attn_type, num_neighbors
+        self.mp_graph_builds = 0
         common = dict(embed_dims=embed_dims, num_levels=num_levels,
                       num_cams=num_cams, pc_range=pc_range, dropout=dropout)
         if attn_type == "deform3d":
@@ -191,12 +195,6 @@ class DecoderLayer(nn.Module):
         self.ffns = nn.ModuleList([FFN(embed_dims, ffn_dims, dropout)])
         self.norms = nn.ModuleList([LayerNorm(embed_dims) for _ in range(3)])
 
-    def forward(self, *args, **kwargs):
-        """steps' arguments; returns (query, cam_overflow) (see
-        Deform3DCrossAttn; the other cross-attentions compact nothing and
-        report 0)."""
-        return run_k1(self.steps(*args, **kwargs))
-
     def steps(
         self,
         query: torch.Tensor,
@@ -209,31 +207,21 @@ class DecoderLayer(nn.Module):
         generator=None,
         self_attn_mask=None,
     ):
-        """The layer as a generator (models/k1_graph.py): with the deform3d
-        cross-attention it yields K1's arguments once, between the
-        attention's `prepare` and `finish`, and takes K1's output back; the
-        other cross-attentions launch their own kernels and it yields
-        nothing. Returns (query, cam_overflow). Dropout draws from
-        `generator`; None (eval) turns it off. self_attn_mask: (Q, Q)
+        """The layer as a generator (models/k1_graph.py): it yields its
+        cross-attention's K1 calls (`steps`: one, two for MP) and takes
+        their outputs back. Returns (query, cam_overflow). Dropout draws
+        from `generator`; None (eval) turns it off. self_attn_mask: (Q, Q)
         bool, True = attend (H-DETR's group mask), or None."""
         query = self.norms[0](self.attentions[0](query, query_pos, generator,
                                                  self_attn_mask))
-        cross = self.attentions[1]
-        if self.attn_type == "deform3d":
-            k1_args, state = cross.prepare(query, value, spatial_shapes,
-                                           query_pos, reference_points,
-                                           lidar2img, img_shape)
-            query, overflow = cross.finish((yield k1_args), state, generator)
-        else:
-            if self.attn_type == "deform3d_mp":
-                global mp_graph_builds
-                with tracing.span("model.head.graph", device=True):
-                    reference_points = graph_reference_points(
-                        reference_points, self.num_neighbors)
-                mp_graph_builds += reference_points.shape[0]
-            query, overflow = cross(query, value, spatial_shapes, query_pos,
-                                    reference_points, lidar2img, img_shape,
-                                    generator)
+        if self.attn_type == "deform3d_mp":
+            with tracing.span("model.head.graph", device=True):
+                reference_points = graph_reference_points(
+                    reference_points, self.num_neighbors)
+            self.mp_graph_builds += reference_points.shape[0]
+        query, overflow = yield from self.attentions[1].steps(
+            query, value, spatial_shapes, query_pos, reference_points,
+            lidar2img, img_shape, generator)
         query = self.norms[1](query)
         query = self.norms[2](self.ffns[0](query, generator))
         return query, overflow

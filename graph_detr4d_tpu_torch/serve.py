@@ -31,7 +31,6 @@ from . import tracing
 from .config import CoderConfig
 from .configs import get_config
 from .core.coder import decode_batch
-from .models import attention_variants, transformer
 from .models.detector import GraphDETR4D
 from .models.dgcnn import ObjDGCNN
 from .ops import build, launch_counters
@@ -151,8 +150,8 @@ class Engine:
     samples the K graph neighbours of each query in a K1 call of its own:
     `mp_graph_builds` counts the graphs (one a sample a layer) and
     `mp_neighbour_rows` the rows of those calls (B x K x Q a layer), the
-    warm-ups' included. Both count since the process started, so they
-    stay 0 in a process that runs no MP head.
+    warm-ups' included. Both count since the model was built, so they
+    stay 0 for a head that is not MP.
     """
 
     def __init__(self, config, state_dict, device="cuda", max_streams=16,
@@ -269,10 +268,11 @@ class Engine:
         the kernels' launch counters (which stay in their modules), the
         head's CUDA graphs: the calls that captured them and the calls
         that replayed them (0 for a head that runs eagerly), and MP's
-        query graphs built and neighbour rows sampled (module ints of
-        models/transformer.py and models/attention_variants.py, counted
-        since the process started)."""
-        graphs = getattr(self.model.pts_bbox_head, "graphs", None)
+        query graphs built and neighbour rows sampled (the sums of the
+        head's decoder layers' and cross-attentions' counts, since the
+        model was built)."""
+        head = self.model.pts_bbox_head
+        graphs = getattr(head, "graphs", None)
         return {
             "served": self.served, "stream_hits": self.stream_hits,
             "stream_misses": self.stream_misses,
@@ -282,8 +282,10 @@ class Engine:
             "builds": build.builds, "build_s": build.build_s,
             "head_graph_captures": graphs.captures if graphs else 0,
             "head_graph_replays": graphs.replays if graphs else 0,
-            "mp_graph_builds": transformer.mp_graph_builds,
-            "mp_neighbour_rows": attention_variants.mp_neighbour_rows,
+            "mp_graph_builds": sum(getattr(m, "mp_graph_builds", 0)
+                                   for m in head.modules()),
+            "mp_neighbour_rows": sum(getattr(m, "mp_neighbour_rows", 0)
+                                     for m in head.modules()),
             **launch_counters(),
         }
 

@@ -1,6 +1,8 @@
 """The flagship head's eval forward holds no host synchronisation, so a
 CUDA graph can capture it (models/k1_graph.py, models/head.py), and the
-device constants it reads can still be saved for autograd.
+device constants it reads can still be saved for autograd. Every decoder
+layer, whatever its cross-attention, launches K1 only at its `steps`
+generator's yields.
 
 CPU, K1's plain version; the capture itself and the replay are held to
 the eager head on the card by tests/test_torch_cuda.py."""
@@ -11,6 +13,8 @@ import torch
 from graph_detr4d_tpu_torch import config as c
 from graph_detr4d_tpu_torch.data.synthetic import synthetic_camera_rig
 from graph_detr4d_tpu_torch.models.head import Detr3DHeadPE
+from graph_detr4d_tpu_torch.models.transformer import DecoderLayer
+from graph_detr4d_tpu_torch.ops import msda as msda_ops
 from graph_detr4d_tpu_torch.weights import init_weights
 
 SYNCS = ("item", "cpu", "tolist", "numpy", "__bool__", "__float__",
@@ -73,8 +77,6 @@ def test_head_eval_forward_makes_no_host_sync(monkeypatch):
 def test_head_steps_yield_each_layers_k1_call(train):
     """head.steps yields K1's arguments once a decoder layer, and driving
     it by hand gives forward's outputs bit for bit."""
-    from graph_detr4d_tpu_torch.ops import msda as msda_ops
-
     head = tiny_head().train(train)
     feats, l2i = request(2)
 
@@ -96,3 +98,46 @@ def test_head_steps_yield_each_layers_k1_call(train):
     assert calls == head.cfg.num_decoder_layers
     for k in want:
         assert torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.parametrize("attn_type,k1_calls", [
+    ("deform3d", 1), ("deform3d_mp", 2), ("detr3d", 1), ("detr3d_v2", 1)])
+def test_decoder_layer_launches_k1_only_at_its_yields(attn_type, k1_calls,
+                                                      monkeypatch):
+    """DecoderLayer.steps yields each K1 call of its cross-attention as
+    the 5-tuple (value, spatial_shapes, loc, attn, index or None): one
+    call, two for MP (centre, then neighbours). Driven by hand with
+    msda_ops.msda_forward patched to raise, so that nothing but the loop
+    driving it launches K1, it gives the layer's forward (dropout on,
+    the same generator seed) bit for bit."""
+    B, Q, C, N, img = 2, 16, 32, 6, (64, 160)
+    shapes = [(8, 20), (4, 10)]
+    layer = DecoderLayer(embed_dims=C, num_heads=4, num_levels=2,
+                         num_points=4, num_cams=N, ffn_dims=64,
+                         pc_range=c.DEFAULT_PC_RANGE, attn_type=attn_type,
+                         num_neighbors=4)
+    init_weights(layer, seed=0)
+    g = torch.Generator().manual_seed(3)
+    l2i = torch.from_numpy(synthetic_camera_rig(N, img, seed=1))
+    args = (torch.randn(B, Q, C, generator=g),
+            torch.randn(B, Q, C, generator=g),
+            torch.randn(B, N, sum(h * w for h, w in shapes), C, generator=g),
+            shapes, 0.05 + 0.9 * torch.rand(B, Q, 3, generator=g),
+            l2i[None].expand(B, N, 4, 4), img)
+    with torch.no_grad():
+        want = layer(*args, torch.Generator().manual_seed(5))
+        k1 = msda_ops.msda_forward
+        monkeypatch.setattr(msda_ops, "msda_forward", _refuse("K1 launch"))
+        steps = layer.steps(*args, torch.Generator().manual_seed(5))
+        calls, sent = 0, None
+        while True:
+            try:
+                k1_args = steps.send(sent)
+            except StopIteration as done:
+                got = done.value
+                break
+            calls += 1
+            assert len(k1_args) == 5
+            sent = k1(*k1_args)
+    assert calls == k1_calls
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])

@@ -1,15 +1,14 @@
-"""The library helpers that no model path reaches, against the JAX
-package's on the CPU, inputs seeded by numpy:
+"""The library helpers, against the JAX package's on the CPU, inputs
+seeded by numpy:
 
   * core/coder.py::nms_free_cls_decode (NMSFreeClsCoder): the same
     indices and labels, scores within 1e-6, also with tied scores (the
     lower query first, as jax.lax.top_k) and on a batch;
   * geometry/projection.py: project_points_to_cameras (loc within 1e-5
     in the image and 1e-5 relative elsewhere in front of the camera, the
-    same mask, points kept 1e-3 away from the image edges), equal to the cross-attentions'
-    inline copy models/attention_variants.py::project_to_cams;
-    points_img2cam within 1e-4 for 3x3, 3x4 and 4x4 intrinsics; inv3x3
-    and normalize_points;
+    same mask, points kept 1e-3 away from the image edges), the
+    cross-attentions' one projection; points_img2cam within 1e-4 for
+    3x3, 3x4 and 4x4 intrinsics; inv3x3 and normalize_points;
   * models/positional.py::LearnedPositionalEncoding3D: exact, its tables
     carried across from the flax params by weights.learned_pe_state_dict.
 """
@@ -33,7 +32,6 @@ from graph_detr4d_tpu_torch.config import ModelConfig  # noqa: E402
 from graph_detr4d_tpu_torch.core import coder  # noqa: E402
 from graph_detr4d_tpu_torch.data.synthetic import synthetic_batch  # noqa: E402
 from graph_detr4d_tpu_torch.geometry import projection  # noqa: E402
-from graph_detr4d_tpu_torch.models.attention_variants import project_to_cams  # noqa: E402
 from graph_detr4d_tpu_torch.models.positional import LearnedPositionalEncoding3D  # noqa: E402
 
 PC_RANGE = (-51.2, -51.2, -5.0, 51.2, 51.2, 3.0)
@@ -114,16 +112,6 @@ def test_project_points_to_cameras_matches_jax():
                   np.concatenate([pts, np.ones_like(pts[..., :1])], -1))[..., 2]
     front = z > 0.5
     np.testing.assert_allclose(loc[front], loc_j[front], rtol=1e-5, atol=1e-5)
-
-
-def test_project_points_to_cameras_equals_the_inline_copy():
-    """models/attention_variants.py::project_to_cams is the hot path's copy
-    of the same math (the JAX docstring asks to keep the two in sync)."""
-    pts, l2i, img_hw = projection_inputs(1)
-    loc, mask = projection.project_points_to_cameras(
-        torch.as_tensor(pts), torch.as_tensor(l2i), img_hw)
-    loc2, mask2 = project_to_cams(torch.as_tensor(pts), torch.as_tensor(l2i), img_hw)
-    assert torch.equal(loc, loc2) and torch.equal(mask, mask2)
 
 
 @pytest.mark.parametrize("shape", [(3, 3), (3, 4), (4, 4)])

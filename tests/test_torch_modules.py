@@ -185,9 +185,10 @@ def test_deform3d_cross_attn_matches_jax(overflow, route):
     of camera 0 (all tied), so the result also holds the port's selection
     to jax.lax.top_k's tie order: lower query index first. torch.topk
     promises no order among ties; the port sorts stably. The split route
-    calls `prepare`, K1 (msda_forward's plain version here) and `finish`
-    itself, as the head's CUDA graphs do (models/k1_graph.py), and must
-    equal `forward` bit for bit."""
+    drives the module's `steps` generator itself, K1 (msda_forward's
+    plain version here) launched at its one yield, as the head's CUDA
+    graphs do (models/k1_graph.py), and must equal `forward` bit for
+    bit."""
     jcfg, _ = _head_cfg()
     d = _attn_inputs(jcfg, overflow)
     mod = jax_attention.Deform3DCrossAttn(
@@ -215,9 +216,11 @@ def test_deform3d_cross_attn_matches_jax(overflow, route):
     with torch.no_grad():
         got, got_overflow = port(*args)
         if route == "split":
-            k1_args, state = port.prepare(*args)
-            split, split_overflow = port.finish(
-                msda_ops.msda_forward(*k1_args), state)
+            steps = port.steps(*args)
+            k1_args = next(steps)
+            with pytest.raises(StopIteration) as done:
+                steps.send(msda_ops.msda_forward(*k1_args))
+            split, split_overflow = done.value.value
             assert torch.equal(split, got)
             assert torch.equal(split_overflow, got_overflow)
             got, got_overflow = split, split_overflow
