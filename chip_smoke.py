@@ -360,6 +360,7 @@ from graph_detr4d_tpu_torch.geometry.boxes import denormalize_bbox
 from graph_detr4d_tpu_torch.models import dgcnn as dgcnn_mod
 from graph_detr4d_tpu_torch.models import transformer as transformer_mod
 from graph_detr4d_tpu_torch.models.dgcnn import ObjDGCNN
+from graph_detr4d_tpu_torch.models.k1_graph import K1Graphs
 from graph_detr4d_tpu_torch.ops import msda as msda_ops
 from graph_detr4d_tpu_torch.ops import voxelize as vox_ops
 from graph_detr4d_tpu_torch.parallel.step import build_tta_eval_step
@@ -1918,25 +1919,30 @@ def graph_route(calls, replay=False):
 def reference_route(model, calls, replay=False):
     """Record the reference points each decoder layer of `model` is given
     into `calls`; or, with replay, give each layer the recorded ones in
-    turn (a forward pre-hook on its argument 4; a recorded None leaves that
-    layer its own), so that a route's own box refinement does not feed
-    back into where it samples."""
+    turn (on argument 4 of the layer's `steps`, the generator the head
+    drives; a recorded None leaves that layer its own), so that a route's
+    own box refinement does not feed back into where it samples."""
     recorded = iter(list(calls))
+    layers = model.pts_bbox_head.transformer.decoder.layers
 
-    def hook(module, args):
-        if not replay:
-            calls.append(args[4])
-            return None
-        ref = next(recorded)
-        return None if ref is None else args[:4] + (ref,) + args[5:]
+    def routed(inner):
+        def steps(*args, **kwargs):
+            if not replay:
+                calls.append(args[4])
+            else:
+                ref = next(recorded)
+                if ref is not None:
+                    args = args[:4] + (ref,) + args[5:]
+            return inner(*args, **kwargs)
+        return steps
 
-    handles = [layer.register_forward_pre_hook(hook)
-               for layer in model.pts_bbox_head.transformer.decoder.layers]
+    for layer in layers:
+        layer.steps = routed(layer.steps)
     try:
         yield
     finally:
-        for h in handles:
-            h.remove()
+        for layer in layers:
+            del layer.steps  # the class's method again
 
 
 def compare_routes(cfg, sd, graph=False, references=False, batch=None,
@@ -1963,8 +1969,13 @@ def compare_routes(cfg, sd, graph=False, references=False, batch=None,
     if references:
         routes.append(("plain_free", plain_kernels, None))
     outs, counts, graphs, refs, gaps = {}, {}, [], [], []
+    head = model.pts_bbox_head
     with torch.inference_mode():
         for route, ctx, replay in routes:
+            if hasattr(head, "graphs"):
+                # every route eager: a graph captured under one route would
+                # replay its kernels' routing and reference points in the next
+                head.graphs = K1Graphs()
             reset_launch_counts()
             gctx = (graph_route(graphs, replay) if graph and replay is not None
                     else contextlib.nullcontext([]))

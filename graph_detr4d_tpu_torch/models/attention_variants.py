@@ -48,7 +48,7 @@ from ..parallel.mesh import all_reduce_sum
 from ..utils.device import device_constant
 from ..utils.math import inverse_sigmoid
 from .attention import camera_samples, camera_slice, offset_points
-from .k1_graph import K1Module
+from .k1_graph import Eager, K1Module
 from .layers import Linear, dropout, ln_mlp
 
 PC_RANGE = (-51.2, -51.2, -5.0, 51.2, 51.2, 3.0)
@@ -130,8 +130,10 @@ class Deform3DCrossAttnMP(K1Module):
     the neighbours' queries; both gates the reference's (B, Q, N) memory
     read as (B, N, Q), not transposed. Neighbour rows are neighbour-major
     (j * Q + q), as the JAX module lays them out. Two K1 calls a forward,
-    the centre's, then the neighbours'; `mp_neighbour_rows` counts the
-    rows of the second (B x K x Q a forward) since the module was built
+    the centre's, then the neighbours', the second between the eager
+    stretches that open and close its span (`open_neighbours`,
+    `close_neighbours`); `mp_neighbour_rows` counts the rows of the
+    second (B x K x Q a forward) since the module was built
     (serve.Engine.counters)."""
 
     def __init__(self, embed_dims=256, num_heads=8, num_levels=4, num_points=4,
@@ -155,6 +157,7 @@ class Deform3DCrossAttnMP(K1Module):
         self.output_proj = Linear(C, C)
         self.position_encoder = ln_mlp(3, C)
         self.mp_neighbour_rows = 0
+        self._neighbours = None  # the open span of the neighbour branch
 
     def steps(self, query, value, spatial_shapes, query_pos,
               reference_points, lidar2img, img_shape, generator=None):
@@ -182,24 +185,23 @@ class Deform3DCrossAttnMP(K1Module):
 
         # neighbour row j * Q + q takes query q's logits and raw gate; the
         # gate's (B, K * Q, N) rows are read as (B, N, K * Q) as the centre's
-        with tracing.span("model.head.neighbours", device=True):
-            pts_n = denormalize_points(ref_n.float(), self.pc_range)[
-                :, :, None, None, None, :].expand(B, K * Q, nh, L, pn, 3)
-            logits_n = self.attention_weights_neighbor(q).repeat(1, K, 1)
-            loc, attn, _ = camera_samples(
-                pts_n, logits_n.view(B, K * Q, nh, L * pn), lidar2img,
-                img_shape)
-            nb = yield value, spatial_shapes, loc, attn, None
-            gate_n = gate.repeat(1, K, 1).reshape(B, N, K * Q, 1)[:, cams]
-            nb = nb.view(B, n, K * Q, C).float()
-            nb = (nb * gate_n).sum(dim=1)  # (B, K * Q, C)
-            if self.cam_shard is not None:
-                # both camera sums in one all-reduce, before the neighbour sum
-                both = all_reduce_sum(torch.cat([centre, nb], dim=1),
-                                      self.cam_shard.cam_group)
-                centre, nb = both[:, :Q], both[:, Q:]
-            nb = nb.reshape(B, K, Q, C).sum(dim=1)
-        self.mp_neighbour_rows += B * K * Q
+        yield Eager(self.open_neighbours)
+        pts_n = denormalize_points(ref_n.float(), self.pc_range)[
+            :, :, None, None, None, :].expand(B, K * Q, nh, L, pn, 3)
+        logits_n = self.attention_weights_neighbor(q).repeat(1, K, 1)
+        loc, attn, _ = camera_samples(
+            pts_n, logits_n.view(B, K * Q, nh, L * pn), lidar2img, img_shape)
+        nb = yield value, spatial_shapes, loc, attn, None
+        gate_n = gate.repeat(1, K, 1).reshape(B, N, K * Q, 1)[:, cams]
+        nb = nb.view(B, n, K * Q, C).float()
+        nb = (nb * gate_n).sum(dim=1)  # (B, K * Q, C)
+        if self.cam_shard is not None:
+            # both camera sums in one all-reduce, before the neighbour sum
+            both = all_reduce_sum(torch.cat([centre, nb], dim=1),
+                                  self.cam_shard.cam_group)
+            centre, nb = both[:, :Q], both[:, Q:]
+        nb = nb.reshape(B, K, Q, C).sum(dim=1)
+        yield Eager(self.close_neighbours, B * K * Q)
 
         # learned global 2-way fusion, per sample (multi_point.py:436-439)
         fuse = self.output_weight(torch.cat([centre, nb], -1).to(query.dtype))
@@ -209,6 +211,22 @@ class Deform3DCrossAttnMP(K1Module):
                       generator)
         pos = _position_feat(self.position_encoder, ref_c, query.dtype)
         return out + query + pos, torch.zeros((), device=query.device)
+
+    def open_neighbours(self):
+        """Opens the span `model.head.neighbours` around the neighbour
+        branch (the projection, the raw gate, K1 and the sums over
+        cameras and neighbours): an eager stretch of `steps`
+        (models/k1_graph.py::Eager), so that it records from a replay
+        of the graphs too."""
+        self._neighbours = tracing.span("model.head.neighbours",
+                                        device=True).__enter__()
+
+    def close_neighbours(self, rows):
+        """Closes it, and counts the branch's K1 rows in
+        `mp_neighbour_rows` (an eager stretch)."""
+        self._neighbours.__exit__(None, None, None)
+        self._neighbours = None
+        self.mp_neighbour_rows += rows
 
 
 class Detr3DCrossAttenV2(K1Module):

@@ -37,18 +37,19 @@ Options of the head family:
     `all_bbox_preds_guided` with its own `cam_overflow_guided`.
 
 The forward is written once, as `steps`, a generator that yields each
-decoder layer's K1 calls (models/k1_graph.py): every cross-attention is
-a `steps` generator itself, and K1 is launched only by what drives it.
-An eval forward on the card without autograd, a generator, a camera
-shard or MixDistill's pass, with
-every layer's cross-attention deform3d (the flagship's, with any of the
-options above), replays it as CUDA graphs between its K1 calls, K1 still
-launched eagerly: the first call of an input signature (B, N, the level
-shapes, the dtype, which extras are given) runs eagerly, the second
-captures, later calls replay. A replayed call copies its inputs into the
-graphs' own and keeps none of them; every tensor it returns,
-`cam_overflow` included, is fresh and is not written again. The MP,
-DETR3D and DETR3D-v2 cross-attentions, training, camera shards and
+decoder layer's K1 calls and eager stretches (models/k1_graph.py): every
+cross-attention is a `steps` generator itself, and K1 is launched only
+by what drives it. An eval forward on the card without autograd, a
+generator, a camera shard or MixDistill's pass, with every layer's
+cross-attention deform3d (the flagship's, with any of the options
+above) or MP's, replays it as CUDA graphs between its K1 calls and
+eager stretches, K1 still launched and MP's query graph and span
+stretches still run eagerly: the first call of an input signature (B,
+N, the level shapes, the dtype, which extras are given) runs eagerly,
+the second captures, later calls replay. A replayed call copies its
+inputs into the graphs' own and keeps none of them; every tensor it
+returns, `cam_overflow` included, is fresh and is not written again.
+The DETR3D and DETR3D-v2 cross-attentions, training, camera shards and
 MixDistill run eagerly.
 """
 
@@ -253,7 +254,7 @@ class Detr3DHeadPE(nn.Module):
         return (feat.is_cuda and not self.training
                 and not torch.is_grad_enabled() and generator is None
                 and teacher_query_embed is None and self.cam_shard is None
-                and all(layer.attn_type == "deform3d"
+                and all(layer.attn_type in ("deform3d", "deform3d_mp")
                         and layer.attentions[1].cam_shard is None
                         for layer in self.transformer.decoder.layers))
 

@@ -22,7 +22,7 @@ from .attention import Deform3DCrossAttn
 from .attention_variants import (Deform3DCrossAttnMP, Detr3DCrossAtten,
                                  Detr3DCrossAttenV2)
 from ..parallel.mesh import all_reduce_max, all_reduce_sum
-from .k1_graph import K1Module
+from .k1_graph import Eager, K1Module
 from .layers import LayerNorm, Linear, dropout
 
 ATTN_TYPES = ("deform3d", "deform3d_mp", "detr3d", "detr3d_v2")
@@ -209,19 +209,34 @@ class DecoderLayer(K1Module):
     ):
         """The layer as a generator (models/k1_graph.py): it yields its
         cross-attention's K1 calls (`steps`: one, two for MP) and takes
-        their outputs back. Returns (query, cam_overflow). Dropout draws
+        their outputs back; with MP it yields its query graph
+        (`query_graph`) and the cross-attention's span stretches as
+        eager stretches. Returns (query, cam_overflow). Dropout draws
         from `generator`; None (eval) turns it off. self_attn_mask: (Q, Q)
         bool, True = attend (H-DETR's group mask), or None."""
         query = self.norms[0](self.attentions[0](query, query_pos, generator,
                                                  self_attn_mask))
         if self.attn_type == "deform3d_mp":
-            with tracing.span("model.head.graph", device=True):
-                reference_points = graph_reference_points(
-                    reference_points, self.num_neighbors)
-            self.mp_graph_builds += reference_points.shape[0]
+            B, Q, _ = reference_points.shape
+            reference_points = yield Eager(
+                self.query_graph, reference_points,
+                out=((B, Q * (1 + self.num_neighbors), 3),
+                     reference_points.dtype))
         query, overflow = yield from self.attentions[1].steps(
             query, value, spatial_shapes, query_pos, reference_points,
             lidar2img, img_shape, generator)
         query = self.norms[1](query)
         query = self.norms[2](self.ffns[0](query, generator))
         return query, overflow
+
+    def query_graph(self, reference_points):
+        """MP's query graph of the layer's (B, Q, 3) reference points,
+        `graph_reference_points` under the span `model.head.graph`,
+        counted in `mp_graph_builds`: an eager stretch of `steps`
+        (models/k1_graph.py::Eager), so that whoever wraps this module's
+        `graph_neighbours` sees each call, graphed or not."""
+        with tracing.span("model.head.graph", device=True):
+            points = graph_reference_points(reference_points,
+                                            self.num_neighbors)
+        self.mp_graph_builds += reference_points.shape[0]
+        return points

@@ -131,27 +131,30 @@ class Engine:
     separately, then running the head, as the JAX engine runs its two
     programs.
 
-    The flagship's head (models/head.py::Detr3DHeadPE, every decoder layer
-    with the deform3d cross-attention) answers as CUDA graphs between its
-    K1 calls: the first request of an input signature runs it eagerly,
-    the second captures the graphs, later ones replay them. A temporal
-    config's two warm-ups (`infer`, then `infer_stream`) send the head the
-    one signature of a full rig twice, so the capture happens in __init__
-    and every request replays. A replay copies the
-    request's tensors into the graphs' inputs and returns fresh tensors,
-    `cam_overflow` included, that no later request writes. The PETR heads
-    and the other cross-attentions run eagerly. `head_graph_captures` and
-    `head_graph_replays` count it (`counters()`); the warm-ups' capture
-    stays counted, so replays / served is the share of requests that
-    replayed.
+    The flagship's head and MP's (models/head.py::Detr3DHeadPE, every
+    decoder layer with the deform3d or every one with the MP
+    cross-attention) answer as CUDA graphs between their K1 calls and,
+    MP's, the eager stretches of each layer (its query graph, the opening
+    and closing of its neighbour span): the first request of an input
+    signature runs the head eagerly, the second captures the graphs,
+    later ones replay them. A temporal config's two warm-ups (`infer`,
+    then `infer_stream`) send the head the one signature of a full rig
+    twice, so the capture happens in __init__ and every request replays.
+    A replay copies the request's tensors into the graphs' inputs and
+    returns fresh tensors, `cam_overflow` included, that no later request
+    writes. The PETR heads and the DETR3D and DETR3D-v2 cross-attentions
+    run eagerly. `head_graph_captures` and `head_graph_replays` count it
+    (`counters()`); the warm-ups' capture stays counted, so replays /
+    served is the share of requests that replayed.
 
     The MP cross-attention (models/attention_variants.py::
     Deform3DCrossAttnMP) builds a query graph in each decoder layer and
     samples the K graph neighbours of each query in a K1 call of its own:
     `mp_graph_builds` counts the graphs (one a sample a layer) and
     `mp_neighbour_rows` the rows of those calls (B x K x Q a layer), the
-    warm-ups' included. Both count since the model was built, so they
-    stay 0 for a head that is not MP.
+    warm-ups' included, replayed requests as eager ones (the capture
+    counts nothing). Both count since the model was built, so they stay
+    0 for a head that is not MP.
     """
 
     def __init__(self, config, state_dict, device="cuda", max_streams=16,

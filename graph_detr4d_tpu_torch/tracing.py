@@ -38,7 +38,7 @@ The spans and what reads them (benchmark/harness/spans.py):
                           backbone_span_ms, backbone_idle_ms
   model.head              GraphDETR4D.forward_feats (device);
                           head_span_ms, head_idle_ms
-  model.head.graph        DecoderLayer.steps' MP query graph,
+  model.head.graph        DecoderLayer.query_graph, MP's query graph,
                           graph_reference_points (device), one a
                           decoder layer inside model.head; mp_graph_ms
   model.head.neighbours   Deform3DCrossAttnMP's neighbour branch: the
@@ -49,6 +49,11 @@ The spans and what reads them (benchmark/harness/spans.py):
   engine.warm.infer, engine.warm.infer_stream
                           Engine.__init__'s warm-up (always);
                           engine_warm_s
+
+Both MP spans are opened and closed in eager stretches of the head's
+`steps` generator (models/k1_graph.py::Eager): under the head's CUDA
+graphs they open and close between two replays, so their events bracket
+the same kernels as in the eager head.
 """
 
 import threading

@@ -1396,8 +1396,9 @@ def test_head_graph_outputs_are_the_callers_own(cuda):
 
 @pytest.mark.cuda
 def test_head_graphs_leave_other_forwards_eager(cuda, monkeypatch):
-    """Training with a generator, the MP cross-attention and a camera
-    shard run eagerly: three calls each, no capture, no replay."""
+    """Training with a generator, the DETR3D and DETR3D-v2
+    cross-attentions and a camera shard run eagerly: three calls each, no
+    capture, no replay."""
     from graph_detr4d_tpu_torch.models import attention
     from graph_detr4d_tpu_torch.parallel.mesh import Mesh
 
@@ -1406,7 +1407,8 @@ def test_head_graphs_leave_other_forwards_eager(cuda, monkeypatch):
     g = torch.Generator(device=cuda).manual_seed(0)
     for _ in range(3):
         head(feats, l2i, generator=g)["all_cls_scores"].sum().backward()
-    mp = _tiny_flagship_head(cuda, attn_type="deform3d_mp")
+    eager = [_tiny_flagship_head(cuda, attn_type=a)
+             for a in ("detr3d", "detr3d_v2")]
     # one cam=1 shard: the shard's code path with an identity all-reduce
     monkeypatch.setattr(attention, "all_reduce_sum", lambda x, group: x)
     shard = _tiny_flagship_head(cuda)
@@ -1415,11 +1417,94 @@ def test_head_graphs_leave_other_forwards_eager(cuda, monkeypatch):
         layer.attentions[1].cam_shard = Mesh()
     with torch.no_grad():
         for _ in range(3):
-            mp(feats, l2i)
-            shard(feats, l2i)
+            for h in (*eager, shard):
+                h(feats, l2i)
     torch.cuda.synchronize()
-    for h in (head, mp, shard):
+    for h in (head, *eager, shard):
         assert (h.graphs.captures, h.graphs.replays) == (0, 0)
+
+
+@pytest.mark.cuda
+def test_mp_head_graphs_replay_the_eager_head(cuda, monkeypatch):
+    """MP's head (6 decoder layers, K = 4) as CUDA graphs between its K1
+    calls and eager stretches, over 5 requests: the first eager, the
+    second captures, the last three replay. Each call's outputs equal
+    the eager head's (run_k1 over head.steps on the same inputs) bit for
+    bit; each call advances mp_graph_builds, mp_neighbour_rows and K1's
+    launches as the eager head does, and calls a wrapped
+    transformer.graph_neighbours once a layer; each traced replay records
+    6 model.head.graph and 6 model.head.neighbours spans with CUDA events.
+    The graphs are cut 5 times a layer (the query graph, the centre K1,
+    the span's opening, the neighbour K1, its closing); the flagship
+    head's stay cut at its K1 calls alone."""
+    from graph_detr4d_tpu_torch import tracing
+    from graph_detr4d_tpu_torch.models import transformer
+    from graph_detr4d_tpu_torch.models.k1_graph import run_k1
+
+    layers = 6
+    head = _tiny_flagship_head(cuda, attn_type="deform3d_mp",
+                               num_neighbors=4, num_decoder_layers=layers)
+    mp_layers = head.transformer.decoder.layers
+    graph_calls = []
+    inner = transformer.graph_neighbours
+
+    def wrapped(ref, k):
+        graph_calls.append(k)
+        return inner(ref, k)
+
+    monkeypatch.setattr(transformer, "graph_neighbours", wrapped)
+
+    def counts():
+        return (sum(l.mp_graph_builds for l in mp_layers),
+                sum(l.attentions[1].mp_neighbour_rows for l in mp_layers),
+                msda_ops.launches, len(graph_calls))
+
+    def delta(before):
+        return tuple(b - a for a, b in zip(before, counts()))
+
+    Q, K = head.cfg.num_query, 4
+    with torch.no_grad():
+        for i, seed in enumerate(range(5)):
+            feats, l2i = _head_request(cuda, seed)
+            before = counts()
+            want = run_k1(head.steps(feats, l2i))
+            torch.cuda.synchronize()
+            eager = delta(before)
+            assert eager == (layers, layers * K * Q, 2 * layers, layers)
+            traced = i >= 2
+            if traced:
+                tracing.drain()
+                tracing.enable()
+            before = counts()
+            try:
+                got = head(feats, l2i)
+            finally:
+                tracing.disable()
+            torch.cuda.synchronize()
+            assert delta(before) == eager, i
+            assert (head.graphs.captures, head.graphs.replays) == (
+                int(i >= 1), max(i - 1, 0))
+            assert got.keys() == want.keys()
+            for k in want:
+                assert torch.equal(got[k], want[k]), (i, k)
+            if traced:
+                spans = tracing.drain()
+                for name in ("model.head.graph", "model.head.neighbours"):
+                    mine = [r for r in spans if r.name == name]
+                    assert len(mine) == layers, name
+                    assert all(r.events is not None and r.device_ms() > 0
+                               for r in mine), name
+    (segments,) = head.graphs._sets.values()
+    assert len(segments.graphs) == 5 * layers + 1
+
+    flagship = _tiny_flagship_head(cuda)
+    with torch.no_grad():
+        for seed in range(3):
+            flagship(*_head_request(cuda, seed))
+    torch.cuda.synchronize()
+    (segments,) = flagship.graphs._sets.values()
+    assert len(segments.graphs) == flagship.cfg.num_decoder_layers + 1
+    assert all(isinstance(c, tuple) for c in segments.cuts)
 
 
 # ---- serve.Engine's staged input copy (parallel/transfer.py::StagedCopy)
