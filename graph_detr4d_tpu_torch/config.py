@@ -252,6 +252,35 @@ class ModelConfig:
     device_normalize: bool = False
 
 
+@dataclass(frozen=True)
+class BEVConfig:
+    """BEVFormer's BEV encoder (bevformer_base.py: bev_h_, bev_w_,
+    BEVFormerEncoder, SpatialCrossAttention, TemporalSelfAttention)."""
+
+    bev_h: int = 200
+    bev_w: int = 200
+    num_encoder_layers: int = 6
+    num_points_in_pillar: int = 4  # heights a BEV cell's pillar projects
+    sca_num_points: int = 8  # MSDeformableAttention3D points (2 a height)
+    tsa_num_points: int = 4  # TemporalSelfAttention points, 1 level
+    # SCA rows a camera keeps (its BEV queries with an in-view height,
+    # lowest index first); exact while no camera sees more, the rest are
+    # counted as bev_sca_overflow. The seeded 6-camera rig of the
+    # benchmark (benchmark/harness/traffic.py::surround_rig) puts at most
+    # 8,289 of the 40,000 queries in one camera over 4,000 seeded rigs.
+    sca_capacity: int = 9216
+
+
+@dataclass(frozen=True)
+class BEVFormerConfig(ModelConfig):
+    """A ModelConfig with BEVFormer's own fields: its BEV encoder and the
+    ResNet style (mmcv 'caffe': the stride on the 1x1 conv1). A subclass,
+    so that every other config keeps ModelConfig's fields."""
+
+    bev: BEVConfig = field(default_factory=BEVConfig)
+    resnet_style: str = "caffe"
+
+
 def tiny_test_config() -> ModelConfig:
     """A small config for CPU tests: shrunk backbone/head, 6 cams."""
     return ModelConfig(

@@ -29,8 +29,8 @@ import types
 import typing
 from typing import Callable, Dict, Optional, Sequence
 
-from .config import (BackboneConfig, HeadConfig, ModelConfig, NeckConfig,
-                     TrainConfig)
+from .config import (BackboneConfig, BEVFormerConfig, CoderConfig,
+                     HeadConfig, ModelConfig, NeckConfig, TrainConfig)
 
 _REGISTRY: Dict[str, Callable[[], ModelConfig]] = {}
 
@@ -465,6 +465,32 @@ def petrv2_bevseg():
         head_type="petr_seg",
         backbone=dataclasses.replace(cfg.backbone, remat=True),
     )
+
+
+@register("bevformer_base")
+def bevformer_base():
+    """BEVFormer-base (Li et al., ECCV 2022; fundamentalvision/BEVFormer
+    projects/configs/bevformer/bevformer_base.py): ResNet-101 in the caffe
+    style with DCNv2 on stages 3-4, an FPN from C3 with one extra output,
+    a 200 x 200 BEV encoder of 6 layers (temporal self-attention over the
+    previous BEV, spatial cross-attention into the 6 cameras) and a
+    900-query deformable decoder over the BEV. The port's own entry: the
+    JAX package has no BEVFormer."""
+    return BEVFormerConfig(
+        head_type="bevformer",
+        backbone=BackboneConfig(depth=101, out_indices=(1, 2, 3)),
+        neck=NeckConfig(in_channels=(512, 1024, 2048), start_level=0),
+        head=HeadConfig(num_cams=6, num_frame_cams=6, with_detach=False),
+        coder=CoderConfig(max_num=300),
+        img_size=(928, 1600),  # 900 x 1600 padded /32
+        img_mean=(103.530, 116.280, 123.675),
+        img_std=(1.0, 1.0, 1.0),
+        img_bgr=True,
+    )
+
+
+# the entries of the port that the JAX registry does not have
+PORT_ONLY = ("bevformer_base",)
 
 
 # ------------------------------------------------------------- distill

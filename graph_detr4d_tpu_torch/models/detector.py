@@ -5,7 +5,10 @@ head, with or without its 3D position embedding, with any of the
 cross-attentions of models/transformer.py, H-DETR's one2many query group
 and the camera-aware options of models/head.py, or a head of the PETR
 family: `petr`, `petrv2` (models/petr_head.py) and `petr_seg`
-(models/petr_seg.py)). The grid mask and dropout apply only in training
+(models/petr_seg.py)), or BEVFormer's (`bevformer`, models/bevformer.py:
+a BEV encoder over the cameras and a decoder over the BEV, which reads
+the frame's `can_bus` and the previous frame's BEV and returns its own
+as `bev_embed`). The grid mask and dropout apply only in training
 (detr3d.py:53-54), drawn from the generator the forward is given.
 
 All cameras fold into the batch axis for the conv stack (detr3d.py:62-66),
@@ -25,6 +28,7 @@ from ..utils.device import device_constant, resolve_device
 from .attention import Deform3DCrossAttn
 from .attention_variants import (Deform3DCrossAttnMP, Detr3DCrossAtten,
                                  Detr3DCrossAttenV2)
+from .bevformer import BEVFormerHead
 from .fpn import FPN
 from .grid_mask import apply_grid_mask, grid_mask_params
 from .head import Detr3DHeadPE
@@ -53,7 +57,7 @@ CAM_MIXING = (Deform3DCrossAttn, Deform3DCrossAttnMP, Detr3DCrossAtten,
               Detr3DCrossAttenV2, CrossAttention)
 
 BACKBONE_TYPES = ("resnet", "vovnet", "mobilenetv2")
-HEAD_TYPES = ("detr4d_pe", "petr", "petrv2", "petr_seg")
+HEAD_TYPES = ("detr4d_pe", "petr", "petrv2", "petr_seg", "bevformer")
 
 
 def build_backbone(cfg: ModelConfig) -> nn.Module:
@@ -67,7 +71,8 @@ def build_backbone(cfg: ModelConfig) -> nn.Module:
         return MobileNetV2(b.out_indices)
     return ResNet(depth=b.depth, out_indices=b.out_indices,
                   stage_with_dcn=b.stage_with_dcn, use_dcn=b.use_dcn,
-                  dcn_gather=b.dcn_gather)
+                  dcn_gather=b.dcn_gather,
+                  style=getattr(cfg, "resnet_style", "pytorch"))
 
 
 PETR_HEADS = ("petr", "petrv2", "petr_seg")
@@ -85,6 +90,8 @@ def build_head(cfg: ModelConfig, in_channels: int) -> nn.Module:
         return PETRHead(h, cfg.img_size, in_channels, with_time=v2,
                         with_fpe=v2 and h.with_fpe, with_multi=v2,
                         per_layer_branches=v2)
+    if cfg.head_type == "bevformer":
+        return BEVFormerHead(cfg)
     if cfg.head_type == "petr_seg":
         return PETRHeadSeg(h, cfg.img_size, in_channels,
                            with_time=h.num_cams > h.num_frame_cams,
@@ -189,14 +196,20 @@ class GraphDETR4D(nn.Module):
     def forward_feats(self, feats, lidar2img: torch.Tensor, generator=None,
                       depth_factors=None, mean_time_stamp=None,
                       intrinsics=None, ida_scale=None,
-                      teacher_query_embed=None):
+                      teacher_query_embed=None, can_bus=None, prev_bev=None):
         """Head-only forward over precomputed camera features. The extras
         (depth_factors (B,), mean_time_stamp (B,), intrinsics (B, N, 4, 4),
         ida_scale (B, N)) reach the heads that read them: scale_pred, the
         PETR family and the camera-aware head. teacher_query_embed:
         MixDistill's (Qt, 2C) teacher query table, decoded a second time
-        (models/head.py)."""
+        (models/head.py). can_bus (B, 18), the frame's ego motion, and
+        prev_bev (B, H * W, C), the previous frame's BEV or None, reach
+        BEVFormer's head (eval only)."""
         with tracing.span("model.head", device=True):
+            if self.cfg.head_type == "bevformer":
+                if generator is not None:
+                    raise NotImplementedError("BEVFormer runs eval only")
+                return self.pts_bbox_head(feats, lidar2img, can_bus, prev_bev)
             if self.cfg.head_type in PETR_HEADS:
                 return self.pts_bbox_head(feats, lidar2img, generator,
                                           mean_time_stamp=mean_time_stamp)
@@ -226,13 +239,13 @@ class GraphDETR4D(nn.Module):
     def forward(self, images: torch.Tensor, lidar2img: torch.Tensor,
                 train: bool = False, generator=None, depth_factors=None,
                 mean_time_stamp=None, intrinsics=None, ida_scale=None,
-                teacher_query_embed=None):
+                teacher_query_embed=None, can_bus=None, prev_bev=None):
         """images (B, N, H, W, 3) normalized (raw pixels with
         cfg.device_normalize); lidar2img (B, N, 4, 4). train=True draws the
         grid mask and dropout from `generator`, a torch.Generator on the
         model's device; eval ignores it. depth_factors, mean_time_stamp,
-        intrinsics, ida_scale and teacher_query_embed: see
-        forward_feats."""
+        intrinsics, ida_scale, teacher_query_embed, can_bus and prev_bev:
+        see forward_feats."""
         if not train:
             generator = None
         elif generator is None:
@@ -243,4 +256,5 @@ class GraphDETR4D(nn.Module):
                                   depth_factors=depth_factors,
                                   mean_time_stamp=mean_time_stamp,
                                   intrinsics=intrinsics, ida_scale=ida_scale,
-                                  teacher_query_embed=teacher_query_embed)
+                                  teacher_query_embed=teacher_query_embed,
+                                  can_bus=can_bus, prev_bev=prev_bev)

@@ -28,13 +28,15 @@ import torch.nn as nn
 
 from ..utils.math import inverse_sigmoid
 from .dgcnn import BEVDeformableCrossAttn
+from .k1_graph import K1Module
 from .layers import LayerNorm
 from .transformer import FFN, SelfAttention
 
 
-class DeformableDecoderLayer(nn.Module):
+class DeformableDecoderLayer(K1Module):
     """Post-norm layer: self-attention, norm, deformable cross-attention,
-    norm, FFN, norm, with dropout where flax has it."""
+    norm, FFN, norm, with dropout where flax has it; a `steps` generator
+    of its cross-attention's K1 call (models/k1_graph.py)."""
 
     def __init__(self, embed_dims: int, num_heads: int, num_levels: int,
                  num_points: int, ffn_dims: int, dropout: float = 0.1):
@@ -46,12 +48,13 @@ class DeformableDecoderLayer(nn.Module):
         self.ffns = nn.ModuleList([FFN(embed_dims, ffn_dims, dropout)])
         self.norms = nn.ModuleList([LayerNorm(embed_dims) for _ in range(3)])
 
-    def forward(self, query, query_pos, value_levels, reference_points,
-                generator=None):
+    def steps(self, query, query_pos, value_levels, reference_points,
+              generator=None):
         """reference_points (B, Q, L, 2) in each level's [0, 1]."""
         query = self.norms[0](self.attentions[0](query, query_pos, generator))
-        query = self.norms[1](self.attentions[1](
-            query, value_levels, reference_points, query_pos, generator))
+        query = yield from self.attentions[1].steps(
+            query, value_levels, reference_points, query_pos, generator)
+        query = self.norms[1](query)
         return self.norms[2](self.ffns[0](query, generator))
 
 

@@ -29,11 +29,11 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..config import HeadConfig
-from ..ops import msda as msda_ops
 from ..ops import voxelize
 from ..utils.device import resolve_device
 from ..utils.math import inverse_sigmoid
 from .head import cls_branch, reg_branch
+from .k1_graph import K1Module
 from .layers import Conv2d, FrozenBatchNorm, LayerNorm, Linear, dropout
 from .positional import sine_positional_encoding_2d
 
@@ -105,13 +105,15 @@ def grid_offset_bias(num_heads: int, num_levels: int, num_points: int):
     return grid.reshape(-1)
 
 
-class BEVDeformableCrossAttn(nn.Module):
+class BEVDeformableCrossAttn(K1Module):
     """2D multi-scale deformable attention over a feature pyramid (mmcv's
     MultiScaleDeformableAttention): offsets normalised by each level's
     (W, H), softmax over levels x points, K1 over all queries. The BEV
     pyramid's cross-attention here; the generic deformable decoder's
     (models/detr_decoder.py) with per-level reference points and, in
-    training, dropout on the output."""
+    training, dropout on the output; BEVFormer's decoder's over its one
+    BEV level (models/bevformer.py). Written as a `steps` generator of its
+    one K1 call (models/k1_graph.py); forward runs it eagerly."""
 
     def __init__(self, embed_dims: int, num_heads: int = 8,
                  num_levels: int = 4, num_points: int = 4,
@@ -125,8 +127,8 @@ class BEVDeformableCrossAttn(nn.Module):
         self.value_proj = Linear(C, C)
         self.output_proj = Linear(C, C)
 
-    def forward(self, query, values: Sequence[torch.Tensor], reference_points,
-                query_pos, generator=None):
+    def steps(self, query, values: Sequence[torch.Tensor], reference_points,
+              query_pos, generator=None):
         """query (B, Q, C); values L x (B, H_l, W_l, C); reference_points
         (B, Q, 2), or (B, Q, L, 2) one per level, in [0, 1] as (x, y);
         generator: the output dropout's random source in training."""
@@ -147,9 +149,8 @@ class BEVDeformableCrossAttn(nn.Module):
                + offsets / wh[None, None, None, :, None, :])
         value = self.value_proj(torch.cat(
             [v.reshape(B, -1, C) for v in values], dim=1))
-        out = msda_ops.msda_forward(
-            value.view(B, -1, Hh, C // Hh), shapes, loc.contiguous(),
-            attn.contiguous())
+        out = yield (value.view(B, -1, Hh, C // Hh), shapes, loc.contiguous(),
+                     attn.contiguous(), None)
         return query + dropout(self.output_proj(out), self.dropout, generator)
 
 

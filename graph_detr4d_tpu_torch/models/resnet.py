@@ -1,5 +1,7 @@
-"""ResNet backbone, mmcv 'pytorch' style (stride on the 3x3), frozen BN,
-DCNv2 on stages 3-4 (counterpart of graph_detr4d_tpu/models/resnet.py).
+"""ResNet backbone, mmcv 'pytorch' style (stride on the 3x3) or, with
+style='caffe' (BEVFormer's ResNet-101), the stride on the bottleneck's 1x1
+conv1 and every 3x3, DCN or not, at stride 1; frozen BN, DCNv2 on stages
+3-4 (counterpart of graph_detr4d_tpu/models/resnet.py).
 
 Runs NCHW tensors whose memory may be channels-last (NHWC), which is what
 cuDNN's bf16 convs and the DCN kernel want. Module and parameter names are
@@ -69,7 +71,8 @@ class BasicBlock(nn.Module):
     expansion = 1
 
     def __init__(self, in_ch: int, width: int, stride: int = 1,
-                 use_dcn: bool = False, dcn_gather: str = "shift4"):
+                 use_dcn: bool = False, dcn_gather: str = "shift4",
+                 style: str = "pytorch"):
         super().__init__()
         self.conv1 = Conv2d(in_ch, width, 3, stride=stride, padding=1,
                             bias=False)
@@ -89,20 +92,23 @@ class BasicBlock(nn.Module):
 
 
 class Bottleneck(nn.Module):
-    """1x1 -> 3x3 (stride, maybe DCN) -> 1x1 (x4) with frozen BN."""
+    """1x1 -> 3x3 (maybe DCN) -> 1x1 (x4) with frozen BN; the stride on the
+    3x3 ('pytorch') or on the first 1x1 ('caffe')."""
 
     expansion = 4
 
     def __init__(self, in_ch: int, width: int, stride: int = 1,
-                 use_dcn: bool = False, dcn_gather: str = "shift4"):
+                 use_dcn: bool = False, dcn_gather: str = "shift4",
+                 style: str = "pytorch"):
         super().__init__()
         out_ch = width * 4
-        self.conv1 = Conv2d(in_ch, width, 1, bias=False)
+        s1, s2 = (stride, 1) if style == "caffe" else (1, stride)
+        self.conv1 = Conv2d(in_ch, width, 1, stride=s1, bias=False)
         self.bn1 = FrozenBatchNorm(width)
         self.conv2 = (
-            DeformConv(width, width, stride, dcn_gather)
+            DeformConv(width, width, s2, dcn_gather)
             if use_dcn
-            else Conv2d(width, width, 3, stride=stride, padding=1, bias=False)
+            else Conv2d(width, width, 3, stride=s2, padding=1, bias=False)
         )
         self.bn2 = FrozenBatchNorm(width)
         self.conv3 = Conv2d(width, out_ch, 1, bias=False)
@@ -128,8 +134,11 @@ class ResNet(nn.Module):
         stage_with_dcn: Sequence[bool] = (False, False, True, True),
         use_dcn: bool = True,
         dcn_gather: str = "shift4",
+        style: str = "pytorch",
     ):
         super().__init__()
+        if style not in ("pytorch", "caffe"):
+            raise ValueError(f"unknown ResNet style {style!r}")
         block_type, stage_blocks = ARCH_SETTINGS[depth]
         block_cls = Bottleneck if block_type == "bottleneck" else BasicBlock
         self.out_indices = tuple(out_indices)
@@ -143,7 +152,7 @@ class ResNet(nn.Module):
             for b in range(num_blocks):
                 stride = 2 if (b == 0 and stage > 0) else 1
                 blocks.append(block_cls(in_ch, width, stride, use_dcn=dcn,
-                                        dcn_gather=dcn_gather))
+                                        dcn_gather=dcn_gather, style=style))
                 in_ch = width * block_cls.expansion
             self.add_module(f"layer{stage + 1}", nn.Sequential(*blocks))
             width *= 2

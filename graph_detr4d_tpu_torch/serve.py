@@ -8,6 +8,14 @@ front end is tools/serve.py, the artifact tools/export_model.py).
     det = engine.infer_stream(new_frame, lidar2img, stream="car-7")
     engine = Engine.from_artifact("work_dirs/export")  # an exported artifact
 
+A stream's state is what its model carries between frames: the previous
+frame's camera features (the temporal configs), or BEVFormer's previous
+BEV and the pose it was made at (`bevformer_base`, whose requests carry
+the frame's absolute `can_bus` as an extra):
+
+    engine = Engine("bevformer_base", state_dict)
+    det = engine.infer_stream(frame, lidar2img, [can_bus], stream="car-7")
+
 `state_dict` uses the reference's names: a published mmdet3d checkpoint,
 `weights.state_dict_from_jax(...)` of JAX weights, or a port model's own.
 
@@ -31,6 +39,7 @@ from . import tracing
 from .config import CoderConfig
 from .configs import get_config
 from .core.coder import decode_batch
+from .models.bevformer import CAN_BUS_DIMS
 from .models.detector import GraphDETR4D
 from .models.dgcnn import ObjDGCNN
 from .ops import build, launch_counters
@@ -45,10 +54,13 @@ def extras_spec(cfg, batch_size: int):
     artifact order (tools/export_model.py::_extras_spec): the temporal PETR
     heads' mean_time_stamp (petrv2, and petr_seg on a rig with past-frame
     cameras), the camera-aware head's intrinsics and ida_scale,
-    scale_pred's depth_factors. Without mean_time_stamp a PETRv2 answer
-    would keep its velocity undivided."""
+    scale_pred's depth_factors, BEVFormer's can_bus (the frame's absolute
+    ego pose and motion, 18 values). Without mean_time_stamp a PETRv2
+    answer would keep its velocity undivided."""
     B, N = batch_size, cfg.head.num_cams
     spec = []
+    if cfg.head_type == "bevformer":
+        spec.append(("can_bus", (B, CAN_BUS_DIMS)))
     if cfg.head_type == "petrv2" or (
             cfg.head_type == "petr_seg"
             and cfg.head.num_cams > cfg.head.num_frame_cams):
@@ -71,6 +83,8 @@ def synth_extra(name, shape):
         return v
     if name == "mean_time_stamp":
         return np.full(shape, 0.5, np.float32)
+    if name == "can_bus":
+        return np.zeros(shape, np.float32)
     return np.ones(shape, np.float32)
 
 
@@ -104,11 +118,18 @@ class Engine:
     ida_scale, depth_factors), in that order.
 
     infer_stream(images, lidar2img, extras, stream) answers a request of a
-    video stream from its new frame only (the temporal configs: num_cams
-    = 2 x num_frame_cams): the backbone runs on the new frame's cameras,
-    and the previous frame's features come from the stream's cache, which
-    keeps each stream's last `extract_feats` list on the device, the
-    `max_streams` most recently used streams, the oldest evicted first.
+    video stream from its new frame only: the backbone runs on the new
+    frame's cameras, and the stream's cache keeps each stream's state on
+    the device, the `max_streams` most recently used streams, the oldest
+    evicted first. The state is the model's: for the temporal configs
+    (num_cams = 2 x num_frame_cams) the last `extract_feats` list, read
+    as the previous frame's features; for BEVFormer the last `bev_embed`
+    and the pose (x, y, z, yaw in degrees: can_bus[:3] and can_bus[-1])
+    it was made at. BEVFormer's request carries its absolute can_bus;
+    the Engine turns it into the frame's motion, its translation and yaw
+    less the cached pose's (zero on a stream's first request, which has
+    no previous BEV), as the published test loop does; `infer` answers
+    as a stream's first request.
 
     One lock serializes the device calls and the cache's mutations, so
     server threads may share an Engine; the host-to-device copy of a
@@ -155,6 +176,13 @@ class Engine:
     warm-ups' included, replayed requests as eager ones (the capture
     counts nothing). Both count since the model was built, so they stay
     0 for a head that is not MP.
+
+    BEVFormer's head (models/bevformer.py) runs eagerly: `bev_sca_rows`
+    counts the rows its spatial cross-attention's K1 calls sampled
+    (cameras x capacity a layer) and `bev_sca_overflow` the in-view BEV
+    queries its capacity dropped (a request's `cam_overflow` too), both
+    since the model was built, the warm-ups' included; 0 for any other
+    head.
     """
 
     def __init__(self, config, state_dict, device="cuda", max_streams=16,
@@ -173,7 +201,9 @@ class Engine:
             [(n, tuple(manifest["inputs"][n][0])) for n in manifest["extras"]]
             if manifest else extras_spec(self.cfg, B))
         self.max_streams = max_streams
-        self._streams = OrderedDict()  # stream id -> features, LRU order
+        # stream id -> state (features, or BEVFormer's (bev, pose)), LRU order
+        self._streams = OrderedDict()
+        self.bev_state = self.cfg.head_type == "bevformer"
         self._lock = threading.Lock()
         self._staging = StagedCopy(self.device)
         self.served = self.stream_hits = self.stream_misses = 0
@@ -186,7 +216,13 @@ class Engine:
         extras = [synth_extra(n, s) for n, s in self.extras_spec]
         with tracing.span("engine.warm.infer", always=True):
             self.infer(np.zeros((B, N, H, W, 3), img_dtype), l2i, extras)
-        if N == 2 * nf:  # the backbone at one frame's cameras
+        if self.bev_state:  # a stream's first request, then one with a BEV
+            with tracing.span("engine.warm.infer_stream", always=True):
+                for _ in range(2):
+                    self.infer_stream(np.zeros((B, N, H, W, 3), img_dtype),
+                                      l2i, extras, stream=None)
+            self._streams.clear()
+        elif N == 2 * nf:  # the backbone at one frame's cameras
             with tracing.span("engine.warm.infer_stream", always=True):
                 self.infer_stream(np.zeros((B, nf, H, W, 3), img_dtype), l2i,
                                   extras, stream=None)
@@ -273,7 +309,8 @@ class Engine:
         that replayed them (0 for a head that runs eagerly), and MP's
         query graphs built and neighbour rows sampled (the sums of the
         head's decoder layers' and cross-attentions' counts, since the
-        model was built)."""
+        model was built), BEVFormer's SCA rows sampled and in-view queries
+        dropped (since the model was built)."""
         head = self.model.pts_bbox_head
         graphs = getattr(head, "graphs", None)
         return {
@@ -289,6 +326,8 @@ class Engine:
                                    for m in head.modules()),
             "mp_neighbour_rows": sum(getattr(m, "mp_neighbour_rows", 0)
                                      for m in head.modules()),
+            "bev_sca_rows": getattr(head, "bev_sca_rows", 0),
+            "bev_sca_overflow": getattr(head, "bev_sca_overflow", 0.0),
             **launch_counters(),
         }
 
@@ -298,6 +337,8 @@ class Engine:
             images, lidar2img, kw, route = self._inputs(images, lidar2img,
                                                         extras)
             with self._device_calls():
+                if self.bev_state:
+                    kw["can_bus"] = motion(kw["can_bus"], None)
                 if self.streaming:
                     out = self.model.forward_feats(self._halves(images),
                                                    lidar2img, **kw)
@@ -316,6 +357,8 @@ class Engine:
         first request the new frame doubles as the previous one (as the
         data loader does when a sample has no sweep). The head runs on the
         features [current | previous] along the camera axis."""
+        if self.bev_state:
+            return self._infer_bev_stream(images, lidar2img, extras, stream)
         h = self.cfg.head
         if h.num_cams != 2 * h.num_frame_cams:
             raise ValueError(f"infer_stream needs a temporal config (num_cams "
@@ -326,28 +369,81 @@ class Engine:
                                                         extras)
             with self._device_calls():
                 cur = self.model.extract_feats(images)
-                prev = self._streams.get(stream)
+                prev = self._cached(stream)
                 if prev is None:
-                    self.stream_misses += 1
                     prev = cur
-                else:
-                    self.stream_hits += 1
                 out = self.model.forward_feats(
                     [torch.cat([c, p], dim=1) for c, p in zip(cur, prev)],
                     lidar2img, **kw)
-                self._streams[stream] = cur
-                self._streams.move_to_end(stream)
-                while len(self._streams) > self.max_streams:
-                    self._streams.popitem(last=False)
-                    self.stream_evictions += 1
+                self._keep(stream, cur)
                 answer = self._answer(out)
                 self._count(route)
             return self._to_host(answer)
+
+    def _infer_bev_stream(self, images, lidar2img, extras, stream):
+        """infer_stream for BEVFormer: images (B, num_cams, H, W, 3), the
+        new frame; lidar2img (B, num_cams, 4, 4); extras [can_bus (B,
+        18)], absolute. The head reads the stream's previous BEV and the
+        frame's motion since its pose; the stream keeps the new BEV and
+        pose."""
+        with tracing.span("engine.request"):
+            images, lidar2img, kw, route = self._inputs(images, lidar2img,
+                                                        extras)
+            with self._device_calls():
+                feats = self.model.extract_feats(images)
+                can_bus = kw.pop("can_bus")
+                prev_bev, pose = self._cached(stream) or (None, None)
+                out = self.model.forward_feats(
+                    feats, lidar2img, can_bus=motion(can_bus, pose),
+                    prev_bev=prev_bev, **kw)
+                self._keep(stream, (out["bev_embed"], pose_of(can_bus)))
+                answer = self._answer(out)
+                self._count(route)
+            return self._to_host(answer)
+
+    def _cached(self, stream):
+        """The stream's cached state or None, counted as a hit or a miss
+        (under the lock)."""
+        state = self._streams.get(stream)
+        if state is None:
+            self.stream_misses += 1
+        else:
+            self.stream_hits += 1
+        return state
+
+    def _keep(self, stream, state):
+        """Cache the stream's new state as the most recently used, the
+        oldest streams past max_streams evicted (under the lock)."""
+        self._streams[stream] = state
+        self._streams.move_to_end(stream)
+        while len(self._streams) > self.max_streams:
+            self._streams.popitem(last=False)
+            self.stream_evictions += 1
 
     def reset_stream(self, stream="default") -> bool:
         """Drop a stream's cached frame; whether it had one."""
         with self._lock:
             return self._streams.pop(stream, None) is not None
+
+
+def pose_of(can_bus):
+    """(B, 4) the pose a BEV is made at: can_bus[:3] and its yaw in
+    degrees, can_bus[-1]."""
+    return torch.cat([can_bus[:, :3], can_bus[:, -1:]], dim=-1).clone()
+
+
+def motion(can_bus, pose):
+    """can_bus (B, 18) with its translation and yaw in degrees made the
+    motion since `pose` (`pose_of` of the previous frame), or zero where
+    pose is None (a stream's first frame); the rest as it is."""
+    out = can_bus.clone()
+    if pose is None:
+        out[:, :3] = 0.0
+        out[:, -1] = 0.0
+    else:
+        out[:, :3] -= pose[:, :3]
+        out[:, -1] -= pose[:, 3]
+    return out
 
 
 class LidarEngine:

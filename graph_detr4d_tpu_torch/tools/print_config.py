@@ -7,7 +7,9 @@ tools/misc/print_config.py; reference tools/misc/print_config.py).
         [--cfg-options head.num_query=600]
 
 Prints what the JAX tool prints, byte for byte: the registry's model and
-distill config names, or the config as indented JSON of its fields.
+distill config names, or the config as indented JSON of its fields. The
+port's own entries (configs.PORT_ONLY: BEVFormer), which the JAX package
+does not have, are listed among the model configs too.
 Host-only: it reads the registry and needs no device.
 """
 

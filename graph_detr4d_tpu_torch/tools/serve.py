@@ -11,14 +11,16 @@ artifacts from graph_detr4d_tpu_torch/tools/export_model.py).
                   previous frame's features stay on the device per stream
                   id (serve.Engine.infer_stream); 'lidar2img' stays
                   (B, num_cams, 4, 4)
-  POST /reset_stream?stream=ID   drop a stream's cached features
+  POST /reset_stream?stream=ID   drop a stream's cached state (the
+                  previous frame's features; BEVFormer's BEV and pose)
   GET  /manifest  the artifact's manifest
   GET  /healthz   liveness and the served-request counter
   GET  /stats     every counter of the serving path (Engine.counters():
                   requests, the stream cache's hits, misses and
                   evictions, kernel builds and launches, the head's
                   CUDA-graph captures and replays, MP's query graphs
-                  built and neighbour rows sampled)
+                  built and neighbour rows sampled, BEVFormer's SCA rows
+                  sampled and in-view BEV queries its capacity dropped)
 
 Status codes and error texts are the JAX handler's: 404 for an unknown
 path; 400 for a missing npz key, an images dtype of another kind than the

@@ -46,6 +46,16 @@ The spans and what reads them (benchmark/harness/spans.py):
                           K1 and the sums over cameras and neighbours,
                           before the fusion (device), one a decoder
                           layer inside model.head; mp_neighbour_ms
+  model.head.bev_encoder  BEVFormerHead.steps: the BEV encoder's layers
+                          and what they share (the cameras' value, the
+                          BEV queries, the rotated previous BEV, the
+                          projection and compaction of the pillars)
+                          (device), inside model.head; bev_encoder_ms
+  model.head.bev_sca      SpatialCrossAttention.steps: one encoder
+                          layer's spatial cross-attention, the gather of
+                          the compacted rows, K1, the sum back and the
+                          output projection (device), one a layer inside
+                          model.head.bev_encoder; bev_sca_ms
   engine.warm.infer, engine.warm.infer_stream
                           Engine.__init__'s warm-up (always);
                           engine_warm_s
