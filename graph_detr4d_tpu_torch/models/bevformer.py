@@ -30,7 +30,16 @@ temporal_self_attention.py, spatial_cross_attention.py, decoder.py).
     the decode as models/head.py::Detr3DHeadPE.decode_steps.
 
 The forward is a `steps` generator (models/k1_graph.py) that yields every
-K1 call, TSA's, SCA's and the decoder's, and runs eagerly. The TSA and
+K1 call, TSA's, SCA's and the decoder's, and the opening and closing of
+its spans as eager stretches. An eval forward on the card without
+autograd replays it as CUDA graphs between those yields (`K1Graphs`, as
+the flagship's and MP's heads, models/head.py), K1 launched and the
+spans opened and closed between the replays: the first call of an input
+signature runs eagerly, the second captures, later calls replay. A
+scene's first frame (no previous BEV) and a later one are two
+signatures. A replayed call copies its inputs, the previous BEV
+included, into the graphs' own and returns fresh tensors, `bev_embed`
+and `cam_overflow` included. Anything else runs eagerly. The TSA and
 SCA offsets and weights are linears of every BEV query, computed once a
 layer; SCA gathers the compacted rows' from them (upstream computes them
 on the per-camera rebatched rows: the same numbers).
@@ -38,9 +47,11 @@ on the per-camera rebatched rows: the same numbers).
 Spans (tracing.py): `model.head.bev_encoder` around the encoder layers,
 `model.head.bev_sca` around each layer's SCA (the gather of the
 compacted rows, K1, the sum back and the output projection). Counters:
-`bev_sca_rows`, the rows SCA's K1 calls sampled (cameras x capacity a
-layer), and `bev_sca_overflow`, the in-view queries the capacity
-dropped, each since the head was built.
+`bev_sca_rows` on each SpatialCrossAttention, the rows its K1 calls
+sampled (cameras x capacity a call), counted as its span closes, and
+the head's `bev_sca_overflow`, the in-view queries the capacity dropped,
+summed by forward from each call's `cam_overflow`; both since the head
+was built.
 
 Module names are the published checkpoint's (`transformer.encoder.
 layers.{i}.attentions.1.deformable_attention.sampling_offsets`, ...).
@@ -57,10 +68,11 @@ import torch.nn.functional as F
 
 from .. import tracing
 from ..geometry.projection import denormalize_points, project_points_to_cameras
+from ..utils.device import device_constant
 from ..utils.math import inverse_sigmoid
 from .detr_decoder import DeformableDecoderLayer
 from .head import Decoder, cls_branch, reg_branch
-from .k1_graph import run_k1
+from .k1_graph import Eager, K1Graphs, run_k1
 from .layers import LayerNorm, Linear
 from .transformer import FFN
 
@@ -169,7 +181,7 @@ class TemporalSelfAttention(nn.Module):
         offsets = offsets.permute(0, 3, 1, 2, 4, 5, 6).float()
         attn = self.attention_weights(q).view(B, Q, nh, nq, P)
         attn = torch.softmax(attn.float(), dim=-1).permute(0, 3, 1, 2, 4)
-        wh = torch.tensor([W, H], dtype=torch.float32, device=query.device)
+        wh = device_constant((W, H), torch.float32, query.device)
         loc = ref_2d.float()[:, :, :, None, None, None, :] + offsets / wh
         v = self.value_proj(value).reshape(B * nq, Q, nh, C // nh)
         out = yield (v, [(H, W)], loc.reshape(B * nq, Q, nh, 1, P, 2)
@@ -204,39 +216,55 @@ class SpatialCrossAttention(nn.Module):
         self.deformable_attention = MSDeformableAttention3D(
             embed_dims, num_heads, num_levels, num_points)
         self.output_proj = Linear(embed_dims, embed_dims)
+        self.bev_sca_rows = 0
+        self._span = None  # the open `model.head.bev_sca`
 
     def steps(self, query, query_pos, value, shapes, sca):
         """query (B, Q, C); value (B * N, S, C) the cameras' features with
         their embeddings; sca: `SCARows` of the request. Yields its K1
-        call; returns query + update."""
+        call inside its span's opening and closing (eager stretches);
+        returns query + update."""
         B, Q, C = query.shape
         nh, L, P, D = (self.num_heads, self.num_levels, self.num_points,
                        self.num_pillar)
         da = self.deformable_attention
-        with tracing.span("model.head.bev_sca", device=True):
-            q = query + query_pos
-            offsets = da.sampling_offsets(q).view(B, Q, nh * L * P * 2)
-            attn = da.attention_weights(q).view(B, Q, nh, L * P)
-            attn = torch.softmax(attn.float(), dim=-1).view(B, Q, nh * L * P)
-            # the compacted rows of each camera: (B * N, K, ...)
-            rows = sca.rows
-            off = offsets[sca.batch, rows].float().view(
-                *rows.shape, nh, L, P // D, D, 2)
-            wh = torch.tensor([[w, h] for h, w in shapes], dtype=torch.float32,
-                              device=query.device)[:, None, None, :]
-            loc = sca.ref_cam[:, :, None, None, None, :, :] + off / wh
-            BN, K = rows.shape
-            v = da.value_proj(value).view(BN, -1, nh, C // nh)
-            out = yield (v, shapes, loc.reshape(BN, K, nh, L, P, 2).contiguous(),
-                         attn[sca.batch, rows].view(BN, K, nh, L, P)
-                         .contiguous(), None)
-            out = out.float() * sca.keep[..., None]
-            slots = torch.zeros(B * Q, C, dtype=torch.float32,
-                                device=query.device)
-            slots.index_add_(0, sca.flat.reshape(-1), out.reshape(-1, C))
-            slots = slots.view(B, Q, C) / sca.count[..., None]
-            out = self.output_proj(slots.to(query.dtype))
+        yield Eager(self.open_span)
+        q = query + query_pos
+        offsets = da.sampling_offsets(q).view(B, Q, nh * L * P * 2)
+        attn = da.attention_weights(q).view(B, Q, nh, L * P)
+        attn = torch.softmax(attn.float(), dim=-1).view(B, Q, nh * L * P)
+        # the compacted rows of each camera: (B * N, K, ...)
+        rows = sca.rows
+        off = offsets[sca.batch, rows].float().view(
+            *rows.shape, nh, L, P // D, D, 2)
+        wh = device_constant(tuple((w, h) for h, w in shapes), torch.float32,
+                             query.device)[:, None, None, :]
+        loc = sca.ref_cam[:, :, None, None, None, :, :] + off / wh
+        BN, K = rows.shape
+        v = da.value_proj(value).view(BN, -1, nh, C // nh)
+        out = yield (v, shapes, loc.reshape(BN, K, nh, L, P, 2).contiguous(),
+                     attn[sca.batch, rows].view(BN, K, nh, L, P)
+                     .contiguous(), None)
+        out = out.float() * sca.keep[..., None]
+        slots = torch.zeros(B * Q, C, dtype=torch.float32,
+                            device=query.device)
+        slots.index_add_(0, sca.flat.reshape(-1), out.reshape(-1, C))
+        slots = slots.view(B, Q, C) / sca.count[..., None]
+        out = self.output_proj(slots.to(query.dtype))
+        yield Eager(self.close_span, rows.numel())
         return query + out
+
+    def open_span(self):
+        """Opens `model.head.bev_sca` (an eager stretch of `steps`,
+        models/k1_graph.py::Eager: it records from a replay of the
+        graphs too)."""
+        self._span = tracing.span("model.head.bev_sca", device=True).__enter__()
+
+    def close_span(self, rows):
+        """Closes it, and counts the K1 call's rows in `bev_sca_rows`."""
+        self._span.__exit__(None, None, None)
+        self._span = None
+        self.bev_sca_rows += rows
 
 
 class SCARows:
@@ -260,7 +288,8 @@ class SCARows:
         # stable descending sort: in-view queries first, lower index first
         self.rows = torch.sort(seen, dim=-1, descending=True,
                                stable=True).indices[:, :K]
-        self.batch = torch.arange(B, device=loc.device).repeat_interleave(N)[:, None]
+        self.batch = torch.arange(B, device=loc.device)[:, None].expand(
+            B, N).reshape(B * N, 1)
         self.flat = self.rows + self.batch * Q
         self.ref_cam = torch.gather(
             loc, 1, self.rows[..., None, None].expand(-1, -1, D, 2))
@@ -327,7 +356,9 @@ class BEVFormerHead(nn.Module):
     since the previous frame, zero on a scene's first), prev_bev (B, H * W,
     C) or None) -> {'all_cls_scores' (layers, B, Q, classes),
     'all_bbox_preds' (layers, B, Q, 10), 'bev_embed' (B, H * W, C) in the
-    compute dtype, 'cam_overflow' (SCA's dropped in-view queries)}."""
+    compute dtype, 'cam_overflow' (SCA's dropped in-view queries)}.
+    Eagerly or as CUDA graphs (`self.graphs`), as the module's docstring
+    says; `graphed` decides."""
 
     def __init__(self, cfg):
         super().__init__()
@@ -335,8 +366,9 @@ class BEVFormerHead(nn.Module):
         C = h.embed_dims
         self.cfg = cfg
         self.img_shape = tuple(cfg.img_size)
-        self.bev_sca_rows = 0
+        self.graphs = K1Graphs()  # the eval forward's CUDA graphs
         self._overflow = None  # a device scalar: SCA's dropped queries
+        self._encoder = None  # the open `model.head.bev_encoder`
         self.bev_embedding = nn.Embedding(bev.bev_h * bev.bev_w, C)
         self.query_embedding = nn.Embedding(h.num_query, 2 * C)
         self.positional_encoding = LearnedPositionalEncoding(
@@ -354,11 +386,36 @@ class BEVFormerHead(nn.Module):
         return 0.0 if self._overflow is None else float(self._overflow)
 
     def forward(self, mlvl_feats, lidar2img, can_bus=None, prev_bev=None):
-        return run_k1(self.steps(list(mlvl_feats), lidar2img, can_bus,
-                                 prev_bev))
+        mlvl_feats = list(mlvl_feats)
+        if self.graphed(mlvl_feats[0]):
+            L = len(mlvl_feats)
+            out = self.graphs(lambda *t: self.steps(list(t[:L]), *t[L:]),
+                              [*mlvl_feats, lidar2img, can_bus, prev_bev])
+        else:
+            out = run_k1(self.steps(mlvl_feats, lidar2img, can_bus, prev_bev))
+        overflow = out["cam_overflow"].detach()
+        self._overflow = (overflow if self._overflow is None
+                          else self._overflow + overflow)
+        return out
+
+    def graphed(self, feat) -> bool:
+        """Whether forward replays CUDA graphs (see the class)."""
+        return (feat.is_cuda and not self.training
+                and not torch.is_grad_enabled())
+
+    def open_encoder(self):
+        """Opens `model.head.bev_encoder` (an eager stretch of `steps`)."""
+        self._encoder = tracing.span("model.head.bev_encoder",
+                                     device=True).__enter__()
+
+    def close_encoder(self):
+        """Closes it (an eager stretch)."""
+        self._encoder.__exit__(None, None, None)
+        self._encoder = None
 
     def steps(self, mlvl_feats, lidar2img, can_bus=None, prev_bev=None):
-        """forward as a generator of its K1 calls (models/k1_graph.py)."""
+        """forward as a generator of its K1 calls and eager stretches
+        (models/k1_graph.py)."""
         cfg, h, bev = self.cfg, self.cfg.head, self.cfg.bev
         tr = self.transformer
         dtype, dev = mlvl_feats[0].dtype, mlvl_feats[0].device
@@ -369,42 +426,39 @@ class BEVFormerHead(nn.Module):
             can_bus = torch.zeros(B, CAN_BUS_DIMS, device=dev)
         can_bus = can_bus.float()
 
-        with tracing.span("model.head.bev_encoder", device=True):
-            # the cameras' value: features + camera and level embeddings
-            values, shapes = [], []
-            for lvl, f in enumerate(mlvl_feats):
-                _, _, H, W, _ = f.shape
-                f = (f.reshape(B, N, H * W, C) + tr.cams_embeds.to(dtype)[None, :, None]
-                     + tr.level_embeds[lvl].to(dtype))
-                values.append(f)
-                shapes.append((H, W))
-            value = torch.cat(values, dim=2).reshape(B * N, -1, C)
+        yield Eager(self.open_encoder)
+        # the cameras' value: features + camera and level embeddings
+        values, shapes = [], []
+        for lvl, f in enumerate(mlvl_feats):
+            _, _, H, W, _ = f.shape
+            f = (f.reshape(B, N, H * W, C) + tr.cams_embeds.to(dtype)[None, :, None]
+                 + tr.level_embeds[lvl].to(dtype))
+            values.append(f)
+            shapes.append((H, W))
+        value = torch.cat(values, dim=2).reshape(B * N, -1, C)
 
-            query = (self.bev_embedding.weight.to(dtype)[None]
-                     + tr.can_bus_mlp(can_bus.to(dtype))[:, None])
-            bev_pos = learned_bev_pos(self.positional_encoding.row_embed.weight,
-                                      self.positional_encoding.col_embed.weight)
-            bev_pos = bev_pos.to(dtype)[None].expand(B, -1, -1)
-            ref_2d = reference_2d(bh, bw, dev)[None].expand(B, -1, -1)
-            if prev_bev is None:
-                temporal = None
-                hybrid = torch.stack([ref_2d, ref_2d], dim=1)
-            else:
-                grid = ((pc[4] - pc[1]) / bh, (pc[3] - pc[0]) / bw)
-                shift = bev_shift(can_bus, bh, bw, grid)
-                prev = rotate_bev(prev_bev, can_bus[:, CAN_YAW_DEG], bh, bw)
-                temporal = torch.stack([prev.to(dtype), query], dim=1)
-                hybrid = torch.stack([ref_2d + shift[:, None], ref_2d], dim=1)
-            sca = SCARows(reference_3d(bh, bw, bev.num_points_in_pillar,
-                                       pc[5] - pc[2], dev),
-                          lidar2img, pc, self.img_shape, bev.sca_capacity)
-            for layer in tr.encoder.layers:
-                query = yield from layer.steps(query, bev_pos, temporal, hybrid,
-                                               (bh, bw), value, shapes, sca)
-                self.bev_sca_rows += sca.rows.numel()
-            overflow = sca.overflow
-            self._overflow = (overflow.detach() if self._overflow is None
-                              else self._overflow + overflow.detach())
+        query = (self.bev_embedding.weight.to(dtype)[None]
+                 + tr.can_bus_mlp(can_bus.to(dtype))[:, None])
+        bev_pos = learned_bev_pos(self.positional_encoding.row_embed.weight,
+                                  self.positional_encoding.col_embed.weight)
+        bev_pos = bev_pos.to(dtype)[None].expand(B, -1, -1)
+        ref_2d = reference_2d(bh, bw, dev)[None].expand(B, -1, -1)
+        if prev_bev is None:
+            temporal = None
+            hybrid = torch.stack([ref_2d, ref_2d], dim=1)
+        else:
+            grid = ((pc[4] - pc[1]) / bh, (pc[3] - pc[0]) / bw)
+            shift = bev_shift(can_bus, bh, bw, grid)
+            prev = rotate_bev(prev_bev, can_bus[:, CAN_YAW_DEG], bh, bw)
+            temporal = torch.stack([prev.to(dtype), query], dim=1)
+            hybrid = torch.stack([ref_2d + shift[:, None], ref_2d], dim=1)
+        sca = SCARows(reference_3d(bh, bw, bev.num_points_in_pillar,
+                                   pc[5] - pc[2], dev),
+                      lidar2img, pc, self.img_shape, bev.sca_capacity)
+        for layer in tr.encoder.layers:
+            query = yield from layer.steps(query, bev_pos, temporal, hybrid,
+                                           (bh, bw), value, shapes, sca)
+        yield Eager(self.close_encoder)
         bev_embed = query
 
         # the decoder over the BEV (decoder.py, bevformer_head.py)
@@ -431,4 +485,4 @@ class BEVFormerHead(nn.Module):
             reference_points = torch.cat([xy, z], dim=-1).detach()
         return {"all_cls_scores": torch.stack(cls_scores),
                 "all_bbox_preds": torch.stack(bbox_preds),
-                "bev_embed": bev_embed, "cam_overflow": overflow}
+                "bev_embed": bev_embed, "cam_overflow": sca.overflow}

@@ -30,7 +30,7 @@ import torch.nn.functional as F
 
 from ..config import HeadConfig
 from ..ops import voxelize
-from ..utils.device import resolve_device
+from ..utils.device import device_constant, resolve_device
 from ..utils.math import inverse_sigmoid
 from .head import cls_branch, reg_branch
 from .k1_graph import K1Module
@@ -139,8 +139,8 @@ class BEVDeformableCrossAttn(K1Module):
         attn = self.attention_weights(q).view(B, Q, Hh, L * P)
         attn = torch.softmax(attn.float(), -1).view(B, Q, Hh, L, P)
         shapes = [(v.shape[1], v.shape[2]) for v in values]
-        wh = torch.tensor([[w, h] for h, w in shapes], dtype=torch.float32,
-                          device=query.device)
+        wh = device_constant(tuple((w, h) for h, w in shapes), torch.float32,
+                             query.device)
         ref = reference_points.float()
         if ref.dim() == 3:
             ref = ref[:, :, None]  # one point for every level

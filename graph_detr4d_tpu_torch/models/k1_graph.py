@@ -24,6 +24,8 @@ both, never a reference kept from an earlier call, so its launch counter
 and whatever wraps the attribute see every call.
 """
 
+import warnings
+
 import torch
 import torch.nn as nn
 
@@ -139,7 +141,11 @@ class _Segments:
     def __init__(self, make_steps, inputs, device):
         # normal tensors, not inference tensors: a replay may then write
         # them under inference mode and outside it alike
-        with torch.inference_mode(False), torch.no_grad():
+        with (torch.inference_mode(False), torch.no_grad(),
+              warnings.catch_warnings()):
+            # a generator that opens with an eager stretch (BEVFormer's
+            # span) captures an empty first graph, which replays as nothing
+            warnings.filterwarnings("ignore", "The CUDA Graph is empty")
             self.inputs = [None if t is None else
                            torch.empty(t.shape, dtype=t.dtype, device=t.device)
                            for t in inputs]

@@ -154,19 +154,24 @@ class Engine:
 
     The flagship's head and MP's (models/head.py::Detr3DHeadPE, every
     decoder layer with the deform3d or every one with the MP
-    cross-attention) answer as CUDA graphs between their K1 calls and,
-    MP's, the eager stretches of each layer (its query graph, the opening
-    and closing of its neighbour span): the first request of an input
-    signature runs the head eagerly, the second captures the graphs,
-    later ones replay them. A temporal config's two warm-ups (`infer`,
-    then `infer_stream`) send the head the one signature of a full rig
-    twice, so the capture happens in __init__ and every request replays.
-    A replay copies the request's tensors into the graphs' inputs and
-    returns fresh tensors, `cam_overflow` included, that no later request
-    writes. The PETR heads and the DETR3D and DETR3D-v2 cross-attentions
-    run eagerly. `head_graph_captures` and `head_graph_replays` count it
-    (`counters()`); the warm-ups' capture stays counted, so replays /
-    served is the share of requests that replayed.
+    cross-attention) and BEVFormer's (models/bevformer.py) answer as
+    CUDA graphs between their K1 calls and eager stretches (MP's query
+    graphs, the openings and closings of MP's and BEVFormer's spans):
+    the first request of an input signature runs the head eagerly, the
+    second captures the graphs, later ones replay them. A temporal
+    config's two warm-ups (`infer`, then `infer_stream`) send the head
+    the one signature of a full rig twice, so the capture happens in
+    __init__ and every request replays. BEVFormer's head has two
+    signatures, a stream's first frame (no previous BEV) and a later
+    one; its warm-ups (`infer`, then three `infer_stream` of one stream)
+    send each twice, so both are captured in __init__. A replay copies
+    the request's tensors into the graphs' inputs and returns fresh
+    tensors, `cam_overflow` and the BEV the stream cache keeps included,
+    that no later request writes. The PETR heads and the DETR3D and
+    DETR3D-v2 cross-attentions run eagerly. `head_graph_captures` and
+    `head_graph_replays` count it (`counters()`); the warm-ups' captures
+    stay counted, so replays / served is the share of requests that
+    replayed.
 
     The MP cross-attention (models/attention_variants.py::
     Deform3DCrossAttnMP) builds a query graph in each decoder layer and
@@ -177,11 +182,11 @@ class Engine:
     counts nothing). Both count since the model was built, so they stay
     0 for a head that is not MP.
 
-    BEVFormer's head (models/bevformer.py) runs eagerly: `bev_sca_rows`
-    counts the rows its spatial cross-attention's K1 calls sampled
-    (cameras x capacity a layer) and `bev_sca_overflow` the in-view BEV
-    queries its capacity dropped (a request's `cam_overflow` too), both
-    since the model was built, the warm-ups' included; 0 for any other
+    BEVFormer's head: `bev_sca_rows` counts the rows its spatial
+    cross-attention's K1 calls sampled (cameras x capacity a layer) and
+    `bev_sca_overflow` the in-view BEV queries its capacity dropped (a
+    request's `cam_overflow` too), both since the model was built, the
+    warm-ups' included, replayed requests as eager ones; 0 for any other
     head.
     """
 
@@ -216,9 +221,9 @@ class Engine:
         extras = [synth_extra(n, s) for n, s in self.extras_spec]
         with tracing.span("engine.warm.infer", always=True):
             self.infer(np.zeros((B, N, H, W, 3), img_dtype), l2i, extras)
-        if self.bev_state:  # a stream's first request, then one with a BEV
+        if self.bev_state:  # a stream's first request, then two with a BEV
             with tracing.span("engine.warm.infer_stream", always=True):
-                for _ in range(2):
+                for _ in range(3):
                     self.infer_stream(np.zeros((B, N, H, W, 3), img_dtype),
                                       l2i, extras, stream=None)
             self._streams.clear()
@@ -326,7 +331,8 @@ class Engine:
                                    for m in head.modules()),
             "mp_neighbour_rows": sum(getattr(m, "mp_neighbour_rows", 0)
                                      for m in head.modules()),
-            "bev_sca_rows": getattr(head, "bev_sca_rows", 0),
+            "bev_sca_rows": sum(getattr(m, "bev_sca_rows", 0)
+                                for m in head.modules()),
             "bev_sca_overflow": getattr(head, "bev_sca_overflow", 0.0),
             **launch_counters(),
         }

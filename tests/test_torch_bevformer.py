@@ -17,6 +17,12 @@ widths with its 6 encoder and 6 decoder layers kept (a 16 x 16 BEV, width
     request and `model.head.bev_sca` once an encoder layer inside
     `model.head`, and records nothing with tracing off;
   * the counters `bev_sca_rows` and `bev_sca_overflow`;
+  * the head's eval forward after a signature's first call makes no
+    host copy (`torch.tensor`) and reads no value on the host, so CUDA
+    graphs can capture it (models/k1_graph.py; the capture and the
+    replay are held to the eager head on the card by
+    tests/test_torch_cuda.py), and its `steps` launches K1 only at its
+    yields, in order with its spans' eager stretches;
   * the reference loads nothing of the port and no JAX.
 """
 
@@ -39,8 +45,11 @@ from graph_detr4d_tpu_torch import tracing
 from graph_detr4d_tpu_torch.models.bevformer import (CAN_YAW_DEG,
                                                      CAN_YAW_RAD)
 from graph_detr4d_tpu_torch.models.detector import GraphDETR4D
+from graph_detr4d_tpu_torch.models.k1_graph import Eager
 from graph_detr4d_tpu_torch.models.resnet import ResNet
+from graph_detr4d_tpu_torch.ops import msda as msda_ops
 from graph_detr4d_tpu_torch.serve import Engine
+from test_torch_head_graph import SYNCS, _refuse
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BENCH = os.path.join(ROOT, "benchmark")
@@ -328,6 +337,108 @@ def test_counters_count_sca_rows_and_dropped_queries(setup):
         dropped_now = after["bev_sca_overflow"] - before["bev_sca_overflow"]
         assert dropped_now == sum(a["cam_overflow"] for a in answers)
         assert (dropped_now > 0) == dropped, capacity
+
+
+@pytest.fixture(scope="module")
+def head_inputs(setup):
+    """The tiny program in eval mode and one frame's features."""
+    cfg, _, sd, images, l2i = setup
+    program = GraphDETR4D(cfg, device="cpu")
+    program.load_state_dict(sd, strict=True)
+    program.eval()
+    with torch.no_grad():
+        feats = program.extract_feats(images)
+    return program.pts_bbox_head, feats, l2i
+
+
+def test_head_forward_after_the_first_makes_no_host_copy(head_inputs,
+                                                         monkeypatch):
+    """Both signatures of the head, a scene's first frame (no previous
+    BEV) and a frame with one, each called once to make the device
+    constants, then again with torch.tensor counted and the Tensor
+    methods that read a value on the host patched to raise: no
+    torch.tensor call (the decoder's, TSA's and SCA's (W, H) are
+    device constants), the same outputs as the unpatched calls, and
+    `bev_sca_overflow` summing each call's `cam_overflow` as before."""
+    head, feats, l2i = head_inputs
+    cans = [motion(0), motion(1)]
+    with torch.inference_mode():
+        first = head(feats, l2i, cans[0], None)
+        want = head(feats, l2i, cans[1], first["bev_embed"])
+        before = head.bev_sca_overflow
+        calls = []
+        tensor = torch.tensor
+
+        def counted(*args, **kwargs):
+            calls.append((args, kwargs))
+            return tensor(*args, **kwargs)
+
+        with monkeypatch.context() as patched:
+            patched.setattr(torch, "tensor", counted)
+            for name in SYNCS:
+                patched.setattr(torch.Tensor, name, _refuse(name))
+            got0 = head(feats, l2i, cans[0], None)
+            got1 = head(feats, l2i, cans[1], got0["bev_embed"])
+    assert calls == []
+    for got, ref in ((got0, first), (got1, want)):
+        assert got.keys() == ref.keys()
+        for k in ref:
+            assert torch.equal(got[k], ref[k]), k
+    assert head.bev_sca_overflow - before == float(
+        got0["cam_overflow"] + got1["cam_overflow"])
+
+
+def test_head_steps_launch_k1_only_at_their_yields(head_inputs, monkeypatch):
+    """head.steps yields the encoder span's opening, then a layer TSA's
+    K1 call and SCA's inside its span's opening and closing, then the
+    encoder span's closing and the decoder's 6 K1 calls; driven by hand
+    with msda_ops.msda_forward patched to raise, each eager stretch run
+    at its yield, it gives forward's outputs bit for bit, counts
+    cameras x capacity SCA rows a layer and records the spans nested
+    as forward's."""
+    head, feats, l2i = head_inputs
+    can = motion(1)
+    layers = head.cfg.bev.num_encoder_layers
+    rows = head.cfg.head.num_cams * head.cfg.bev.sca_capacity
+
+    def sca_rows():
+        return sum(getattr(m, "bev_sca_rows", 0) for m in head.modules())
+
+    with torch.no_grad():
+        prev = head(feats, l2i, motion(0), None)["bev_embed"]
+        want = head(feats, l2i, can, prev)
+        k1 = msda_ops.msda_forward
+        monkeypatch.setattr(msda_ops, "msda_forward", _refuse("K1 launch"))
+        steps = head.steps(list(feats), l2i, can, prev)
+        order, sent, counted = [], None, sca_rows()
+        tracing.drain()
+        tracing.enable()
+        try:
+            while True:
+                try:
+                    step = steps.send(sent)
+                except StopIteration as done:
+                    got = done.value
+                    break
+                if isinstance(step, Eager):
+                    order.append(step.fn.__name__)
+                    sent = step.fn(*step.args)
+                else:
+                    order.append("k1")
+                    assert len(step) == 5
+                    sent = k1(*step)
+        finally:
+            tracing.disable()
+    assert order == (["open_encoder"]
+                     + layers * ["k1", "open_span", "k1", "close_span"]
+                     + ["close_encoder"]
+                     + head.cfg.head.num_decoder_layers * ["k1"])
+    assert sca_rows() - counted == layers * rows
+    spans = tracing.drain()
+    assert [r.name for r in spans] == (layers * ["model.head.bev_sca"]
+                                       + ["model.head.bev_encoder"])
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
 
 
 def test_reference_loads_nothing_of_the_port_and_no_jax():

@@ -1507,6 +1507,178 @@ def test_mp_head_graphs_replay_the_eager_head(cuda, monkeypatch):
     assert all(isinstance(c, tuple) for c in segments.cuts)
 
 
+def _tiny_bevformer_head(dev):
+    """BEVFormer's head at a tiny width with its 6 encoder and 6 decoder
+    layers (a 20 x 20 BEV, width 32, 6 cameras, 4 levels; sca_capacity
+    48 of the 400 queries, so the compaction drops some), seeded
+    weights, in eval mode."""
+    from graph_detr4d_tpu_torch import configs
+    from graph_detr4d_tpu_torch.models.bevformer import BEVFormerHead
+    from graph_detr4d_tpu_torch.weights import init_weights
+
+    cfg = configs.get_config("bevformer_base", [
+        "img_size=(64,160)", "head.num_query=24", "head.embed_dims=32",
+        "head.num_heads=4", "head.ffn_dims=64", "head.num_cams=6",
+        "head.num_frame_cams=6", "bev.bev_h=20", "bev.bev_w=20",
+        "bev.sca_capacity=48"])
+    head = BEVFormerHead(cfg)
+    init_weights(head, seed=0)
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for p in (head.transformer.level_embeds, head.transformer.cams_embeds):
+            p.copy_(torch.randn(p.shape, generator=g))
+    return head.to(dev).eval()
+
+
+def _bev_request(dev, seed, dtype):
+    """One BEVFormer request's head inputs from the seed: 4 levels of (1,
+    6, h, w, 32) features in dtype, the synthetic rig's lidar2img and a
+    can_bus motion (translation, yaw in radians and, the frame's change,
+    in degrees)."""
+    from graph_detr4d_tpu_torch.data.synthetic import synthetic_camera_rig
+    from graph_detr4d_tpu_torch.models.bevformer import (CAN_YAW_DEG,
+                                                         CAN_YAW_RAD)
+
+    g = torch.Generator().manual_seed(seed)
+    feats = [torch.randn(1, 6, h, w, 32, generator=g).to(dev, dtype)
+             for h, w in ((8, 20), (4, 10), (2, 5), (1, 3))]
+    l2i = torch.from_numpy(synthetic_camera_rig(6, (64, 160), seed=seed))
+    can = torch.zeros(1, 18)
+    can[0, :2] = 3.0 * torch.rand(2, generator=g) - 1.5
+    can[0, CAN_YAW_RAD] = 6.0 * torch.rand(1, generator=g).item()
+    can[0, CAN_YAW_DEG] = 8.0 * torch.rand(1, generator=g).item() - 4.0
+    return feats, l2i[None].to(dev), can.to(dev)
+
+
+def _bev_counts(head):
+    """(SCA rows, K1 launches) so far."""
+    return (sum(getattr(m, "bev_sca_rows", 0) for m in head.modules()),
+            msda_ops.launches)
+
+
+# a scene's first frame (True: no previous BEV) or a later one, call by
+# call: each signature runs eagerly, then captures, then replays
+BEV_STREAM = (True, False, False, True, False, True, False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bevformer_head_graphs_replay_the_eager_head(cuda, dtype):
+    """BEVFormer's head as CUDA graphs between its 18 K1 calls and its
+    spans' eager stretches, over a stream of 7 requests that starts two
+    more scenes (BEV_STREAM): both signatures, a first frame without a
+    BEV and a frame with one, run eagerly, capture and replay. Each
+    call's outputs, bev_embed and cam_overflow included, equal the eager
+    head's (run_k1 over head.steps on the same inputs) bit for bit, the
+    next request reading the BEV the graphed head returned; the graphs
+    are cut 4 times an encoder layer, once a decoder layer and at the
+    encoder span's opening and closing."""
+    from graph_detr4d_tpu_torch.models.k1_graph import run_k1
+
+    head = _tiny_bevformer_head(cuda)
+    enc, dec = head.cfg.bev.num_encoder_layers, head.cfg.head.num_decoder_layers
+    seen, prev = {True: 0, False: 0}, None
+    captures = replays = 0
+    with torch.no_grad():
+        for i, first in enumerate(BEV_STREAM):
+            feats, l2i, can = _bev_request(cuda, i, dtype)
+            prev = None if first else prev
+            want = run_k1(head.steps(feats, l2i, can, prev))
+            got = head(feats, l2i, can, prev)
+            torch.cuda.synchronize()
+            seen[first] += 1
+            captures += seen[first] == 2
+            replays += seen[first] > 2
+            assert (head.graphs.captures, head.graphs.replays) == (
+                captures, replays), i
+            assert got.keys() == want.keys()
+            for k in want:
+                assert torch.equal(got[k], want[k]), (i, k)
+            prev = got["bev_embed"]
+    assert replays == 3 and float(want["cam_overflow"]) > 0
+    assert len(head.graphs._sets) == 2
+    for segments in head.graphs._sets.values():
+        assert len(segments.graphs) == 4 * enc + 2 + dec + 1
+
+
+@pytest.mark.cuda
+def test_bevformer_graph_bevs_are_the_callers_own(cuda):
+    """Two streams interleaved request by request, each reading the BEV
+    its previous request returned: every returned BEV equals the eager
+    head's, is a fresh tensor that none of the graphs' inputs, outputs
+    or results alias, and still holds its values after the later
+    replays of both signatures wrote the graphs' memory."""
+    from graph_detr4d_tpu_torch.models.k1_graph import run_k1
+
+    head = _tiny_bevformer_head(cuda)
+    prev, kept = {"a": None, "b": None}, []
+    with torch.no_grad():
+        for frame in range(4):
+            for stream, base in (("a", 0), ("b", 100)):
+                feats, l2i, can = _bev_request(cuda, base + frame,
+                                               torch.bfloat16)
+                want = run_k1(head.steps(feats, l2i, can, prev[stream]))
+                got = head(feats, l2i, can, prev[stream])
+                assert torch.equal(got["bev_embed"], want["bev_embed"]), (
+                    frame, stream)
+                prev[stream] = got["bev_embed"]
+                kept.append((got["bev_embed"], want["bev_embed"]))
+        torch.cuda.synchronize()
+    assert (head.graphs.captures, head.graphs.replays) == (2, 4)
+    graph_ptrs = set()
+    for segments in head.graphs._sets.values():
+        tensors = [*segments.inputs, *segments.outs,
+                   *segments.result.values()]
+        graph_ptrs |= {t.untyped_storage().data_ptr() for t in tensors
+                       if t is not None}
+    for bev, want in kept:
+        assert bev.untyped_storage().data_ptr() not in graph_ptrs
+        assert torch.equal(bev, want)
+
+
+@pytest.mark.cuda
+def test_bevformer_replay_counts_as_the_eager_head(cuda):
+    """A replayed request advances bev_sca_rows (cameras x capacity an
+    encoder layer), K1's launches (18) and bev_sca_overflow (its own
+    cam_overflow) as an eager call of the same signature, and, traced,
+    records one model.head.bev_encoder span and 6 model.head.bev_sca
+    spans inside it, each with CUDA events, as the eager call does."""
+    from graph_detr4d_tpu_torch import tracing
+
+    head = _tiny_bevformer_head(cuda)
+    enc, dec = head.cfg.bev.num_encoder_layers, head.cfg.head.num_decoder_layers
+    rows = 6 * head.cfg.bev.sca_capacity
+    prev = None
+    with torch.no_grad():
+        for i, first in enumerate(BEV_STREAM):
+            feats, l2i, can = _bev_request(cuda, i, torch.bfloat16)
+            prev = None if first else prev
+            before, overflow = _bev_counts(head), head.bev_sca_overflow
+            tracing.drain()
+            tracing.enable()
+            try:
+                got = head(feats, l2i, can, prev)
+            finally:
+                tracing.disable()
+            torch.cuda.synchronize()
+            after = _bev_counts(head)
+            assert (after[0] - before[0], after[1] - before[1]) == (
+                enc * rows, 2 * enc + dec), i
+            assert head.bev_sca_overflow - overflow == float(
+                got["cam_overflow"]), i
+            spans = tracing.drain()
+            encoders = [r for r in spans if r.name == "model.head.bev_encoder"]
+            scas = [r for r in spans if r.name == "model.head.bev_sca"]
+            assert (len(encoders), len(scas)) == (1, enc), i
+            (e,) = encoders
+            for r in encoders + scas:
+                assert r.events is not None and r.device_ms() > 0, i
+            for r in scas:
+                assert e.start_ns <= r.start_ns <= r.end_ns <= e.end_ns, i
+            prev = got["bev_embed"]
+    assert head.graphs.replays == 3
+
+
 # ---- serve.Engine's staged input copy (parallel/transfer.py::StagedCopy)
 
 
